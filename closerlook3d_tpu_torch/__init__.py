@@ -8,8 +8,9 @@ the same module: CUDA tensors go to the kernel, CPU tensors to the plain
 version (``ops/dispatch.py``). This package imports ``torch`` and never
 ``jax``, ``flax``, ``ml_collections`` or ``closerlook3d_tpu``.
 
-Ported so far: the ModelNet40 PosPool (xyz) classification forward and
-its serving entry point, ``serving.predictor.Predictor``.
+Ported so far: ModelNet40 PosPool (xyz) classification, served through
+``serving.predictor.Predictor`` and trained through ``train/``
+(``make_optimizer``, ``create_train_state``, ``make_train_step``).
 """
 
 __version__ = "0.1.0"

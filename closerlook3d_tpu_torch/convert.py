@@ -107,7 +107,7 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module
         if tuple(arr.shape) != tuple(expected[tk].shape):
             raise ValueError(f"{fk}: shape {arr.shape} does not fit {tk} "
                              f"{tuple(expected[tk].shape)}")
-        out[tk] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[tk] = torch.from_numpy(np.array(arr, order="C"))  # own copy
         used.add(fk)
     unused = sorted(set(flat) - used)
     if unused:
@@ -119,14 +119,22 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
-                       model: nn.Module) -> Dict[str, np.ndarray]:
-    """A port ``state_dict`` -> flat flax variables (``weights.npz`` keys)."""
-    rows = key_map(model)
+                       model: nn.Module,
+                       params_only: bool = False) -> Dict[str, np.ndarray]:
+    """A port ``state_dict`` -> flat flax variables (``weights.npz`` keys).
+
+    ``params_only`` maps only the ``params/...`` keys, for tensors laid
+    out like the parameters, such as their gradients
+    ({name: p.grad for name, p in model.named_parameters()}).
+    """
+    rows = [r for r in key_map(model)
+            if not params_only or r[0].startswith("params/")]
     extra = sorted(set(state_dict) - {tk for _, tk, _ in rows})
     if extra:
         raise KeyError(f"state_dict keys with no flax counterpart: {extra}")
     out = {}
     for fk, tk, transposed in rows:
         arr = state_dict[tk].detach().cpu().float().numpy()
-        out[fk] = np.ascontiguousarray(arr.T if transposed else arr)
+        # a copy: on the CPU ``arr`` shares memory with the live tensor
+        out[fk] = np.array(arr.T if transposed else arr, order="C")
     return out

@@ -1,9 +1,100 @@
-"""Input feature layout (``closerlook3d_tpu/data/loader.py::feature_dim``)."""
+"""Batching and input features (``closerlook3d_tpu/data/loader.py``).
+
+Numpy only, as in the JAX package: ``BatchIterator`` stacks the samples of
+a len/__getitem__ dataset into fixed-shape batches; the train step moves
+them to the card. Single process: the JAX package's per-process sharding
+(data parallelism, ROADMAP A5) and its ``PrefetchIterator`` are not
+ported yet.
+"""
 
 from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+
+from closerlook3d_tpu_torch.data.spatial_host import morton_sort_batch
+
+
+def build_features(sample_or_batch: Dict[str, np.ndarray],
+                   spec: str) -> np.ndarray:
+    """The model's input features named by ``spec``, a comma-separated
+    list of {ones, xyz, normals, rgb, height}, concatenated in f32."""
+    xyz = sample_or_batch["xyz"]
+    parts = []
+    for name in spec.split(","):
+        name = name.strip()
+        if name == "ones":
+            parts.append(np.ones_like(xyz[..., :1]))
+        elif name == "xyz":
+            parts.append(xyz)
+        elif name == "normals":
+            parts.append(sample_or_batch["normals"])
+        elif name == "rgb":
+            parts.append(sample_or_batch["rgb"])
+        elif name == "height":
+            # scene datasets emit absolute height separately; z otherwise
+            parts.append(sample_or_batch.get("height", xyz[..., 2:3]))
+        else:
+            raise ValueError(f"unknown input feature: {name}")
+    return np.concatenate(parts, axis=-1).astype(np.float32)
 
 
 def feature_dim(spec: str) -> int:
     """Channels of the per-point input features named by ``spec``."""
     dims = {"ones": 1, "xyz": 3, "normals": 3, "rgb": 3, "height": 1}
     return sum(dims[p.strip()] for p in spec.split(","))
+
+
+class BatchIterator:
+    """Epoch iterator producing stacked numpy batches.
+
+    Shuffled iteration draws its order from (seed, epoch); ``drop_last``
+    drops the ragged last batch (train), otherwise the last batch is
+    padded by repeating its last sample and ``batch_pad`` marks the
+    padding. ``spatial_sort`` Morton-sorts each batch on the host
+    (``cfg.spatial_sort == "host"``).
+    """
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool,
+                 feature_spec: str, seed: int = 0, drop_last: bool = True,
+                 spatial_sort: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.feature_spec = feature_spec
+        self.seed = seed
+        self.drop_last = drop_last
+        self.spatial_sort = spatial_sort
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed * 65537 + self.epoch)
+            rng.shuffle(order)
+        n = len(order)
+        bs = self.batch_size
+        stop = (n // bs) * bs if self.drop_last else n
+        for start in range(0, stop, bs):
+            sel = order[start:start + bs]
+            pad = bs - len(sel)
+            if pad:
+                sel = np.concatenate([sel, np.repeat(sel[-1:], pad)])
+            samples = [self.dataset[int(i)] for i in sel]
+            batch = {k: np.stack([s[k] for s in samples])
+                     for k in samples[0]}
+            batch["features"] = build_features(batch, self.feature_spec)
+            batch["batch_pad"] = np.arange(bs) >= (bs - pad)
+            if self.spatial_sort:
+                batch = morton_sort_batch(batch)
+            yield batch

@@ -2,5 +2,6 @@
 
 from closerlook3d_tpu_torch.models.build import (  # noqa: F401
     ClassificationModel,
+    build_classification,
     build_model,
 )

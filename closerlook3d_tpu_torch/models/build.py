@@ -1,26 +1,35 @@
-"""Model factory (``closerlook3d_tpu/models/build.py``), classification.
+"""Model factories (``closerlook3d_tpu/models/build.py``), classification.
 
 ``spatial_sort="host"`` (the default) means the data pipeline already
 Morton-sorted each batch (``data/spatial_host.py``), so the model does not
 sort on the device; the device sort of the other modes is not ported yet.
+Train or eval mode is the module's own (``model.train()`` /
+``model.eval()``): BatchNorm reads it, and so does the head's dropout,
+which draws from the generator given to ``forward``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
 from closerlook3d_tpu_torch.models.backbone import ResNetBackbone
 from closerlook3d_tpu_torch.models.heads import ClassifierHead
+from closerlook3d_tpu_torch.models.losses import (
+    label_smoothing_cross_entropy)
 from closerlook3d_tpu_torch.models.nn_utils import BatchNorm
 
 
 class ClassificationModel(nn.Module):
     """forward(xyz [B,N,3] f32, mask [B,N] bool, features [B,N,D] f32,
-    geometry=None) -> logits [B, num_classes] f32."""
+    geometry=None, generator=None) -> logits [B, num_classes] f32.
+
+    ``geometry`` is a precomputed ``compute_geometry`` dict; ``generator``
+    draws the dropout masks in train mode."""
 
     def __init__(self, config):
         super().__init__()
@@ -32,9 +41,10 @@ class ClassificationModel(nn.Module):
         self.head = ClassifierHead(self.backbone.out_channels,
                                    config.num_classes, config)
 
-    def forward(self, xyz, mask, features, geometry=None):
+    def forward(self, xyz, mask, features, geometry=None, generator=None):
         return self.head(self.backbone(xyz, mask, features,
-                                       geometry=geometry))
+                                       geometry=geometry),
+                         generator=generator)
 
 
 @torch.no_grad()
@@ -67,3 +77,16 @@ def build_model(cfg, generator: Optional[torch.Generator] = None
         generator = torch.Generator().manual_seed(int(cfg.rng_seed))
     init_weights_(model, generator)
     return model.eval()
+
+
+def build_classification(cfg) -> Tuple[nn.Module, Callable]:
+    """(model, loss_fn), as the JAX package's ``build_classification``.
+
+    The model is ``build_model(cfg)``'s: on the CPU, weights seeded by
+    ``cfg.rng_seed`` (the JAX package draws them in
+    ``create_train_state``); ``train.state.create_train_state`` moves it
+    to the card. loss_fn(logits, labels) is label-smoothing CE.
+    """
+    loss_fn = functools.partial(label_smoothing_cross_entropy,
+                                smoothing=cfg.label_smoothing)
+    return build_model(cfg), loss_fn

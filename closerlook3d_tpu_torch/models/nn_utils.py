@@ -14,13 +14,20 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` over the last axis (eval mode).
+    """Flax ``nn.BatchNorm`` over the last axis (flax 0.12 numerics).
 
     ``weight``/``bias`` are flax's ``scale``/``bias`` params,
     ``running_mean``/``running_var`` its ``batch_stats`` mean/var. The
     normalization runs in f32 and the result takes the input's dtype:
     y = (x - mean) * (rsqrt(var + eps) * scale) + bias, as flax computes
     it. ``momentum`` is flax's (0.9 keeps 90% of the running value).
+
+    Train mode (``self.training``) normalizes with the batch statistics,
+    taken in f32 over every row of ``[..., C]`` (padding included, as
+    flax's unmasked BatchNorm), with flax's fast variance
+    max(E[x^2] - E[x]^2, 0), and updates the running statistics with that
+    *biased* variance: ra = momentum * ra + (1 - momentum) * stat.
+    (``torch.nn.BatchNorm1d`` keeps the unbiased variance instead.)
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -34,13 +41,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm (flax's batch statistics and running "
-                "update: biased variance, momentum 0.9) is not ported yet "
-                "(ROADMAP A1); call .eval()")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+            rows = tuple(range(x.ndim - 1))
+            mean = x32.mean(dim=rows)
+            var = torch.clamp((x32 * x32).mean(dim=rows) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean) * mul + self.bias
         return y.to(x.dtype)
 
 

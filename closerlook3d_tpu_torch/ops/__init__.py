@@ -2,7 +2,8 @@
 
   ball_query             <- ops/pallas/neighbors.py ball-query kernels
   furthest_point_sample  <- ops/pallas/sampling.py FPS kernel
-  pospool_fused          <- ops/pallas/aggregation.py PosPool xyz forward
+  pospool_fused          <- ops/pallas/aggregation.py PosPool xyz fwd + bwd
+  neighborhood_max       <- ops/pallas/gather_reduce.py masked max fwd + bwd
   group_features, masked_* reductions: plain gathers.
 """
 

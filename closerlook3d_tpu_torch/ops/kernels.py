@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import torch
@@ -71,6 +72,14 @@ def build(name: str) -> str:
     with open(lib + ".ptxas.txt", "w") as f:
         f.write(proc.stderr)
     return lib
+
+
+def build_all(names) -> Dict[str, str]:
+    """Build several sources at once, one ``nvcc`` process each, all
+    started together; {name: .so path}. Raises if any build fails."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

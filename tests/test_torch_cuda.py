@@ -5,19 +5,27 @@ with one:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-``chip_smoke.py`` checks the kernels at the flagship forward's shapes;
-these cases cover what that path does not reach: FPS beyond 1024 points
-(several points per thread), query counts off the block size, supports
-across shared-memory tile edges, K at its bound and above Ns, masked
-and empty inputs, f32 and bf16, and the wrappers' refusals.
+``chip_smoke.py`` checks the kernels at the shapes of the flagship
+forward and of the ModelNet40 train step; these cases cover what those
+paths do not reach: FPS beyond 1024 points (several points per thread),
+query counts off the block size, supports across shared-memory tile
+edges, K at its bound and above Ns, channel counts off the thread block
+(C = 3, 300, 1152), masked queries and empty neighborhoods, f32 and
+bf16, the backward kernels (PosPool and neighborhood max, ties
+included), the autograd wiring, and the wrappers' refusals.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from closerlook3d_tpu_torch.ops import aggregation, grouping
 from closerlook3d_tpu_torch.ops.aggregation import (
-    pospool_xyz_cuda, pospool_xyz_plain)
+    pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain, pospool_xyz_cuda,
+    pospool_xyz_plain)
+from closerlook3d_tpu_torch.ops.grouping import (
+    neighborhood_max_bwd_cuda, neighborhood_max_bwd_plain,
+    neighborhood_max_cuda, neighborhood_max_plain)
 from closerlook3d_tpu_torch.ops.neighbors import (
     MAX_K, ball_query_cuda, ball_query_plain)
 from closerlook3d_tpu_torch.ops.sampling import (
@@ -131,3 +139,93 @@ def test_launch_counters_count_launches_only():
     with pytest.raises(ValueError):
         ball_query_cuda(q, q, 0.3, 0, qmask, qmask)
     assert ball_query_cuda.launches == before + 1
+
+
+def _neighborhoods(nq, ns, k, seed=10):
+    s, smask = _cloud(seed, 3, ns, masked_frac=0.2)
+    q, qmask = _cloud(seed + 1, 3, nq, masked_frac=0.1)
+    idx, nmask = ball_query_cuda(q, s, 0.4, k, qmask, smask)
+    assert (~nmask.any(-1)).any()  # empty neighborhoods (masked cloud)
+    return q, s, idx, nmask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("nq,ns,c,k", [
+    (70, 300, 3, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
+    (40, 5, 12, 8)])  # the last: K > Ns
+def test_pospool_bwd_kernel_matches_plain(dtype, reduction, nq, ns, c, k):
+    q, s, idx, nmask = _neighborhoods(nq, ns, k)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dy = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
+    got = pospool_xyz_bwd_cuda(q, s, idx, nmask, dy, 0.4, reduction)
+    twin = pospool_xyz_bwd_plain(q, s, idx, nmask, dy, 0.4, reduction)
+    assert got.dtype == dtype and got.shape == (3, ns, c)
+    if dtype == torch.float32:
+        # the same f32 terms, summed in atomic order
+        tol = dict(rtol=1e-5, atol=1e-6 if reduction == "avg" else 1e-5)
+    else:
+        # both sum in f32 and round once: one bf16 ulp at most
+        tol = dict(rtol=8e-3, atol=1e-5)
+    torch.testing.assert_close(got.float(), twin.float(), **tol)
+    assert (got[-1] == 0).all()  # the all-masked cloud gets nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["ties", "distinct"])
+@pytest.mark.parametrize("nq,ns,c,k", [
+    (70, 300, 3, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
+    (40, 5, 12, 8)])
+def test_neighborhood_max_kernels_match_plain(dtype, values, nq, ns, c, k):
+    _, _, idx, nmask = _neighborhoods(nq, ns, k, seed=12)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    f = torch.randn((3, ns, c), generator=gen, device="cuda")
+    if values == "ties":  # post-ReLU values on a coarse grid
+        f = torch.relu(torch.round(f * 2) / 2)
+    f = f.to(dtype)
+    out = neighborhood_max_cuda(f, idx, nmask)
+    assert torch.equal(out, neighborhood_max_plain(f, idx, nmask))
+    assert (out[-1] == 0).all()  # empty neighborhoods give 0
+    dy = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
+    got = neighborhood_max_bwd_cuda(f, idx, nmask, out, dy)
+    twin = neighborhood_max_bwd_plain(f, idx, nmask, out, dy)
+    tol = (dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=8e-3, atol=1e-5))
+    torch.testing.assert_close(got.float(), twin.float(), **tol)
+
+
+@pytest.mark.parametrize("op", ["pospool", "max"])
+def test_autograd_launches_the_backward_kernels(op):
+    q, s, idx, nmask = _neighborhoods(60, 200, 16, seed=14)
+    f = torch.randn((3, 200, 24), device="cuda", requires_grad=True)
+    if op == "pospool":
+        fused = lambda x: aggregation.pospool_fused(  # noqa: E731
+            q, s, x, idx, nmask, 0.4, "xyz", "avg")
+        plain = lambda x: pospool_xyz_plain(  # noqa: E731
+            q, s, x, idx, nmask, 0.4, "avg")
+        fwd, bwd = pospool_xyz_cuda, pospool_xyz_bwd_cuda
+    else:
+        fused = lambda x: grouping.neighborhood_max(  # noqa: E731
+            x, idx, nmask)
+        plain = lambda x: neighborhood_max_plain(x, idx, nmask)  # noqa
+        fwd, bwd = neighborhood_max_cuda, neighborhood_max_bwd_cuda
+    before = (fwd.launches, bwd.launches)
+    dy = torch.randn((3, 60, 24), device="cuda")
+    (got,) = torch.autograd.grad(fused(f), f, dy)
+    (ref,) = torch.autograd.grad(plain(f), f, dy)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    q, s, idx, nmask = _neighborhoods(20, 50, 4, seed=15)
+    dy = torch.randn((3, 20, 9), device="cuda")
+    with pytest.raises(ValueError, match="dy must be"):
+        pospool_xyz_bwd_cuda(q, s, idx, nmask, dy[:, :10].contiguous(), 0.4,
+                             "avg")
+    f = torch.randn((3, 50, 9), device="cuda")
+    out = neighborhood_max_cuda(f, idx, nmask)
+    with pytest.raises(ValueError, match="dtype"):
+        neighborhood_max_bwd_cuda(f, idx, nmask, out, dy.bfloat16())
+    with pytest.raises(ValueError, match="int32"):
+        neighborhood_max_cuda(f, idx.long(), nmask)

@@ -171,19 +171,33 @@ def test_port_imports_no_jax():
         "import closerlook3d_tpu_torch\n"
         "from closerlook3d_tpu_torch.utils.config import load_config\n"
         "from closerlook3d_tpu_torch.serving import Predictor\n"
-        "from closerlook3d_tpu_torch.models import build_model\n"
+        "from closerlook3d_tpu_torch.models import build_classification\n"
+        "from closerlook3d_tpu_torch.train import (create_train_state,\n"
+        "    make_eval_step, make_optimizer, make_train_step)\n"
+        "from closerlook3d_tpu_torch.data.loader import BatchIterator\n"
+        "from closerlook3d_tpu_torch.data.synthetic import (\n"
+        "    SyntheticClassification)\n"
         "cfg = load_config()\n"
         "cfg.update(num_points=64, num_classes=8, width=24, depth=1,\n"
         "           nsamples=[8, 8, 8], radius=0.4, precision='f32',\n"
-        "           cls_head_dims=[32, 16])\n"
-        "p = Predictor(cfg, build_model(cfg).state_dict(), device='cpu')\n"
+        "           cls_head_dims=[32, 16], batch_size=2)\n"
+        "model, loss_fn = build_classification(cfg)\n"
+        "state = create_train_state(model, make_optimizer(cfg, 4)[0],\n"
+        "                           device='cpu')\n"
+        "batch = next(iter(BatchIterator(SyntheticClassification(4, 64),\n"
+        "                                2, True, 'xyz', spatial_sort=True)))\n"
+        "state, m = make_train_step(loss_fn, cfg.task)(state, batch, 0)\n"
+        "assert torch.isfinite(m['loss'])\n"
+        "make_eval_step(loss_fn, cfg.task)(state, batch)\n"
+        "p = Predictor(cfg, state.model.state_dict(), device='cpu')\n"
         "x = np.random.default_rng(0).uniform(-1, 1, (2, 64, 3))\n"
         "out = p(x, np.ones((2, 64), bool), x)\n"
         "assert out.shape == (2, 8) and torch.isfinite(out).all()\n"
-        "bad = [m for m in ('jax', 'flax', 'ml_collections',\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'ml_collections',\n"
         "                   'closerlook3d_tpu') if m in sys.modules]\n"
         "bad += [m for m in sys.modules\n"
-        "        if m.startswith(('jax.', 'flax.', 'closerlook3d_tpu.'))]\n"
+        "        if m.startswith(('jax.', 'flax.', 'optax.',\n"
+        "                         'closerlook3d_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -20,7 +20,7 @@ from closerlook3d_tpu.ops.neighbors import ball_query as jball_query
 from closerlook3d_tpu.ops.sampling import furthest_point_sample as jfps
 from closerlook3d_tpu_torch.ops import grouping as tgrouping
 from closerlook3d_tpu_torch.ops.aggregation import (
-    pospool_fused, pospool_xyz_cuda)
+    pospool_fused, pospool_xyz_bwd_cuda, pospool_xyz_cuda)
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.neighbors import ball_query, ball_query_cuda
 from closerlook3d_tpu_torch.ops.sampling import (
@@ -262,16 +262,25 @@ def test_kernel_launchers_refuse_cpu_tensors(grouped):
     q, feats, idx, nmask, r = grouped
     x, f = torch.from_numpy(q), torch.from_numpy(feats)
     i, m = torch.from_numpy(idx), torch.from_numpy(nmask)
-    before = (ball_query_cuda.launches, furthest_point_sample_cuda.launches,
-              pospool_xyz_cuda.launches)
+    wrappers = (ball_query_cuda, furthest_point_sample_cuda,
+                pospool_xyz_cuda, pospool_xyz_bwd_cuda,
+                tgrouping.neighborhood_max_cuda,
+                tgrouping.neighborhood_max_bwd_cuda)
+    before = [w.launches for w in wrappers]
+    dy = torch.zeros((2, 96, 12))
     with pytest.raises(ValueError, match="CUDA"):
         ball_query_cuda(x, x, r, 6)
     with pytest.raises(ValueError, match="CUDA"):
         furthest_point_sample_cuda(x, 8)
     with pytest.raises(ValueError, match="CUDA"):
         pospool_xyz_cuda(x, x, f, i, m, r, "avg")
-    assert (ball_query_cuda.launches, furthest_point_sample_cuda.launches,
-            pospool_xyz_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        pospool_xyz_bwd_cuda(x, x, i, m, dy, r, "avg")
+    with pytest.raises(ValueError, match="CUDA"):
+        tgrouping.neighborhood_max_cuda(f, i, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgrouping.neighborhood_max_bwd_cuda(f, i, m, dy, dy)
+    assert [w.launches for w in wrappers] == before
 
 
 def test_dispatch_follows_device_only(monkeypatch):
