@@ -12,15 +12,19 @@ with every check raising on failure and no CPU fallback:
   forward (1024 points, width 144, depth 2, bf16), serves requests
   through ``Predictor``, checks the launch counters and the f32 forward
   against the CPU;
-* training, on ``configs/modelnet40/pospool_xyz_avg.yaml`` at full width
-  and depth (5000 points, batch 32; set here in code, so PyYAML is not
-  needed): checks every kernel of the train step forward and backward
-  against its plain version at every call shape, in f32 and bf16; holds
-  an f32 train step through the kernels to one through the plain
-  versions (same weights, batch and geometry) and checks that every
-  parameter gets a gradient; trains 15 bf16 steps on one batch (the loss
-  must fall) with per-step launch counts; ends with an eval step and a
-  ``Predictor`` request at that config;
+* training, on three ModelNet40 configs at full width and depth (5000
+  points, batch 32; set here in code, so PyYAML is not needed):
+  ``pospool_xyz_avg.yaml``, ``pospool_sincos_avg.yaml`` and
+  ``adaptive_weight_dp_fc1_avg.yaml``. For each: checks its aggregation
+  kernels (PosPool xyz, PosPool sin/cos, or the neighborhood moments)
+  forward and backward against their plain versions at every call shape
+  of the train step, in f32 and bf16 (for the xyz config also the ball
+  query, FPS and the neighborhood max); holds an f32 train step through
+  the kernels to one through the plain versions (same weights, batch and
+  geometry) and checks that every parameter gets a gradient; trains bf16
+  steps on one batch (the loss must fall) with exact per-step launch
+  counts; ends with an eval step and timed ``Predictor`` requests at
+  that config;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -109,6 +113,23 @@ def slice_config():
     return cfg
 
 
+def operator_config(kind: str):
+    """``configs/modelnet40/pospool_sincos_avg.yaml`` (kind "sincos") or
+    ``configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml`` ("adaptive"),
+    set in code; CPU tests hold each equal to its file."""
+    cfg = slice_config()
+    if kind == "sincos":
+        cfg.pospool.position_embedding = "sin_cos"
+    elif kind == "adaptive":
+        cfg.local_aggregation_type = "adaptive_weight"
+        cfg.adaptive_weight.local_input_feature = "dp"
+        cfg.adaptive_weight.fc_num = 1
+        cfg.adaptive_weight.reduction = "avg"
+    else:
+        raise ValueError(kind)
+    return cfg
+
+
 def make_batch(seed: int, padded=(), all_masked=(), duplicated=(),
                batch: int = BATCH, points: int = 1024):
     """Morton-sorted synthetic shape clouds, as the data loader feeds them.
@@ -144,8 +165,8 @@ def gpu_line() -> str:
 
 def kernel_wrappers():
     """{kernel name: its launching wrapper}, in the kernels line's order."""
-    from closerlook3d_tpu_torch.ops.aggregation import (
-        pospool_xyz_bwd_cuda, pospool_xyz_cuda)
+    from closerlook3d_tpu_torch.ops import aggregation as agg
+    from closerlook3d_tpu_torch.ops import moments as mom
     from closerlook3d_tpu_torch.ops.grouping import (
         neighborhood_max_bwd_cuda, neighborhood_max_cuda)
     from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
@@ -153,10 +174,55 @@ def kernel_wrappers():
 
     return {"ball_query": ball_query_cuda,
             "fps": furthest_point_sample_cuda,
-            "pospool_xyz": pospool_xyz_cuda,
-            "pospool_xyz_bwd": pospool_xyz_bwd_cuda,
+            "pospool_xyz": agg.pospool_xyz_cuda,
+            "pospool_xyz_bwd": agg.pospool_xyz_bwd_cuda,
             "neighborhood_max": neighborhood_max_cuda,
-            "neighborhood_max_bwd": neighborhood_max_bwd_cuda}
+            "neighborhood_max_bwd": neighborhood_max_bwd_cuda,
+            "pospool_sincos": agg.pospool_sincos_cuda,
+            "pospool_sincos_bwd": agg.pospool_sincos_bwd_cuda,
+            "moments": mom.neighborhood_moments_cuda,
+            "moments_bwd": mom.neighborhood_moments_bwd_cuda}
+
+
+# The training configs, by kind, and the aggregation kernel pair each one's
+# LocalAggregation runs (14 calls per forward at depth 2).
+TRAIN_KINDS = ("xyz", "sincos", "adaptive")
+AGG_KERNELS = {"xyz": ("pospool_xyz", "pospool_xyz_bwd"),
+               "sincos": ("pospool_sincos", "pospool_sincos_bwd"),
+               "adaptive": ("moments", "moments_bwd")}
+
+
+def train_config(kind: str):
+    return slice_config() if kind == "xyz" else operator_config(kind)
+
+
+def agg_ops(kind: str):
+    """(forward kernel, its plain version, backward kernel, its plain twin,
+    output channels per input channel) of a config's aggregation."""
+    from closerlook3d_tpu_torch.ops import aggregation as agg
+    from closerlook3d_tpu_torch.ops import moments as mom
+
+    return {"xyz": (agg.pospool_xyz_cuda, agg.pospool_xyz_plain,
+                    agg.pospool_xyz_bwd_cuda, agg.pospool_xyz_bwd_plain, 1),
+            "sincos": (agg.pospool_sincos_cuda, agg.pospool_sincos_plain,
+                       agg.pospool_sincos_bwd_cuda,
+                       agg.pospool_sincos_bwd_plain, 1),
+            "adaptive": (mom.neighborhood_moments_cuda,
+                         mom.neighborhood_moments_plain,
+                         mom.neighborhood_moments_bwd_cuda,
+                         mom.neighborhood_moments_bwd_plain, 4)}[kind]
+
+
+def launches_per(kind: str, train: bool) -> dict:
+    """Exact launches of every kernel in one forward (``train`` False) or
+    one train step of the ``kind`` config at depth 2."""
+    counts = dict.fromkeys(kernel_wrappers(), 0)
+    fwd, bwd = AGG_KERNELS[kind]
+    counts.update({"ball_query": 9, "fps": 4, "neighborhood_max": 4,
+                   fwd: 14})
+    if train:
+        counts.update({bwd: 14, "neighborhood_max_bwd": 4})
+    return counts
 
 
 def reset_counts(wrappers):
@@ -180,9 +246,9 @@ def plain_route():
     """CUDA tensors take the plain PyTorch versions: only for the runs
     that the kernels are compared with."""
     from closerlook3d_tpu_torch.ops import (
-        aggregation, grouping, neighbors, sampling)
+        aggregation, grouping, moments, neighbors, sampling)
 
-    mods = (aggregation, grouping, neighbors, sampling)
+    mods = (aggregation, grouping, moments, neighbors, sampling)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda t: False
@@ -209,7 +275,8 @@ def phase_device() -> dict:
             "cuda": torch.version.cuda}
 
 
-SOURCES = ("ball_query", "fps", "pospool_xyz", "neighborhood_max")
+SOURCES = ("ball_query", "fps", "pospool_xyz", "neighborhood_max",
+           "pospool_sincos", "moments")
 
 
 def phase_build() -> dict:
@@ -342,7 +409,7 @@ def _geometry_parity(bq, fps) -> dict:
     return errs
 
 
-def _pospool_fwd_tol(dtype, red):
+def _pospool_fwd_tol(dtype, red, kind="xyz"):
     if dtype == torch.float32:
         # same f32 products; only the order of the neighbor sum differs.
         # A sum of up to 41 terms carries more absolute rounding than an
@@ -350,7 +417,12 @@ def _pospool_fwd_tol(dtype, red):
         return (dict(rtol=1e-5, atol=1e-6) if red == "avg"
                 else dict(rtol=1e-5, atol=1e-5))
     # the plain path rounds every product and the sum to bf16 (8 mantissa
-    # bits); the kernel keeps f32 and rounds once: a few bf16 ulps
+    # bits); the kernel keeps f32 and rounds once: a few bf16 ulps. The
+    # sin/cos factors are O(1) where dp mostly is not, so a sum of up to
+    # 41 of its rounded products drifts further (as
+    # tests/test_torch_cuda.py allows)
+    if kind == "sincos" and red == "sum":
+        return dict(rtol=2e-2, atol=6e-2)
     return dict(rtol=2e-2, atol=2e-2)
 
 
@@ -419,11 +491,6 @@ def seeded_weights(cfg, gen: torch.Generator) -> dict:
     return model.state_dict()
 
 
-SERVE_PER_FORWARD = {"ball_query": 9, "fps": 4, "pospool_xyz": 14,
-                     "pospool_xyz_bwd": 0, "neighborhood_max": 4,
-                     "neighborhood_max_bwd": 0}
-
-
 def phase_serving(cfg, weights, wrappers) -> dict:
     from closerlook3d_tpu_torch.serving import Predictor
 
@@ -443,7 +510,8 @@ def phase_serving(cfg, weights, wrappers) -> dict:
         if out.dtype != torch.float32 or not torch.isfinite(out).all():
             raise AssertionError("logits not finite f32")
     check_counts(f"serving, {REQUESTS} requests", counts,
-                 {k: n * REQUESTS for k, n in SERVE_PER_FORWARD.items()})
+                 {k: n * REQUESTS
+                  for k, n in launches_per("xyz", False).items()})
     log("serving", f"{REQUESTS} requests of {BATCH} clouds answered; logits "
         f"{tuple(outs[0].shape)} finite; launches {counts}")
     return {"predictor": predictor, "batches": batches, "launches": counts}
@@ -488,19 +556,21 @@ def _vjp(fn, x, dy):
     return out.detach(), grad
 
 
-def _bwd_tol(dtype, red):
+def _bwd_tol(dtype, red, kind="xyz"):
     """Backward kernel vs its plain twin, elementwise."""
     if dtype == torch.float32:
         # the same f32 terms summed in another order (atomics); sums of
-        # up to ~40 terms carry more rounding than averages
-        return (dict(rtol=1e-5, atol=1e-6) if red == "avg"
-                else dict(rtol=1e-5, atol=1e-5))
+        # up to ~40 terms carry more rounding than averages, and a moments
+        # slot's term (g0 + sum_d g_d dp_d) is up to 4x a PosPool one
+        if red == "avg":
+            return dict(rtol=1e-5, atol=1e-6)
+        return dict(rtol=1e-5, atol=4e-5 if kind == "adaptive" else 1e-5)
     # both sum in f32 and round once: one bf16 ulp where the two orders
     # straddle a rounding boundary
     return dict(rtol=8e-3, atol=1e-5)
 
 
-def _vs_autograd(what, got, ref, dtype, red):
+def _vs_autograd(what, got, ref, dtype, red, kind="xyz"):
     """Backward kernel vs autograd of the plain forward; (max abs err,
     relative L2 gap). f32: elementwise, as against the twin. bf16: CUDA's
     autograd rounds every product and every atomic partial sum of its
@@ -511,7 +581,7 @@ def _vs_autograd(what, got, ref, dtype, red):
     err = float((got - ref).abs().max())
     rel = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
     if dtype == torch.float32:
-        torch.testing.assert_close(got, ref, **_bwd_tol(dtype, red),
+        torch.testing.assert_close(got, ref, **_bwd_tol(dtype, red, kind),
                                    msg=lambda m: f"{what}: {m}")
     elif rel > 2e-2:
         raise AssertionError(f"{what}: relative L2 gap {rel:.3g} to the "
@@ -519,12 +589,19 @@ def _vs_autograd(what, got, ref, dtype, red):
     return err, rel
 
 
-def phase_train_kernel_parity(tcfg) -> dict:
+def _max_dp(q, s, idx, nmask, r) -> float:
+    """Largest |dp| component over the valid slots of one call."""
+    from closerlook3d_tpu_torch.ops.grouping import neighbor_offsets
+
+    dp = neighbor_offsets(q, s, idx, r, torch.float32).abs().amax(-1)
+    return float((dp * nmask).max())
+
+
+def phase_train_kernel_parity(tcfg, kind: str) -> dict:
     """The train step's kernels vs their plain versions, forward and
-    backward, f32 and bf16, at every call shape of the slice."""
-    from closerlook3d_tpu_torch.ops.aggregation import (
-        pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain, pospool_xyz_cuda,
-        pospool_xyz_plain)
+    backward, f32 and bf16, at every call shape of the config: its
+    aggregation pair, and for the xyz config also the geometry kernels
+    and the neighborhood max (whose calls the three configs share)."""
     from closerlook3d_tpu_torch.ops.grouping import (
         neighborhood_max_bwd_cuda, neighborhood_max_bwd_plain,
         neighborhood_max_cuda, neighborhood_max_plain)
@@ -538,9 +615,13 @@ def phase_train_kernel_parity(tcfg) -> dict:
     mask = torch.from_numpy(b["mask"]).to(dev)
     bq, fps, pp = path_calls(tcfg, xyz, mask)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    errs = dict(_geometry_parity(bq, fps), **{
-        k: 0.0 for k in ("pospool_xyz", "pospool_xyz_bwd",
-                         "neighborhood_max", "neighborhood_max_bwd")})
+    fwd_name, bwd_name = AGG_KERNELS[kind]
+    fwd, plain, bwd, twin, widen = agg_ops(kind)
+    errs = {fwd_name: 0.0, bwd_name: 0.0}
+    if kind == "xyz":
+        errs.update(_geometry_parity(bq, fps), neighborhood_max=0.0,
+                    neighborhood_max_bwd=0.0)
+    phase = f"train-parity:{kind}"
 
     def note(key, what, got, ref, tol):
         torch.cuda.synchronize()
@@ -550,38 +631,49 @@ def phase_train_kernel_parity(tcfg) -> dict:
         errs[key] = max(errs[key], err)
         return err
 
+    max_dp = 0.0
     for name, (q, s, idx, nmask, r), c, _ in pp:
+        dpm = _max_dp(q, s, idx, nmask, r)
+        max_dp = max(max_dp, dpm)
         for dtype in (torch.float32, torch.bfloat16):
             f = _features(gen, s, c, dtype)
-            dy = _features(gen, q, c, dtype)
+            dy = _features(gen, q, c * widen, dtype)
             for red in ("avg", "sum"):
-                what = (f"pospool_xyz {name} C={c} K={idx.shape[2]} "
+                what = (f"{fwd_name} {name} C={c} K={idx.shape[2]} "
                         f"{str(dtype)[6:]} {red}")
-                e_f = note("pospool_xyz", what,
-                           pospool_xyz_cuda(q, s, f, idx, nmask, r, red),
-                           pospool_xyz_plain(q, s, f, idx, nmask, r, red),
-                           _pospool_fwd_tol(dtype, red))
-                got = pospool_xyz_bwd_cuda(q, s, idx, nmask, dy, r, red)
-                e_t = note("pospool_xyz_bwd", what + " bwd vs twin", got,
-                           pospool_xyz_bwd_plain(q, s, idx, nmask, dy, r,
-                                                 red),
-                           _bwd_tol(dtype, red))
-                _, ref = _vjp(lambda x: pospool_xyz_plain(
-                    q, s, x, idx, nmask, r, red), f, dy)
-                e_a, rel = _vs_autograd(what, got, ref, dtype, red)
-                log("parity", f"{what}: max abs err fwd {e_f:.3g}, bwd vs "
-                    f"twin {e_t:.3g}, vs autograd {e_a:.3g} (L2 {rel:.2g})")
+                tol_f = _pospool_fwd_tol(dtype, red, kind)
+                tol_b = _bwd_tol(dtype, red, kind)
+                e_f = note(fwd_name, what,
+                           fwd(q, s, f, idx, nmask, r, red),
+                           plain(q, s, f, idx, nmask, r, red), tol_f)
+                got = bwd(q, s, idx, nmask, dy, r, red)
+                e_t = note(bwd_name, what + " bwd vs twin", got,
+                           twin(q, s, idx, nmask, dy, r, red), tol_b)
+                _, ref = _vjp(lambda x: plain(q, s, x, idx, nmask, r, red),
+                              f, dy)
+                e_a, rel = _vs_autograd(what, got, ref, dtype, red, kind)
+                log(phase, f"{what}: max |dp| {dpm:.3f}; max abs err fwd "
+                    f"{e_f:.3g} (tol {tol_f}), bwd vs twin {e_t:.3g} (tol "
+                    f"{tol_b}), vs autograd {e_a:.3g} (L2 {rel:.2g}; "
+                    + ("tol as vs twin" if dtype == torch.float32
+                       else "L2 bound 0.02") + ")")
+    # the sin/cos embedding's top frequency turns |dp| ~ 1 into ~100 rad
+    if not max_dp > 0.9:
+        raise AssertionError(f"neighborhoods reach only |dp| {max_dp:.3f}")
+    errs["max_dp"] = max_dp
+    if kind != "xyz":
+        return errs
     for name, (s, idx, nmask), c in max_calls(tcfg, pp):
         for dtype in (torch.float32, torch.bfloat16):
-            for kind, make in (("ties", _tie_features),
-                               ("distinct", _features)):
+            for values, make in (("ties", _tie_features),
+                                 ("distinct", _features)):
                 f = make(gen, s, c, dtype)
                 out = neighborhood_max_cuda(f, idx, nmask)
                 dy = _features(gen, out, c, dtype)
                 ref, ref_grad = _vjp(lambda x: neighborhood_max_plain(
                     x, idx, nmask), f, dy)
                 what = (f"neighborhood_max {name} C={c} K={idx.shape[2]} "
-                        f"{str(dtype)[6:]} {kind}")
+                        f"{str(dtype)[6:]} {values}")
                 errs["neighborhood_max"] = max(errs["neighborhood_max"],
                                                _max_err(what, out, ref))
                 got = neighborhood_max_bwd_cuda(f, idx, nmask, out, dy)
@@ -592,17 +684,12 @@ def phase_train_kernel_parity(tcfg) -> dict:
                 # dy / n is rounded alike; only the sums over the queries
                 # that share a winning row differ
                 e_a, rel = _vs_autograd(what, got, ref_grad, dtype, "sum")
-                log("parity", f"{what}: fwd equal; max abs err bwd vs twin "
+                log(phase, f"{what}: fwd equal; max abs err bwd vs twin "
                     f"{e_t:.3g}, vs autograd {e_a:.3g} (L2 {rel:.2g})")
     return errs
 
 
 # ---- training: one step, kernels vs plain; then training -------------------
-
-TRAIN_PER_STEP = {"ball_query": 9, "fps": 4, "pospool_xyz": 14,
-                  "pospool_xyz_bwd": 14, "neighborhood_max": 4,
-                  "neighborhood_max_bwd": 4}
-
 
 def train_batch(tcfg, seed: int) -> dict:
     """One batch of the slice, as the data loader yields it."""
@@ -616,7 +703,7 @@ def train_batch(tcfg, seed: int) -> dict:
         seed=seed, spatial_sort=tcfg.spatial_sort == "host")))
 
 
-def phase_train_step_parity(tcfg, wrappers) -> dict:
+def phase_train_step_parity(tcfg, wrappers, kind: str) -> dict:
     """One f32 train step through the kernels vs one through the plain
     versions on the card: same weights, batch and geometry."""
     from closerlook3d_tpu_torch.models import build_classification
@@ -650,7 +737,7 @@ def phase_train_step_parity(tcfg, wrappers) -> dict:
                        read_counts(wrappers))
     (km, kloss, kcounts), (pm, ploss, pcounts) = runs["kernel"], runs["plain"]
     check_counts("kernel train step (geometry given)", kcounts,
-                 dict(TRAIN_PER_STEP, ball_query=0, fps=0))
+                 dict(launches_per(kind, True), ball_query=0, fps=0))
     check_counts("plain train step", pcounts, dict.fromkeys(wrappers, 0))
     # f32 throughout (TF32 off); the kernels sum neighborhoods in slot
     # order and scatter with atomics where the plain path sums by ATen's
@@ -684,7 +771,8 @@ def phase_train_step_parity(tcfg, wrappers) -> dict:
                                    msg=lambda m, n=name: f"{n}: {m}")
     n = len(gaps)
     median = sorted(gaps.values())[n // 2]
-    log("train-parity", f"f32 step kernels vs plain: loss {kloss:.6f} vs "
+    log(f"train-parity:{kind}", f"f32 step kernels vs plain: loss "
+        f"{kloss:.6f} vs "
         f"{ploss:.6f}; all {n} parameters have a nonzero gradient; "
         f"relative L2 gradient gap median {median:.3g}, worst "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst)
@@ -694,9 +782,10 @@ def phase_train_step_parity(tcfg, wrappers) -> dict:
             "params": n, "launches": kcounts}
 
 
-def phase_training(tcfg, wrappers) -> dict:
-    """TRAIN_STEPS bf16 steps of the slice on one batch, warmup off at the
-    config's base LR; then an eval step and a Predictor request."""
+def phase_training(tcfg, wrappers, kind: str) -> dict:
+    """TRAIN_STEPS bf16 steps of the config on one batch, warmup off at
+    the config's base LR; then an eval step and Predictor requests, the
+    first checked against the eval step, the next timed."""
     from closerlook3d_tpu_torch.models import build_classification
     from closerlook3d_tpu_torch.serving import Predictor
     from closerlook3d_tpu_torch.train import (
@@ -709,6 +798,7 @@ def phase_training(tcfg, wrappers) -> dict:
     state = create_train_state(model, tx, device=DEVICE)
     step = make_train_step(loss_fn, cfg.task)
     batch = train_batch(cfg, SEED + 500)
+    per_step = launches_per(kind, True)
     totals = dict.fromkeys(wrappers, 0)
     losses, accs, step_ms, host_ms = [], [], [], []
     torch.cuda.synchronize()
@@ -724,7 +814,7 @@ def phase_training(tcfg, wrappers) -> dict:
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts(wrappers)
-        check_counts(f"train step {i}", counts, TRAIN_PER_STEP)
+        check_counts(f"train step {i}", counts, per_step)
         for k in totals:
             totals[k] += counts[k]
         step_ms.append(start.elapsed_time(end))
@@ -740,16 +830,19 @@ def phase_training(tcfg, wrappers) -> dict:
     if not last < first:
         raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} "
                              f"steps: {losses}")
-    log("training", f"{TRAIN_STEPS} bf16 steps, batch {cfg.batch_size} x "
+    phase = f"training:{kind}"
+    log(phase, f"{TRAIN_STEPS} bf16 steps, batch {cfg.batch_size} x "
         f"{cfg.num_points} points, lr {lr(0):g}: loss "
         + " ".join(f"{v:.4f}" for v in losses)
-        + f"; acc {accs[-1]:.3f}; launches per step {TRAIN_PER_STEP}; "
-        f"peak memory {peak:.2f} GiB")
+        + f"; acc {accs[-1]:.3f}; launches per step "
+        + str({k: n for k, n in per_step.items() if n})
+        + f"; peak memory {peak:.2f} GiB")
 
+    per_forward = launches_per(kind, False)
     reset_counts(wrappers)
     logits, emetrics = make_eval_step(loss_fn, cfg.task)(state, batch)
     torch.cuda.synchronize()
-    check_counts("eval step", read_counts(wrappers), SERVE_PER_FORWARD)
+    check_counts("eval step", read_counts(wrappers), per_forward)
     if (tuple(logits.shape) != (cfg.batch_size, cfg.num_classes)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"eval logits {tuple(logits.shape)} not finite")
@@ -757,17 +850,22 @@ def phase_training(tcfg, wrappers) -> dict:
     reset_counts(wrappers)
     served = predictor(batch["xyz"], batch["mask"], batch["features"])
     torch.cuda.synchronize()
-    check_counts("Predictor at the slice config", read_counts(wrappers),
-                 SERVE_PER_FORWARD)
+    check_counts("Predictor at the config", read_counts(wrappers),
+                 per_forward)
     # the same eval-mode bf16 forward through the same kernels
     torch.testing.assert_close(served, logits, rtol=1e-2, atol=1e-2)
-    log("training", f"eval step: loss {float(emetrics['loss']):.4f} acc "
+    lat = _request_latencies(predictor, [batch], 10)
+    med = lat[len(lat) // 2]
+    log(phase, f"eval step: loss {float(emetrics['loss']):.4f} acc "
         f"{float(emetrics['acc']):.3f}; Predictor served the "
         f"{cfg.num_points}-point config, logits {tuple(served.shape)} "
-        f"equal to the eval step's")
+        f"equal to the eval step's; request (batch {cfg.batch_size} x "
+        f"{cfg.num_points} points, bf16, host clock incl. input copy) "
+        f"median {med:.3f} ms over 10, min {lat[0]:.3f}, max {lat[-1]:.3f}")
     return {"state": state, "step": step, "batch": batch, "losses": losses,
             "accs": accs, "step_ms": step_ms, "host_ms": host_ms,
             "launches": totals, "peak_gib": peak,
+            "request_ms_median": med, "request_ms_all": lat,
             "eval": {"loss": float(emetrics["loss"]),
                      "acc": float(emetrics["acc"])}}
 
@@ -787,6 +885,23 @@ def _time(fn, inputs, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _request_latencies(predictor, batches, n: int) -> list:
+    """Sorted host-clock ms of ``n`` requests cycling over ``batches``
+    (numpy, as a caller sends them), each ending in a synchronize, after
+    one warm-up request per batch."""
+    for bt in batches:
+        predictor(bt["xyz"], bt["mask"], bt["features"])
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(n):
+        bt = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        predictor(bt["xyz"], bt["mask"], bt["features"])
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return sorted(lat)
 
 
 def _device_us(evt) -> float:
@@ -886,17 +1001,7 @@ def phase_timing(cfg, serving) -> dict:
               for k, v in rows.items()}
 
     predictor, batches = serving["predictor"], serving["batches"]
-    for bt in batches:  # warm-up
-        predictor(bt["xyz"], bt["mask"], bt["features"])
-    torch.cuda.synchronize()
-    lat = []
-    for i in range(10):
-        bt = batches[i % len(batches)]
-        t0 = time.perf_counter()
-        predictor(bt["xyz"], bt["mask"], bt["features"])
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    lat.sort()
+    lat = _request_latencies(predictor, batches, 10)
     med = lat[len(lat) // 2]
     bt = batches[0]
     _, split = _profiled(
@@ -931,16 +1036,58 @@ def _bound(nbytes: float, flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _kernel_cases(tcfg, calls, gen):
+def _agg_flops_per_slot(kind: str, c: int) -> int:
+    """f32 operations per valid slot of one aggregation call (forward or
+    backward alike) with C input channels: D (3 subtractions and 3
+    divisions), then per channel a multiply-add (xyz, sin/cos), or one
+    add and three multiply-adds (moments; the backward's three
+    multiply-adds and its atomic add). Sin/cos adds per (coordinate,
+    frequency) pair the angle's multiply and divide and one operation
+    each for sin and cos."""
+    return {"xyz": 6 + 2 * c, "sincos": 6 + 2 * c + 4 * (c // 2),
+            "adaptive": 6 + 7 * c}[kind]
+
+
+def _kernel_cases(tcfg, calls, gen, kind: str):
     """{kernel: [(call name, per step, kernel fn, plain fn, inputs per
-    input set, (bytes, flops) of the first set)]} for one train step."""
-    from closerlook3d_tpu_torch.ops import aggregation as agg
+    input set, (bytes, flops) of the first set)]} for one train step of
+    the ``kind`` config: its aggregation pair, and for the xyz config the
+    geometry kernels and the neighborhood max too."""
     from closerlook3d_tpu_torch.ops import grouping as grp
     from closerlook3d_tpu_torch.ops import neighbors as nbr
     from closerlook3d_tpu_torch.ops import sampling as smp
+    from closerlook3d_tpu_torch.ops.aggregation import sincos_freq
 
     bf = torch.bfloat16
-    cases = {k: [] for k in TRAIN_PER_STEP}
+    fwd_name, bwd_name = AGG_KERNELS[kind]
+    fwd_fn, plain_fn, bwd_fn, twin_fn, widen = agg_ops(kind)
+    cases = {fwd_name: [], bwd_name: []}
+    for i, (name, _, c, count) in enumerate(calls[0][2]):
+        fwd, bwd = [], []
+        for cs in calls:
+            q, s, idx, nmask, r = cs[2][i][1]
+            f = _features(gen, s, c, bf)
+            dy = _features(gen, q, c * widen, bf)
+            fwd.append((q, s, f, idx, nmask, r, "avg"))
+            bwd.append((q, s, idx, nmask, dy, r, "avg"))
+        q, s, f, idx, nmask = fwd[0][:5]
+        dy = bwd[0][4]
+        # bytes: inputs read once, the output written once (dy has the
+        # forward output's size, f the backward's; sin/cos also reads its
+        # frequency table); flops: _agg_flops_per_slot per valid slot
+        flops = float(nmask.sum()) * _agg_flops_per_slot(kind, c)
+        table = (_nbytes(sincos_freq(c, q.device)) if kind == "sincos"
+                 else 0)
+        cases[fwd_name].append((
+            name, count, fwd_fn, plain_fn, fwd,
+            (_nbytes(q, s, f, idx, nmask, dy) + table, flops)))
+        cases[bwd_name].append((
+            name, count, bwd_fn, twin_fn, bwd,
+            (_nbytes(q, s, idx, nmask, dy, f) + table, flops)))
+    if kind != "xyz":
+        return cases
+    cases.update({k: [] for k in ("ball_query", "fps", "neighborhood_max",
+                                  "neighborhood_max_bwd")})
     for i, (name, a) in enumerate(calls[0][0]):
         q, s, _, k, qm, sm = a
         b, nq = q.shape[:2]
@@ -956,26 +1103,6 @@ def _kernel_cases(tcfg, calls, gen):
             smp.furthest_point_sample_plain, [c[1][i][1] for c in calls],
             (_nbytes(xyz, m) + xyz.shape[0] * npoint * 5,
              9.0 * npoint * float(m.sum()))))
-    for i, (name, _, c, count) in enumerate(calls[0][2]):
-        fwd, bwd = [], []
-        for cs in calls:
-            q, s, idx, nmask, r = cs[2][i][1]
-            f = _features(gen, s, c, bf)
-            dy = _features(gen, q, c, bf)
-            fwd.append((q, s, f, idx, nmask, r, "avg"))
-            bwd.append((q, s, idx, nmask, dy, r, "avg"))
-        q, s, f, idx, nmask = fwd[0][:5]
-        dy = bwd[0][4]
-        # bytes: inputs read once, the output written once (dy has the
-        # forward output's size, f the backward's); flops: a multiply-add
-        # per valid slot and channel, and D per valid slot
-        flops = float(nmask.sum()) * (2 * c + 6)
-        cases["pospool_xyz"].append((
-            name, count, agg.pospool_xyz_cuda, agg.pospool_xyz_plain, fwd,
-            (_nbytes(q, s, f, idx, nmask, dy), flops)))
-        cases["pospool_xyz_bwd"].append((
-            name, count, agg.pospool_xyz_bwd_cuda, agg.pospool_xyz_bwd_plain,
-            bwd, (_nbytes(q, s, idx, nmask, dy, f), flops)))
     per_set = [max_calls(tcfg, cs[2]) for cs in calls]
     for j, (name, _, c) in enumerate(per_set[0]):
         fwd, bwd = [], []
@@ -997,8 +1124,8 @@ def _kernel_cases(tcfg, calls, gen):
     return cases
 
 
-def phase_train_timing(tcfg, training) -> dict:
-    """Each kernel per train step of the slice (bf16) against its plain
+def phase_train_timing(tcfg, training, kind: str) -> dict:
+    """Each kernel per train step of the config (bf16) against its plain
     version and its bound; the step's median time and device split."""
     dev = torch.device(DEVICE)
     calls = []
@@ -1009,7 +1136,8 @@ def phase_train_timing(tcfg, training) -> dict:
                                 torch.from_numpy(b["mask"]).to(dev)))
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     per_kernel = {}
-    for kernel, rows in _kernel_cases(tcfg, calls, gen).items():
+    phase = f"train-timing:{kind}"
+    for kernel, rows in _kernel_cases(tcfg, calls, gen, kind).items():
         out = []
         for name, count, fn, plain, ins, (nbytes, flops) in rows:
             ms, plain_ms = _time(fn, ins, 20), _time(plain, ins, 3)
@@ -1018,7 +1146,7 @@ def phase_train_timing(tcfg, training) -> dict:
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": nbytes,
                         "flops": flops})
-            log("train-timing", f"{kernel} {name} x{count}: kernel "
+            log(phase, f"{kernel} {name} x{count}: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.3f} GFLOP)")
@@ -1033,7 +1161,7 @@ def phase_train_timing(tcfg, training) -> dict:
             "bound_ms": sum(bound_time.values()),
             "bound_by": max(bound_time, key=bound_time.get)}
         t = per_kernel[kernel]
-        log("train-timing", f"{kernel} per step: kernel {t['ms']:.4f} ms, "
+        log(phase, f"{kernel} per step: kernel {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
 
@@ -1052,23 +1180,24 @@ def phase_train_timing(tcfg, training) -> dict:
             "calls_per_step": e.count / nsteps} for e in avgs[:15]]
     split["top"] = top
     pts = tcfg.batch_size * tcfg.num_points
-    log("train-timing", f"train step (batch {tcfg.batch_size} x "
+    log(phase, f"train step (batch {tcfg.batch_size} x "
         f"{tcfg.num_points} points, bf16, batch copy included): median "
         f"{med:.3f} ms by CUDA events over {len(step_ms)} steps (host clock "
         f"{hmed:.3f} ms); {pts / (med / 1e3):.0f} points/s; peak memory "
         f"{training['peak_gib']:.2f} GiB")
-    log("train-timing", f"profiled {nsteps} steps: wall "
+    log(phase, f"profiled {nsteps} steps: wall "
         f"{split['wall_ms_profiled']:.3f} ms/step, device busy "
         f"{split['device_busy_ms']:.3f} ms/step (idle "
         f"{100 * split['device_idle_share']:.1f}% of the profiled wall; "
         f"{100 * split['device_idle_share_est']:.1f}% of the unprofiled "
         f"median, an estimate)")
     for row in top:
-        log("train-timing", f"  {row['ms_per_step']:9.4f} ms "
+        log(phase, f"  {row['ms_per_step']:9.4f} ms "
             f"{row['calls_per_step']:6.1f} calls/step  {row['name']}")
     return {"per_kernel": per_kernel, "step_ms_median": med,
             "step_ms_all": training["step_ms"], "host_ms_median": hmed,
-            "points_per_s": pts / (med / 1e3), "split": split}
+            "points_per_s": pts / (med / 1e3), "split": split,
+            "request_ms_median": training["request_ms_median"]}
 
 
 # ---- main -------------------------------------------------------------------
@@ -1091,7 +1220,24 @@ REPLACES = {
         "closerlook3d_tpu_torch/csrc/neighborhood_max.cu",
         "closerlook3d_tpu/ops/pallas/gather_reduce.py:674",
         "closerlook3d_tpu/ops/pallas/gather_reduce.py:616"),
+    "pospool_sincos": ("closerlook3d_tpu_torch/csrc/pospool_sincos.cu",
+                       "closerlook3d_tpu/ops/pallas/aggregation.py:458",
+                       None),
+    "pospool_sincos_bwd": ("closerlook3d_tpu_torch/csrc/pospool_sincos.cu",
+                           "closerlook3d_tpu/ops/pallas/aggregation.py:507",
+                           None),
+    "moments": ("closerlook3d_tpu_torch/csrc/moments.cu",
+                "closerlook3d_tpu/ops/pallas/moments.py:48", None),
+    "moments_bwd": ("closerlook3d_tpu_torch/csrc/moments.cu",
+                    "closerlook3d_tpu/ops/pallas/moments.py:96", None),
 }
+
+
+def home_kind(kernel: str) -> str:
+    """The training config whose run gives a kernel's launches and times:
+    the one whose aggregation it is, else the xyz config."""
+    return next((k for k, pair in AGG_KERNELS.items() if kernel in pair),
+                "xyz")
 
 
 def main() -> int:
@@ -1109,30 +1255,40 @@ def main() -> int:
         cfg, weights, serving["batches"][1])
     record["timing"] = phase_timing(cfg, serving)
 
-    tcfg = slice_config()
-    record["train_parity"] = phase_train_kernel_parity(tcfg)
-    record["train_step_parity"] = phase_train_step_parity(tcfg, wrappers)
-    training = phase_training(tcfg, wrappers)
-    record["training"] = {k: v for k, v in training.items()
-                          if k not in ("state", "step", "batch")}
-    record["train_timing"] = phase_train_timing(tcfg, training)
+    record["train"] = {}
+    for kind in TRAIN_KINDS:
+        tcfg = train_config(kind)
+        run = {"parity": phase_train_kernel_parity(tcfg, kind),
+               "step_parity": phase_train_step_parity(tcfg, wrappers, kind)}
+        training = phase_training(tcfg, wrappers, kind)
+        run["training"] = {k: v for k, v in training.items()
+                           if k not in ("state", "step", "batch")}
+        run["timing"] = phase_train_timing(tcfg, training, kind)
+        record["train"][kind] = run
+        del training
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}
     for name, (src, rep, also) in REPLACES.items():
-        t = record["train_timing"]["per_kernel"][name]
-        # measured against the plain versions at both configs' shapes
+        kind = home_kind(name)
+        run = record["train"][kind]
+        t = run["timing"]["per_kernel"][name]
+        # measured against the plain versions at every shape the kernel
+        # was checked at (the flagship's and the training config's)
         err = max(e for e in (record["parity"].get(name),
-                              record["train_parity"][name]) if e is not None)
+                              run["parity"][name]) if e is not None)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               "launches": training["launches"][name],
+               # the config's bf16 training run, counted from 0 before
+               # each step
+               "launches": run["training"]["launches"][name],
                "max_abs_err": err,
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                # no single PyTorch call computes these masked, padded
                # neighborhood functions
                "library_ms": None,
-               "launches_per_step": TRAIN_PER_STEP[name],
+               "config": kind,
+               "launches_per_step": launches_per(kind, True)[name],
                "serving_launches": serving["launches"][name]}
         if also:
             row["also_replaces"] = also

@@ -8,9 +8,10 @@ the same module: CUDA tensors go to the kernel, CPU tensors to the plain
 version (``ops/dispatch.py``). This package imports ``torch`` and never
 ``jax``, ``flax``, ``ml_collections`` or ``closerlook3d_tpu``.
 
-Ported so far: ModelNet40 PosPool (xyz) classification, served through
-``serving.predictor.Predictor`` and trained through ``train/``
-(``make_optimizer``, ``create_train_state``, ``make_train_step``).
+Ported so far: ModelNet40 classification with PosPool (xyz, sin/cos) and
+the adaptive weight, served through ``serving.predictor.Predictor`` and
+trained through ``train/`` (``make_optimizer``, ``create_train_state``,
+``make_train_step``).
 """
 
 __version__ = "0.1.0"

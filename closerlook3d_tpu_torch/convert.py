@@ -4,13 +4,21 @@ Flax names submodules by creation order; the port's modules are built in
 the same order, so each flax scope has one counterpart:
 
   ResNetBackbone_0/ConvBN_0                    backbone.stem
-  ResNetBackbone_0/LocalAggregation_0/ConvBN_0 backbone.stem_agg.output_conv
+  ResNetBackbone_0/LocalAggregation_0          backbone.stem_agg
   ResNetBackbone_0/Bottleneck_i/ConvBN_0       backbone.blocks.i.reduce
-    .../Bottleneck_i/LocalAggregation_0/ConvBN_0  ...agg.output_conv
+  ResNetBackbone_0/Bottleneck_i/LocalAggregation_0  backbone.blocks.i.agg
     .../Bottleneck_i/ConvBN_1                  backbone.blocks.i.expand
     .../Bottleneck_i/ConvBN_2                  backbone.blocks.i.shortcut
   ClassifierHead_0/ConvBN_j                    head.convs.j
   ClassifierHead_0/Dense_0                     head.fc
+
+and within each LocalAggregation_0 (adaptive weight only, but for the
+output conv):
+
+  ConvBN_0 .. ConvBN_{n-1}   weight_convs.0 .. weight_convs.{n-1}
+                             (the gather path's fc_num - 1 weight convs)
+  Dense_0                    dense
+  ConvBN_n                   output_conv
 
 (output convs and shortcuts exist only where channels change). Within a
 ConvBN, ``Dense_0/kernel`` [in, out] is the transpose of
@@ -47,31 +55,50 @@ def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def _scopes(model: nn.Module) -> List[Tuple[str, str]]:
-    """(flax scope, torch prefix) for every ConvBN of the model."""
+def _agg_scopes(agg: nn.Module, f: str, t: str):
+    """(ConvBN pairs, Dense pairs) of one LocalAggregation at flax scope
+    ``f`` and torch prefix ``t``."""
+    convs = [(f"{f}/ConvBN_{i}", f"{t}.weight_convs.{i}")
+             for i in range(len(agg.weight_convs))]
+    if agg.output_conv is not None:
+        convs.append((f"{f}/ConvBN_{len(agg.weight_convs)}",
+                      f"{t}.output_conv"))
+    dense = [] if agg.dense is None else [(f"{f}/Dense_0", f"{t}.dense")]
+    return convs, dense
+
+
+def _scopes(model: nn.Module):
+    """(flax scope, torch prefix) pairs: (every ConvBN, every Dense with a
+    bias)."""
     bb = model.backbone
-    pairs = [("ResNetBackbone_0/ConvBN_0", "backbone.stem")]
-    if bb.stem_agg.output_conv is not None:
-        pairs.append(("ResNetBackbone_0/LocalAggregation_0/ConvBN_0",
-                      "backbone.stem_agg.output_conv"))
+    convs = [("ResNetBackbone_0/ConvBN_0", "backbone.stem")]
+    dense = []
+
+    def add_agg(agg, f, t):
+        c, d = _agg_scopes(agg, f, t)
+        convs.extend(c)
+        dense.extend(d)
+
+    add_agg(bb.stem_agg, "ResNetBackbone_0/LocalAggregation_0",
+            "backbone.stem_agg")
     for i, blk in enumerate(bb.blocks):
         f, t = f"ResNetBackbone_0/Bottleneck_{i}", f"backbone.blocks.{i}"
-        pairs.append((f"{f}/ConvBN_0", f"{t}.reduce"))
-        if blk.agg.output_conv is not None:
-            pairs.append((f"{f}/LocalAggregation_0/ConvBN_0",
-                          f"{t}.agg.output_conv"))
-        pairs.append((f"{f}/ConvBN_1", f"{t}.expand"))
+        convs.append((f"{f}/ConvBN_0", f"{t}.reduce"))
+        add_agg(blk.agg, f"{f}/LocalAggregation_0", f"{t}.agg")
+        convs.append((f"{f}/ConvBN_1", f"{t}.expand"))
         if blk.shortcut is not None:
-            pairs.append((f"{f}/ConvBN_2", f"{t}.shortcut"))
+            convs.append((f"{f}/ConvBN_2", f"{t}.shortcut"))
     for j in range(len(model.head.convs)):
-        pairs.append((f"ClassifierHead_0/ConvBN_{j}", f"head.convs.{j}"))
-    return pairs
+        convs.append((f"ClassifierHead_0/ConvBN_{j}", f"head.convs.{j}"))
+    dense.append(("ClassifierHead_0/Dense_0", "head.fc"))
+    return convs, dense
 
 
 def key_map(model: nn.Module) -> List[Tuple[str, str, bool]]:
     """(flax flat key, state_dict key, transposed) for every tensor."""
     rows = []
-    for f, t in _scopes(model):
+    convs, dense = _scopes(model)
+    for f, t in convs:
         rows += [
             (f"params/{f}/Dense_0/kernel", f"{t}.linear.weight", True),
             (f"params/{f}/BatchNorm_0/scale", f"{t}.bn.weight", False),
@@ -81,9 +108,9 @@ def key_map(model: nn.Module) -> List[Tuple[str, str, bool]]:
             (f"batch_stats/{f}/BatchNorm_0/var", f"{t}.bn.running_var",
              False),
         ]
-    rows += [("params/ClassifierHead_0/Dense_0/kernel", "head.fc.weight",
-              True),
-             ("params/ClassifierHead_0/Dense_0/bias", "head.fc.bias", False)]
+    for f, t in dense:
+        rows += [(f"params/{f}/kernel", f"{t}.weight", True),
+                 (f"params/{f}/bias", f"{t}.bias", False)]
     return rows
 
 

@@ -47,33 +47,6 @@
 
 namespace {
 
-// Stage the K slots of one query: s_idx[t] = support row or -1 (masked),
-// s_d[t, d] = D[t, d] rounded to T. Needs blockDim.x >= k.
-template <typename T>
-__device__ __forceinline__ void stage_slots(const float* __restrict__ q,
-                                            const float* __restrict__ sb,
-                                            const int32_t* __restrict__ idx,
-                                            const bool* __restrict__ mask,
-                                            size_t row, int k, float radius,
-                                            int* s_idx, float* s_d) {
-  if (threadIdx.x < k) {
-    const int t = threadIdx.x;
-    const bool v = mask[row * k + t];
-    const int j = idx[row * k + t];
-    s_idx[t] = v ? j : -1;
-    if (v) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float delta =
-            __fdiv_rn(__fsub_rn(sb[static_cast<size_t>(j) * 3 + d],
-                                q[row * 3 + d]),
-                      radius);
-        s_d[t * 3 + d] = to_f32(from_f32<T>(delta));
-      }
-    }
-  }
-}
-
 template <typename T>
 __global__ void pospool_xyz_kernel(const float* __restrict__ q,
                                    const float* __restrict__ s,
@@ -137,8 +110,7 @@ __global__ void pospool_xyz_bwd_kernel(const float* __restrict__ q,
     __syncthreads();
     stage_slots<T>(q, sb, idx, mask, row, k, radius, s_idx, s_d);
     __syncthreads();
-    int cnt = 0;
-    for (int t = 0; t < k; ++t) cnt += s_idx[t] >= 0;
+    const int cnt = staged_count(s_idx, k);
     if (cnt == 0) continue;  // uniform: nothing to scatter
     for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
       const int d = ch / g;

@@ -1,4 +1,5 @@
-"""Models: the residual point trunk, PosPool aggregation, heads."""
+"""Models: the residual point trunk, PosPool and adaptive-weight
+aggregation, heads."""
 
 from closerlook3d_tpu_torch.models.build import (  # noqa: F401
     ClassificationModel,

@@ -2,7 +2,7 @@
 
 Same conventions as ``closerlook3d_tpu/ops/grouping.py``:
   * max: invalid slots -> -inf; queries with no valid neighbor -> 0;
-  * avg: sum of valid / max(count, 1);
+  * avg (also called mean): sum of valid / max(count, 1);
   * sum: sum of valid.
 Indices stay int32 at the public functions and widen to int64 only at the
 ``torch.gather`` call.
@@ -32,15 +32,22 @@ def group_xyz(xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return group_features(xyz, idx)
 
 
+def neighbor_offsets(query_xyz, support_xyz, idx, radius: float, dtype):
+    """dp = (p_j - p_i) / r in f32, cast to ``dtype``: [B, Nq, K, 3]."""
+    pj = group_xyz(support_xyz.float(), idx)
+    # divide by a tensor: a Python scalar divisor may become a multiply by
+    # its reciprocal on CUDA, which rounds differently. A fill, not a copy
+    # from the host, which would synchronize with the card.
+    r = torch.full((), radius, dtype=torch.float32, device=pj.device)
+    return ((pj - query_xyz[:, :, None, :].float()) / r).to(dtype)
+
+
 def masked_max(values: torch.Tensor, mask: Optional[torch.Tensor],
                dim: int = -2) -> torch.Tensor:
     """Max over the neighbor axis; empty neighborhoods produce 0."""
     if mask is None:
         return values.amax(dim=dim)
-    filled = torch.where(mask[..., None], values,
-                         torch.tensor(float("-inf"), dtype=values.dtype,
-                                      device=values.device))
-    out = filled.amax(dim=dim)
+    out = values.masked_fill(~mask[..., None], float("-inf")).amax(dim=dim)
     any_valid = mask.any(dim=-1, keepdim=True)
     return torch.where(any_valid, out, torch.zeros_like(out))
 
@@ -59,6 +66,10 @@ def masked_avg(values: torch.Tensor, mask: Optional[torch.Tensor],
     total = masked_sum(values, mask, dim=dim)
     count = mask.sum(dim=-1, keepdim=True).to(values.dtype)
     return total / torch.clamp(count, min=1.0)
+
+
+REDUCTIONS = {"max": masked_max, "avg": masked_avg, "mean": masked_avg,
+              "sum": masked_sum}
 
 
 def neighborhood_max_plain(features, idx, mask):
@@ -81,6 +92,18 @@ def neighborhood_max_bwd_plain(features, idx, mask, out, dy):
     g = (dy.float() / n.clamp(min=1)).to(dy.dtype).float()
     return scatter_to_support(g[:, :, None, :] * ties, idx,
                               features.shape[1]).to(dy.dtype)
+
+
+def reduction_grad(dy: torch.Tensor, mask: torch.Tensor,
+                   reduction: str) -> torch.Tensor:
+    """The gradient each valid slot receives from an avg|sum over the
+    neighbors, as f32: dy (sum), or dy / max(count, 1) rounded to dy's
+    dtype (avg, as masked_avg's autograd rounds it)."""
+    g = dy.float()
+    if reduction == "avg":
+        cnt = mask.sum(dim=-1, keepdim=True).clamp(min=1).float()
+        g = (g / cnt).to(dy.dtype).float()
+    return g
 
 
 def scatter_to_support(contrib: torch.Tensor, idx: torch.Tensor,

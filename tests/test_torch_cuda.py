@@ -11,21 +11,26 @@ paths do not reach: FPS beyond 1024 points (several points per thread),
 query counts off the block size, supports across shared-memory tile
 edges, K at its bound and above Ns, channel counts off the thread block
 (C = 3, 300, 1152), masked queries and empty neighborhoods, f32 and
-bf16, the backward kernels (PosPool and neighborhood max, ties
-included), the autograd wiring, and the wrappers' refusals.
+bf16, the backward kernels (PosPool xyz and sin/cos, the neighborhood
+moments, and the neighborhood max, ties included), the autograd wiring,
+and the wrappers' refusals.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from closerlook3d_tpu_torch.ops import aggregation, grouping
+from closerlook3d_tpu_torch.ops import aggregation, grouping, moments
 from closerlook3d_tpu_torch.ops.aggregation import (
-    pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain, pospool_xyz_cuda,
-    pospool_xyz_plain)
+    pospool_sincos_bwd_cuda, pospool_sincos_bwd_plain, pospool_sincos_cuda,
+    pospool_sincos_plain, pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain,
+    pospool_xyz_cuda, pospool_xyz_plain)
 from closerlook3d_tpu_torch.ops.grouping import (
     neighborhood_max_bwd_cuda, neighborhood_max_bwd_plain,
     neighborhood_max_cuda, neighborhood_max_plain)
+from closerlook3d_tpu_torch.ops.moments import (
+    neighborhood_moments_bwd_cuda, neighborhood_moments_bwd_plain,
+    neighborhood_moments_cuda, neighborhood_moments_plain)
 from closerlook3d_tpu_torch.ops.neighbors import (
     MAX_K, ball_query_cuda, ball_query_plain)
 from closerlook3d_tpu_torch.ops.sampling import (
@@ -229,3 +234,99 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take():
         neighborhood_max_bwd_cuda(f, idx, nmask, out, dy.bfloat16())
     with pytest.raises(ValueError, match="int32"):
         neighborhood_max_cuda(f, idx.long(), nmask)
+
+
+# sin/cos PosPool (K5) and the neighborhood moments (K9): (forward kernel,
+# its plain version, backward kernel, its twin, output channels per input
+# channel)
+NEW_OPS = {
+    "sincos": (pospool_sincos_cuda, pospool_sincos_plain,
+               pospool_sincos_bwd_cuda, pospool_sincos_bwd_plain, 1),
+    "moments": (neighborhood_moments_cuda, neighborhood_moments_plain,
+                neighborhood_moments_bwd_cuda, neighborhood_moments_bwd_plain,
+                4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("nq,ns,c,k", [
+    (70, 300, 6, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
+    (40, 5, 12, 8)])  # C off the thread block and at 1152; K > Ns
+@pytest.mark.parametrize("op", sorted(NEW_OPS))
+def test_sincos_and_moments_kernels_match_plain(op, dtype, reduction, nq,
+                                                ns, c, k):
+    fwd, plain, bwd, twin, widen = NEW_OPS[op]
+    q, s, idx, nmask = _neighborhoods(nq, ns, k, seed=16)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    f = torch.randn((3, ns, c), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((3, nq, c * widen), generator=gen,
+                     device="cuda").to(dtype)
+    out = fwd(q, s, f, idx, nmask, 0.4, reduction)
+    ref = plain(q, s, f, idx, nmask, 0.4, reduction)
+    assert out.dtype == dtype and out.shape == (3, nq, c * widen)
+    got = bwd(q, s, idx, nmask, dy, 0.4, reduction)
+    twin_df = twin(q, s, idx, nmask, dy, 0.4, reduction)
+    assert got.dtype == dtype and got.shape == (3, ns, c)
+    if dtype == torch.float32:
+        # same f32 terms (sin/cos of the same f32 angles), summed in slot
+        # order or with atomics; a moments slot term is up to 4x a PosPool
+        # one
+        fwd_tol = dict(rtol=1e-5, atol=1e-6 if reduction == "avg" else 1e-5)
+        bwd_tol = dict(rtol=1e-5,
+                       atol=1e-6 if reduction == "avg" else 4e-5)
+    else:
+        # the plain forward rounds each product to bf16; the twin sums in
+        # f32 and rounds once, as the kernel does
+        fwd_tol = dict(rtol=2e-2, atol=2e-2 if reduction == "avg" else 6e-2)
+        bwd_tol = dict(rtol=8e-3, atol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **fwd_tol)
+    torch.testing.assert_close(got.float(), twin_df.float(), **bwd_tol)
+    assert (out[-1] == 0).all() and (got[-1] == 0).all()  # masked cloud
+
+
+def test_sincos_kernel_at_large_angles():
+    """Neighbors out to |dp| = 1 (100 rad in the top frequency): the
+    kernel's sincosf of f32 angles against torch.sin / torch.cos."""
+    q = torch.zeros((1, 1, 3), device="cuda")
+    s = torch.tensor([[[1.0, 0, 0], [0, -1.0, 0], [0.6, 0.8, 0],
+                       [0.3, -0.4, 0.866]]], device="cuda")
+    idx = torch.arange(4, dtype=torch.int32, device="cuda").reshape(1, 1, 4)
+    nmask = torch.ones((1, 1, 4), dtype=torch.bool, device="cuda")
+    f = torch.ones((1, 4, 1152), device="cuda")
+    got = pospool_sincos_cuda(q, s, f, idx, nmask, 1.0, "sum")
+    ref = pospool_sincos_plain(q, s, f, idx, nmask, 1.0, "sum")
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("op", sorted(NEW_OPS))
+def test_autograd_launches_sincos_and_moments_kernels(op):
+    fwd, plain, bwd, _, widen = NEW_OPS[op]
+    q, s, idx, nmask = _neighborhoods(60, 200, 16, seed=18)
+    f = torch.randn((3, 200, 24), device="cuda", requires_grad=True)
+    if op == "sincos":
+        fused = lambda x: aggregation.pospool_fused(  # noqa: E731
+            q, s, x, idx, nmask, 0.4, "sin_cos", "avg")
+    else:
+        fused = lambda x: moments.neighborhood_moments(  # noqa: E731
+            q, s, x, idx, nmask, 0.4, "avg")
+    before = (fwd.launches, bwd.launches)
+    dy = torch.randn((3, 60, 24 * widen), device="cuda")
+    (got,) = torch.autograd.grad(fused(f), f, dy)
+    (ref,) = torch.autograd.grad(
+        plain(q, s, f, idx, nmask, 0.4, "avg"), f, dy)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_sincos_and_moments_wrappers_refuse():
+    q, s, idx, nmask = _neighborhoods(20, 50, 4, seed=19)
+    f = torch.randn((3, 50, 9), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 6"):
+        pospool_sincos_cuda(q, s, f, idx, nmask, 0.4, "avg")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        neighborhood_moments_bwd_cuda(q, s, idx, nmask,
+                                      torch.randn((3, 20, 10), device="cuda"),
+                                      0.4, "avg")
+    with pytest.raises(ValueError, match="avg|sum"):
+        neighborhood_moments_cuda(q, s, f, idx, nmask, 0.4, "max")

@@ -77,7 +77,9 @@ def flagship():
 
 @pytest.mark.parametrize("path", [
     None, "configs/modelnet40/pospool_xyz_avg.yaml",
-    "configs/s3dis/pospool_xyz_avg.yaml"])
+    "configs/s3dis/pospool_xyz_avg.yaml",
+    "configs/modelnet40/pospool_sincos_avg.yaml",
+    "configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml"])
 def test_config_matches_jax(path):
     if path is None:
         assert default_config().to_dict() == jdefault_config().to_dict()
