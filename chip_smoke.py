@@ -12,19 +12,22 @@ with every check raising on failure and no CPU fallback:
   forward (1024 points, width 144, depth 2, bf16), serves requests
   through ``Predictor``, checks the launch counters and the f32 forward
   against the CPU;
-* training, on three ModelNet40 configs at full width and depth (5000
+* training, on four ModelNet40 configs at full width and depth (5000
   points, batch 32; set here in code, so PyYAML is not needed):
-  ``pospool_xyz_avg.yaml``, ``pospool_sincos_avg.yaml`` and
-  ``adaptive_weight_dp_fc1_avg.yaml``. For each: checks its aggregation
-  kernels (PosPool xyz, PosPool sin/cos, or the neighborhood moments)
-  forward and backward against their plain versions at every call shape
-  of the train step, in f32 and bf16 (for the xyz config also the ball
-  query, FPS and the neighborhood max); holds an f32 train step through
-  the kernels to one through the plain versions (same weights, batch and
-  geometry) and checks that every parameter gets a gradient; trains bf16
-  steps on one batch (the loss must fall) with exact per-step launch
-  counts; ends with an eval step and timed ``Predictor`` requests at
-  that config;
+  ``pospool_xyz_avg.yaml``, ``pospool_sincos_avg.yaml``,
+  ``adaptive_weight_dp_fc1_avg.yaml`` and
+  ``pointwisemlp_dp_fi_df_fc1_max.yaml``. For each: checks its
+  aggregation kernels (PosPool xyz, PosPool sin/cos, the neighborhood
+  moments, or the point-wise MLP's min/max + statistics and gather-subtract
+  min/max) forward and backward against their plain versions at every
+  call shape of the train step, in f32 and bf16 (for the xyz config also
+  the ball query, FPS and the neighborhood max); holds an f32 train step
+  through the kernels to one through the plain versions (same weights,
+  batch and geometry) and checks that every parameter gets a gradient
+  (for the point-wise MLP also the gradient of an eval-mode forward, the
+  path of its gather-subtract backward); trains bf16 steps on one batch
+  (the loss must fall) with exact per-step launch counts; ends with an
+  eval step and timed ``Predictor`` requests at that config;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -114,8 +117,9 @@ def slice_config():
 
 
 def operator_config(kind: str):
-    """``configs/modelnet40/pospool_sincos_avg.yaml`` (kind "sincos") or
-    ``configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml`` ("adaptive"),
+    """``configs/modelnet40/pospool_sincos_avg.yaml`` (kind "sincos"),
+    ``configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml`` ("adaptive") or
+    ``configs/modelnet40/pointwisemlp_dp_fi_df_fc1_max.yaml`` ("pwmlp"),
     set in code; CPU tests hold each equal to its file."""
     cfg = slice_config()
     if kind == "sincos":
@@ -125,6 +129,11 @@ def operator_config(kind: str):
         cfg.adaptive_weight.local_input_feature = "dp"
         cfg.adaptive_weight.fc_num = 1
         cfg.adaptive_weight.reduction = "avg"
+    elif kind == "pwmlp":
+        cfg.local_aggregation_type = "pointwisemlp"
+        cfg.pointwisemlp.feature_type = "dp_fi_df"
+        cfg.pointwisemlp.num_mlps = 1
+        cfg.pointwisemlp.reduction = "max"
     else:
         raise ValueError(kind)
     return cfg
@@ -166,6 +175,7 @@ def gpu_line() -> str:
 def kernel_wrappers():
     """{kernel name: its launching wrapper}, in the kernels line's order."""
     from closerlook3d_tpu_torch.ops import aggregation as agg
+    from closerlook3d_tpu_torch.ops import gather_reduce as gr
     from closerlook3d_tpu_torch.ops import moments as mom
     from closerlook3d_tpu_torch.ops.grouping import (
         neighborhood_max_bwd_cuda, neighborhood_max_cuda)
@@ -181,15 +191,36 @@ def kernel_wrappers():
             "pospool_sincos": agg.pospool_sincos_cuda,
             "pospool_sincos_bwd": agg.pospool_sincos_bwd_cuda,
             "moments": mom.neighborhood_moments_cuda,
-            "moments_bwd": mom.neighborhood_moments_bwd_cuda}
+            "moments_bwd": mom.neighborhood_moments_bwd_cuda,
+            "pwmlp_stats": gr.pwmlp_minmax_stats_cuda,
+            "pwmlp_stats_bwd": gr.pwmlp_minmax_stats_bwd_cuda,
+            "gather_sub_minmax": gr.gather_sub_minmax_cuda,
+            "gather_sub_minmax_bwd": gr.gather_sub_minmax_bwd_cuda}
 
 
-# The training configs, by kind, and the aggregation kernel pair each one's
-# LocalAggregation runs (14 calls per forward at depth 2).
-TRAIN_KINDS = ("xyz", "sincos", "adaptive")
-AGG_KERNELS = {"xyz": ("pospool_xyz", "pospool_xyz_bwd"),
-               "sincos": ("pospool_sincos", "pospool_sincos_bwd"),
-               "adaptive": ("moments", "moments_bwd")}
+# The training configs, by kind, and the aggregation kernels each one's
+# LocalAggregation launches (14 calls per forward at depth 2): those of a
+# train step, and those of an eval-mode forward. The backward of an
+# eval-mode forward runs each of the latter's backward ("<name>_bwd").
+TRAIN_KINDS = ("xyz", "sincos", "adaptive", "pwmlp")
+AGG_KERNELS = {"xyz": (("pospool_xyz", "pospool_xyz_bwd"), ("pospool_xyz",)),
+               "sincos": (("pospool_sincos", "pospool_sincos_bwd"),
+                          ("pospool_sincos",)),
+               "adaptive": (("moments", "moments_bwd"), ("moments",)),
+               "pwmlp": (("pwmlp_stats", "pwmlp_stats_bwd"),
+                         ("gather_sub_minmax",))}
+
+
+def agg_kernels(kind: str, mode: str) -> tuple:
+    """The aggregation kernels of the ``kind`` config in one ``mode``
+    run: "train" (a train step), "forward" (an eval-mode forward) or
+    "eval_grad" (an eval-mode forward and its backward)."""
+    train, forward = AGG_KERNELS[kind]
+    if mode == "train":
+        return train
+    if mode == "forward":
+        return forward
+    return forward + tuple(f"{k}_bwd" for k in forward)
 
 
 def train_config(kind: str):
@@ -198,7 +229,9 @@ def train_config(kind: str):
 
 def agg_ops(kind: str):
     """(forward kernel, its plain version, backward kernel, its plain twin,
-    output channels per input channel) of a config's aggregation."""
+    output channels per input channel) of a PosPool or adaptive-weight
+    config's aggregation (the point-wise MLP's kernels take other
+    arguments: ``_pwmlp_parity``, ``_pwmlp_cases``)."""
     from closerlook3d_tpu_torch.ops import aggregation as agg
     from closerlook3d_tpu_torch.ops import moments as mom
 
@@ -213,15 +246,14 @@ def agg_ops(kind: str):
                          mom.neighborhood_moments_bwd_plain, 4)}[kind]
 
 
-def launches_per(kind: str, train: bool) -> dict:
-    """Exact launches of every kernel in one forward (``train`` False) or
-    one train step of the ``kind`` config at depth 2."""
+def launches_per(kind: str, mode: str) -> dict:
+    """Exact launches of every kernel in one ``mode`` run of the ``kind``
+    config at depth 2 (modes as ``agg_kernels``')."""
     counts = dict.fromkeys(kernel_wrappers(), 0)
-    fwd, bwd = AGG_KERNELS[kind]
-    counts.update({"ball_query": 9, "fps": 4, "neighborhood_max": 4,
-                   fwd: 14})
-    if train:
-        counts.update({bwd: 14, "neighborhood_max_bwd": 4})
+    counts.update({"ball_query": 9, "fps": 4, "neighborhood_max": 4})
+    if mode != "forward":
+        counts["neighborhood_max_bwd"] = 4
+    counts.update(dict.fromkeys(agg_kernels(kind, mode), 14))
     return counts
 
 
@@ -246,9 +278,10 @@ def plain_route():
     """CUDA tensors take the plain PyTorch versions: only for the runs
     that the kernels are compared with."""
     from closerlook3d_tpu_torch.ops import (
-        aggregation, grouping, moments, neighbors, sampling)
+        aggregation, gather_reduce, grouping, moments, neighbors, sampling)
 
-    mods = (aggregation, grouping, moments, neighbors, sampling)
+    mods = (aggregation, gather_reduce, grouping, moments, neighbors,
+            sampling)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda t: False
@@ -276,7 +309,7 @@ def phase_device() -> dict:
 
 
 SOURCES = ("ball_query", "fps", "pospool_xyz", "neighborhood_max",
-           "pospool_sincos", "moments")
+           "pospool_sincos", "moments", "gather_reduce")
 
 
 def phase_build() -> dict:
@@ -511,7 +544,7 @@ def phase_serving(cfg, weights, wrappers) -> dict:
             raise AssertionError("logits not finite f32")
     check_counts(f"serving, {REQUESTS} requests", counts,
                  {k: n * REQUESTS
-                  for k, n in launches_per("xyz", False).items()})
+                  for k, n in launches_per("xyz", "forward").items()})
     log("serving", f"{REQUESTS} requests of {BATCH} clouds answered; logits "
         f"{tuple(outs[0].shape)} finite; launches {counts}")
     return {"predictor": predictor, "batches": batches, "launches": counts}
@@ -615,13 +648,15 @@ def phase_train_kernel_parity(tcfg, kind: str) -> dict:
     mask = torch.from_numpy(b["mask"]).to(dev)
     bq, fps, pp = path_calls(tcfg, xyz, mask)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    fwd_name, bwd_name = AGG_KERNELS[kind]
+    phase = f"train-parity:{kind}"
+    if kind == "pwmlp":
+        return _pwmlp_parity(pp, gen, phase)
+    (fwd_name, bwd_name), _ = AGG_KERNELS[kind]
     fwd, plain, bwd, twin, widen = agg_ops(kind)
     errs = {fwd_name: 0.0, bwd_name: 0.0}
     if kind == "xyz":
         errs.update(_geometry_parity(bq, fps), neighborhood_max=0.0,
                     neighborhood_max_bwd=0.0)
-    phase = f"train-parity:{kind}"
 
     def note(key, what, got, ref, tol):
         torch.cuda.synchronize()
@@ -689,6 +724,113 @@ def phase_train_kernel_parity(tcfg, kind: str) -> dict:
     return errs
 
 
+def _grid_features(gen, s, c, dtype):
+    """Signed values on a 0.25 grid, a function of the point's position:
+    exact ties within neighborhoods, and duplicated points carry equal
+    rows, as the point-wise MLP's projections of equal points are equal."""
+    w = torch.randn((3, c), generator=gen, device=s.device)
+    return (torch.round(4 * (s @ w)) / 4).to(dtype)
+
+
+def _grads(fn, inputs, cots):
+    """(fn(*inputs), d<fn(*inputs), cots>/d inputs) under autograd; fn
+    returns a tuple."""
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    outs = fn(*xs)
+    return [o.detach() for o in outs], torch.autograd.grad(outs, xs, cots)
+
+
+# both sum in f64 and round once to f32, so they agree but where an f64
+# sum lies within its rounding error of an f32 rounding boundary
+PWMLP_SUM_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _pwmlp_bwd_tol(dtype):
+    """Backward kernel vs its twin and vs autograd of the plain forward:
+    the same f32 terms (equal shares of each cotangent) scattered in
+    another order; in bf16 all three sum in f32 and round once, so one
+    bf16 ulp where the orders straddle a rounding boundary."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+def _pwmlp_parity(pp, gen, phase) -> dict:
+    """The point-wise MLP's kernels (K6, K7) forward and backward vs their
+    plain versions at every aggregation call shape of the train step, f32
+    and bf16, on grid values with ties and on distinct values; {kernel:
+    max abs err}. Max and min must be equal."""
+    from closerlook3d_tpu_torch.ops import gather_reduce as gr
+
+    errs = dict.fromkeys(("pwmlp_stats", "pwmlp_stats_bwd",
+                          "gather_sub_minmax", "gather_sub_minmax_bwd"), 0.0)
+
+    def note(key, what, pairs, tol):
+        """Max abs err over (got, ref) pairs; tol None: must be equal."""
+        torch.cuda.synchronize()
+        worst = 0.0
+        for i, (got, ref) in enumerate(pairs):
+            if tol is None:
+                err = _max_err(f"{what} [{i}]", got, ref)
+            else:
+                torch.testing.assert_close(
+                    got.float(), ref.float(), **tol,
+                    msg=lambda m, i=i: f"{what} [{i}]: {m}")
+                err = float((got.float() - ref.float()).abs().max())
+            worst = max(worst, err)
+        errs[key] = max(errs[key], worst)
+        return worst
+
+    f32 = torch.float32
+    for name, (q, s, idx, nmask, _), c, _ in pp:
+        for dtype in (f32, torch.bfloat16):
+            tol = _pwmlp_bwd_tol(dtype)
+            for values, make in (("ties", _grid_features),
+                                 ("distinct", _features)):
+                g32 = make(gen, s, c, f32)
+                g, gsq = g32.to(dtype), (g32 * g32).to(dtype)
+                d = _features(gen, q, c, dtype)
+                cot = [_features(gen, q, c, f32) for _ in range(4)]
+                what = (f"{name} C={c} K={idx.shape[2]} {str(dtype)[6:]} "
+                        f"{values}")
+                outs = gr.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+                ref, ref_grads = _grads(
+                    lambda a, b: gr.pwmlp_minmax_stats_plain(a, b, idx,
+                                                             nmask),
+                    (g, gsq), cot)
+                k = f"pwmlp_stats {what}"
+                note("pwmlp_stats", k + " max/min",
+                     list(zip(outs[:2], ref[:2])), None)
+                e_s = note("pwmlp_stats", k + " sums",
+                           list(zip(outs[2:], ref[2:])), PWMLP_SUM_TOL)
+                got = gr.pwmlp_minmax_stats_bwd_cuda(g, idx, nmask, outs[0],
+                                                     outs[1], *cot)
+                e_t = note("pwmlp_stats_bwd", k + " bwd vs twin", zip(
+                    got, gr.pwmlp_minmax_stats_bwd_plain(
+                        g, idx, nmask, outs[0], outs[1], *cot)), tol)
+                e_a = note("pwmlp_stats_bwd", k + " bwd vs autograd",
+                           zip(got, ref_grads), tol)
+                hm = gr.gather_sub_minmax_cuda(g, d, idx, nmask)
+                ref, ref_grads = _grads(
+                    lambda a, b: gr.gather_sub_minmax_plain(a, b, idx, nmask),
+                    (g, d), cot[:2])
+                k = f"gather_sub_minmax {what}"
+                note("gather_sub_minmax", k, list(zip(hm, ref)), None)
+                got = gr.gather_sub_minmax_bwd_cuda(g, d, idx, nmask, *hm,
+                                                    *cot[:2])
+                e_t7 = note("gather_sub_minmax_bwd", k + " bwd vs twin", zip(
+                    got, gr.gather_sub_minmax_bwd_plain(g, d, idx, nmask,
+                                                        *hm, *cot[:2])), tol)
+                e_a7 = note("gather_sub_minmax_bwd", k + " bwd vs autograd",
+                            zip(got, ref_grads), tol)
+                log(phase, f"{what}: pwmlp_stats max/min equal, sums max abs "
+                    f"err {e_s:.3g} (tol {PWMLP_SUM_TOL}), bwd vs twin "
+                    f"{e_t:.3g}, vs autograd {e_a:.3g}; gather_sub_minmax "
+                    f"max/min equal, bwd vs twin {e_t7:.3g}, vs autograd "
+                    f"{e_a7:.3g} (bwd tol {tol}); "
+                    f"{int(nmask.sum())} valid slots")
+    return errs
+
+
 # ---- training: one step, kernels vs plain; then training -------------------
 
 def train_batch(tcfg, seed: int) -> dict:
@@ -737,7 +879,7 @@ def phase_train_step_parity(tcfg, wrappers, kind: str) -> dict:
                        read_counts(wrappers))
     (km, kloss, kcounts), (pm, ploss, pcounts) = runs["kernel"], runs["plain"]
     check_counts("kernel train step (geometry given)", kcounts,
-                 dict(launches_per(kind, True), ball_query=0, fps=0))
+                 dict(launches_per(kind, "train"), ball_query=0, fps=0))
     check_counts("plain train step", pcounts, dict.fromkeys(wrappers, 0))
     # f32 throughout (TF32 off); the kernels sum neighborhoods in slot
     # order and scatter with atomics where the plain path sums by ATen's
@@ -782,6 +924,75 @@ def phase_train_step_parity(tcfg, wrappers, kind: str) -> dict:
             "params": n, "launches": kcounts}
 
 
+def phase_eval_grad_parity(tcfg, wrappers, kind: str) -> dict:
+    """The gradient of an eval-mode f32 forward (frozen BatchNorm
+    statistics, as in fine-tuning a served model) through the kernels vs
+    through the plain versions: the path on which the eval-mode forward's
+    backward kernels run. Seeded weights with non-trivial BatchNorm state;
+    a third of each point-wise MLP BN scale is negative, so both the max
+    and the min branch carry gradient."""
+    from closerlook3d_tpu_torch.models import build_classification
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+
+    cfg = copy.deepcopy(tcfg)
+    cfg.precision = "f32"
+    cfg.dropout_rate = 0.0
+    batch = train_batch(cfg, SEED + 450)
+    batch["mask"][1, cfg.num_points * 7 // 10:] = False  # a padded cloud
+    dev = torch.device(DEVICE)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        geometry = compute_geometry(cfg, t["xyz"], t["mask"])
+    weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 7))
+    for name, w in weights.items():
+        if ".pw_bns." in name and name.endswith(".weight"):
+            w[1::3] = -w[1::3]
+    runs = {}
+    for route in ("kernel", "plain"):
+        model, loss_fn = build_classification(cfg)
+        model.load_state_dict(weights)
+        model = model.to(dev).eval()
+        reset_counts(wrappers)
+        with (plain_route() if route == "plain"
+              else contextlib.nullcontext()):
+            logits = model(t["xyz"], t["mask"], t["features"],
+                           geometry=geometry)
+            loss = loss_fn(logits, t["label"])
+            loss.backward()
+        torch.cuda.synchronize()
+        runs[route] = (model, loss.item(), read_counts(wrappers))
+    (km, kloss, kcounts), (pm, ploss, pcounts) = runs["kernel"], runs["plain"]
+    check_counts("eval-mode gradient (geometry given)", kcounts,
+                 dict(launches_per(kind, "eval_grad"), ball_query=0, fps=0))
+    check_counts("plain eval-mode gradient", pcounts,
+                 dict.fromkeys(wrappers, 0))
+    if abs(kloss - ploss) > 1e-5 * abs(ploss):
+        raise AssertionError(f"eval-mode loss: kernel {kloss}, plain "
+                             f"{ploss}")
+    pgrads = dict(pm.named_parameters())
+    gaps = {}
+    for name, p in km.named_parameters():
+        if not float(p.grad.abs().sum()) > 0:
+            raise AssertionError(f"{name}: no gradient through the kernels")
+        ref = pgrads[name].grad
+        gaps[name] = float((p.grad - ref).norm() / ref.norm())
+    # the 2% bound of the train step's comparison, for the same reasons
+    bad = {k: v for k, v in gaps.items() if v > 2e-2}
+    if bad:
+        raise AssertionError(f"eval-mode gradients differ (relative L2, "
+                             f"kernel vs plain): {bad}")
+    n = len(gaps)
+    median = sorted(gaps.values())[n // 2]
+    worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:3]
+    log(f"eval-grad:{kind}", f"f32 eval-mode forward + backward, kernels vs "
+        f"plain: loss {kloss:.6f} vs {ploss:.6f}; all {n} parameters have a "
+        f"nonzero gradient; relative L2 gradient gap median {median:.3g}, "
+        f"worst " + ", ".join(f"{k} {v:.3g}" for k, v in worst)
+        + f"; launches {kcounts}")
+    return {"loss_kernel": kloss, "loss_plain": ploss, "grad_rel_l2": gaps,
+            "grad_rel_l2_median": median, "launches": kcounts}
+
+
 def phase_training(tcfg, wrappers, kind: str) -> dict:
     """TRAIN_STEPS bf16 steps of the config on one batch, warmup off at
     the config's base LR; then an eval step and Predictor requests, the
@@ -798,7 +1009,7 @@ def phase_training(tcfg, wrappers, kind: str) -> dict:
     state = create_train_state(model, tx, device=DEVICE)
     step = make_train_step(loss_fn, cfg.task)
     batch = train_batch(cfg, SEED + 500)
-    per_step = launches_per(kind, True)
+    per_step = launches_per(kind, "train")
     totals = dict.fromkeys(wrappers, 0)
     losses, accs, step_ms, host_ms = [], [], [], []
     torch.cuda.synchronize()
@@ -838,11 +1049,12 @@ def phase_training(tcfg, wrappers, kind: str) -> dict:
         + str({k: n for k, n in per_step.items() if n})
         + f"; peak memory {peak:.2f} GiB")
 
-    per_forward = launches_per(kind, False)
+    per_forward = launches_per(kind, "forward")
     reset_counts(wrappers)
     logits, emetrics = make_eval_step(loss_fn, cfg.task)(state, batch)
     torch.cuda.synchronize()
-    check_counts("eval step", read_counts(wrappers), per_forward)
+    eval_counts = read_counts(wrappers)
+    check_counts("eval step", eval_counts, per_forward)
     if (tuple(logits.shape) != (cfg.batch_size, cfg.num_classes)
             or not torch.isfinite(logits).all()):
         raise AssertionError(f"eval logits {tuple(logits.shape)} not finite")
@@ -850,8 +1062,8 @@ def phase_training(tcfg, wrappers, kind: str) -> dict:
     reset_counts(wrappers)
     served = predictor(batch["xyz"], batch["mask"], batch["features"])
     torch.cuda.synchronize()
-    check_counts("Predictor at the config", read_counts(wrappers),
-                 per_forward)
+    request_counts = read_counts(wrappers)
+    check_counts("Predictor at the config", request_counts, per_forward)
     # the same eval-mode bf16 forward through the same kernels
     torch.testing.assert_close(served, logits, rtol=1e-2, atol=1e-2)
     lat = _request_latencies(predictor, [batch], 10)
@@ -862,9 +1074,11 @@ def phase_training(tcfg, wrappers, kind: str) -> dict:
         f"equal to the eval step's; request (batch {cfg.batch_size} x "
         f"{cfg.num_points} points, bf16, host clock incl. input copy) "
         f"median {med:.3f} ms over 10, min {lat[0]:.3f}, max {lat[-1]:.3f}")
-    return {"state": state, "step": step, "batch": batch, "losses": losses,
+    return {"state": state, "step": step, "batch": batch,
+            "predictor": predictor, "losses": losses,
             "accs": accs, "step_ms": step_ms, "host_ms": host_ms,
-            "launches": totals, "peak_gib": peak,
+            "launches": totals, "eval_launches": eval_counts,
+            "request_launches": request_counts, "peak_gib": peak,
             "request_ms_median": med, "request_ms_all": lat,
             "eval": {"loss": float(emetrics["loss"]),
                      "acc": float(emetrics["acc"])}}
@@ -1048,18 +1262,74 @@ def _agg_flops_per_slot(kind: str, c: int) -> int:
             "adaptive": 6 + 7 * c}[kind]
 
 
+# f32 operations per valid slot and channel of the point-wise MLP's
+# kernels: K6 forward a max and a min compare and two adds; its backward
+# two compares to count the ties, two to route, two adds and two atomic
+# adds; K7 forward a subtraction and two compares; its backward that
+# twice (count, then route; the adds and atomics of the few extremal
+# slots are not counted)
+PWMLP_FLOPS_PER_SLOT = {"pwmlp_stats": 4, "pwmlp_stats_bwd": 8,
+                        "gather_sub_minmax": 3, "gather_sub_minmax_bwd": 6}
+
+
+def _pwmlp_cases(calls, gen):
+    """``_kernel_cases`` for the point-wise MLP config: K6 forward and
+    backward per train step, K7 forward and backward per eval-mode forward
+    (and its backward), on bf16 projections and f32 cotangents."""
+    from closerlook3d_tpu_torch.ops import gather_reduce as gr
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = {k: [] for k in PWMLP_FLOPS_PER_SLOT}
+    for i, (name, _, c, count) in enumerate(calls[0][2]):
+        ins = {k: [] for k in cases}
+        for cs in calls:
+            q, s, idx, nmask, _ = cs[2][i][1]
+            g32 = _features(gen, s, c, f32)
+            g, gsq = g32.to(bf), (g32 * g32).to(bf)
+            d = _features(gen, q, c, bf)
+            cot = [_features(gen, q, c, f32) for _ in range(4)]
+            gmax, gmin, _, _ = gr.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+            hmax, hmin = gr.gather_sub_minmax_cuda(g, d, idx, nmask)
+            ins["pwmlp_stats"].append((g, gsq, idx, nmask))
+            ins["pwmlp_stats_bwd"].append((g, idx, nmask, gmax, gmin, *cot))
+            ins["gather_sub_minmax"].append((g, d, idx, nmask))
+            ins["gather_sub_minmax_bwd"].append(
+                (g, d, idx, nmask, hmax, hmin, *cot[:2]))
+        g, gsq, idx, nmask = ins["pwmlp_stats"][0]
+        d = ins["gather_sub_minmax"][0][1]
+        out = _nbytes(d) * 2  # one f32 [B, Nq, C] output
+        # bytes: inputs read once, outputs written once (forward outputs
+        # f32; gradients in the projections' dtype)
+        nbytes = {"pwmlp_stats": _nbytes(g, gsq, idx, nmask) + 4 * out,
+                  "pwmlp_stats_bwd": _nbytes(*ins["pwmlp_stats_bwd"][0])
+                  + 2 * _nbytes(g),
+                  "gather_sub_minmax": _nbytes(g, d, idx, nmask) + 2 * out,
+                  "gather_sub_minmax_bwd": _nbytes(
+                      *ins["gather_sub_minmax_bwd"][0]) + _nbytes(g, d)}
+        valid = float(nmask.sum()) * c
+        for k, rows in cases.items():
+            op = k.replace("pwmlp_stats", "pwmlp_minmax_stats")
+            rows.append((name, count, getattr(gr, f"{op}_cuda"),
+                         getattr(gr, f"{op}_plain"), ins[k],
+                         (nbytes[k], valid * PWMLP_FLOPS_PER_SLOT[k])))
+    return cases
+
+
 def _kernel_cases(tcfg, calls, gen, kind: str):
     """{kernel: [(call name, per step, kernel fn, plain fn, inputs per
     input set, (bytes, flops) of the first set)]} for one train step of
-    the ``kind`` config: its aggregation pair, and for the xyz config the
-    geometry kernels and the neighborhood max too."""
+    the ``kind`` config: its aggregation kernels (the point-wise MLP's K7
+    per eval-mode forward instead), and for the xyz config the geometry
+    kernels and the neighborhood max too."""
     from closerlook3d_tpu_torch.ops import grouping as grp
     from closerlook3d_tpu_torch.ops import neighbors as nbr
     from closerlook3d_tpu_torch.ops import sampling as smp
     from closerlook3d_tpu_torch.ops.aggregation import sincos_freq
 
+    if kind == "pwmlp":
+        return _pwmlp_cases(calls, gen)
     bf = torch.bfloat16
-    fwd_name, bwd_name = AGG_KERNELS[kind]
+    (fwd_name, bwd_name), _ = AGG_KERNELS[kind]
     fwd_fn, plain_fn, bwd_fn, twin_fn, widen = agg_ops(kind)
     cases = {fwd_name: [], bwd_name: []}
     for i, (name, _, c, count) in enumerate(calls[0][2]):
@@ -1194,10 +1464,18 @@ def phase_train_timing(tcfg, training, kind: str) -> dict:
     for row in top:
         log(phase, f"  {row['ms_per_step']:9.4f} ms "
             f"{row['calls_per_step']:6.1f} calls/step  {row['name']}")
+    predictor, rmed = training["predictor"], training["request_ms_median"]
+    _, rsplit = _profiled(lambda: predictor(batch["xyz"], batch["mask"],
+                                            batch["features"]), 5, rmed)
+    log(phase, f"profiled 5 requests: wall {rsplit['wall_ms_profiled']:.3f} "
+        f"ms/request, device busy {rsplit['device_busy_ms']:.3f} ms/request "
+        f"(idle {100 * rsplit['device_idle_share']:.1f}% of the profiled "
+        f"wall; {100 * rsplit['device_idle_share_est']:.1f}% of the "
+        f"unprofiled median {rmed:.3f} ms, an estimate)")
     return {"per_kernel": per_kernel, "step_ms_median": med,
             "step_ms_all": training["step_ms"], "host_ms_median": hmed,
             "points_per_s": pts / (med / 1e3), "split": split,
-            "request_ms_median": training["request_ms_median"]}
+            "request_ms_median": rmed, "request_split": rsplit}
 
 
 # ---- main -------------------------------------------------------------------
@@ -1230,14 +1508,26 @@ REPLACES = {
                 "closerlook3d_tpu/ops/pallas/moments.py:48", None),
     "moments_bwd": ("closerlook3d_tpu_torch/csrc/moments.cu",
                     "closerlook3d_tpu/ops/pallas/moments.py:96", None),
+    "pwmlp_stats": ("closerlook3d_tpu_torch/csrc/gather_reduce.cu",
+                    "closerlook3d_tpu/ops/pallas/gather_reduce.py:902", None),
+    "pwmlp_stats_bwd": ("closerlook3d_tpu_torch/csrc/gather_reduce.cu",
+                        "closerlook3d_tpu/ops/pallas/gather_reduce.py:978",
+                        None),
+    "gather_sub_minmax": ("closerlook3d_tpu_torch/csrc/gather_reduce.cu",
+                          "closerlook3d_tpu/ops/pallas/gather_reduce.py:294",
+                          None),
+    "gather_sub_minmax_bwd": (
+        "closerlook3d_tpu_torch/csrc/gather_reduce.cu",
+        "closerlook3d_tpu/ops/pallas/gather_reduce.py:353", None),
 }
 
 
 def home_kind(kernel: str) -> str:
     """The training config whose run gives a kernel's launches and times:
     the one whose aggregation it is, else the xyz config."""
-    return next((k for k, pair in AGG_KERNELS.items() if kernel in pair),
-                "xyz")
+    return next((k for k in AGG_KERNELS
+                 if kernel in agg_kernels(k, "train")
+                 + agg_kernels(k, "eval_grad")), "xyz")
 
 
 def main() -> int:
@@ -1260,10 +1550,25 @@ def main() -> int:
         tcfg = train_config(kind)
         run = {"parity": phase_train_kernel_parity(tcfg, kind),
                "step_parity": phase_train_step_parity(tcfg, wrappers, kind)}
+        # where the eval-mode forward runs kernels of its own, their
+        # backward runs in the gradient of an eval-mode forward
+        own_eval = set(agg_kernels(kind, "forward")) - set(
+            agg_kernels(kind, "train"))
+        if own_eval:
+            run["eval_grad"] = phase_eval_grad_parity(tcfg, wrappers, kind)
         training = phase_training(tcfg, wrappers, kind)
         run["training"] = {k: v for k, v in training.items()
-                           if k not in ("state", "step", "batch")}
+                           if k not in ("state", "step", "batch",
+                                        "predictor")}
         run["timing"] = phase_train_timing(tcfg, training, kind)
+        # launches on the config's main-path runs: the bf16 train steps,
+        # the eval step, the checked Predictor request and, where it ran,
+        # the eval-mode gradient
+        runs = [training["launches"], training["eval_launches"],
+                training["request_launches"]]
+        if "eval_grad" in run:
+            runs.append(run["eval_grad"]["launches"])
+        run["launches"] = {k: sum(r[k] for r in runs) for k in wrappers}
         record["train"][kind] = run
         del training
     record["seconds"] = time.perf_counter() - t_start
@@ -1278,9 +1583,9 @@ def main() -> int:
         err = max(e for e in (record["parity"].get(name),
                               run["parity"][name]) if e is not None)
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-               # the config's bf16 training run, counted from 0 before
-               # each step
-               "launches": run["training"]["launches"][name],
+               # the config's main-path runs, counted from 0 before each
+               # step or request
+               "launches": run["launches"][name],
                "max_abs_err": err,
                "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1288,7 +1593,8 @@ def main() -> int:
                # neighborhood functions
                "library_ms": None,
                "config": kind,
-               "launches_per_step": launches_per(kind, True)[name],
+               "launches_per_step": launches_per(kind, "train")[name],
+               "launches_per_forward": launches_per(kind, "forward")[name],
                "serving_launches": serving["launches"][name]}
         if also:
             row["also_replaces"] = also

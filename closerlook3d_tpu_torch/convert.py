@@ -12,18 +12,23 @@ the same order, so each flax scope has one counterpart:
   ClassifierHead_0/ConvBN_j                    head.convs.j
   ClassifierHead_0/Dense_0                     head.fc
 
-and within each LocalAggregation_0 (adaptive weight only, but for the
-output conv):
+and within each LocalAggregation_0:
 
   ConvBN_0 .. ConvBN_{n-1}   weight_convs.0 .. weight_convs.{n-1}
-                             (the gather path's fc_num - 1 weight convs)
-  Dense_0                    dense
+                             (adaptive weight: the gather path's
+                             fc_num - 1 weight convs)
+  Dense_0                    dense (adaptive weight)
+  pw_kernel_i                pw_linears.i.weight (point-wise MLP, a bare
+                             [in, out] param)
+  pw_bn_i                    pw_bns.i (point-wise MLP, MaskedBatchNorm)
   ConvBN_n                   output_conv
 
-(output convs and shortcuts exist only where channels change). Within a
-ConvBN, ``Dense_0/kernel`` [in, out] is the transpose of
-``linear.weight`` [out, in]; BatchNorm ``scale``/``bias`` come from
-``params`` and ``mean``/``var`` from ``batch_stats``.
+(output convs and shortcuts exist only where channels change, or where
+the operator's config asks for an output conv). Within a ConvBN,
+``Dense_0/kernel`` [in, out] is the transpose of ``linear.weight``
+[out, in], as ``pw_kernel_i`` is of ``pw_linears.i.weight``; BatchNorm
+(and MaskedBatchNorm) ``scale``/``bias`` come from ``params`` and
+``mean``/``var`` from ``batch_stats``.
 
 Flax variables are given as numpy arrays, either nested
 (``{"params": {...}, "batch_stats": {...}}``) or flat with '/'-joined
@@ -56,28 +61,34 @@ def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
 
 
 def _agg_scopes(agg: nn.Module, f: str, t: str):
-    """(ConvBN pairs, Dense pairs) of one LocalAggregation at flax scope
-    ``f`` and torch prefix ``t``."""
+    """(ConvBN pairs, Dense pairs, point-wise MLP layer pairs) of one
+    LocalAggregation at flax scope ``f`` and torch prefix ``t``; a layer
+    pair is (flax scope, torch prefix) of the layer's kernel and of its
+    MaskedBatchNorm."""
     convs = [(f"{f}/ConvBN_{i}", f"{t}.weight_convs.{i}")
              for i in range(len(agg.weight_convs))]
     if agg.output_conv is not None:
         convs.append((f"{f}/ConvBN_{len(agg.weight_convs)}",
                       f"{t}.output_conv"))
     dense = [] if agg.dense is None else [(f"{f}/Dense_0", f"{t}.dense")]
-    return convs, dense
+    pw = [((f"{f}/pw_kernel_{i}", f"{t}.pw_linears.{i}"),
+           (f"{f}/pw_bn_{i}", f"{t}.pw_bns.{i}"))
+          for i in range(len(agg.pw_linears))]
+    return convs, dense, pw
 
 
 def _scopes(model: nn.Module):
     """(flax scope, torch prefix) pairs: (every ConvBN, every Dense with a
-    bias)."""
+    bias, every point-wise MLP layer as in ``_agg_scopes``)."""
     bb = model.backbone
     convs = [("ResNetBackbone_0/ConvBN_0", "backbone.stem")]
-    dense = []
+    dense, pw = [], []
 
     def add_agg(agg, f, t):
-        c, d = _agg_scopes(agg, f, t)
+        c, d, p = _agg_scopes(agg, f, t)
         convs.extend(c)
         dense.extend(d)
+        pw.extend(p)
 
     add_agg(bb.stem_agg, "ResNetBackbone_0/LocalAggregation_0",
             "backbone.stem_agg")
@@ -91,23 +102,27 @@ def _scopes(model: nn.Module):
     for j in range(len(model.head.convs)):
         convs.append((f"ClassifierHead_0/ConvBN_{j}", f"head.convs.{j}"))
     dense.append(("ClassifierHead_0/Dense_0", "head.fc"))
-    return convs, dense
+    return convs, dense, pw
+
+
+def _bn_rows(f: str, t: str) -> List[Tuple[str, str, bool]]:
+    """The four rows of a BatchNorm at flax scope ``f``, torch prefix
+    ``t``."""
+    return [(f"params/{f}/scale", f"{t}.weight", False),
+            (f"params/{f}/bias", f"{t}.bias", False),
+            (f"batch_stats/{f}/mean", f"{t}.running_mean", False),
+            (f"batch_stats/{f}/var", f"{t}.running_var", False)]
 
 
 def key_map(model: nn.Module) -> List[Tuple[str, str, bool]]:
     """(flax flat key, state_dict key, transposed) for every tensor."""
     rows = []
-    convs, dense = _scopes(model)
+    convs, dense, pw = _scopes(model)
     for f, t in convs:
-        rows += [
-            (f"params/{f}/Dense_0/kernel", f"{t}.linear.weight", True),
-            (f"params/{f}/BatchNorm_0/scale", f"{t}.bn.weight", False),
-            (f"params/{f}/BatchNorm_0/bias", f"{t}.bn.bias", False),
-            (f"batch_stats/{f}/BatchNorm_0/mean", f"{t}.bn.running_mean",
-             False),
-            (f"batch_stats/{f}/BatchNorm_0/var", f"{t}.bn.running_var",
-             False),
-        ]
+        rows += [(f"params/{f}/Dense_0/kernel", f"{t}.linear.weight", True),
+                 *_bn_rows(f"{f}/BatchNorm_0", f"{t}.bn")]
+    for (fk, tk), (fb, tb) in pw:
+        rows += [(f"params/{fk}", f"{tk}.weight", True), *_bn_rows(fb, tb)]
     for f, t in dense:
         rows += [(f"params/{f}/kernel", f"{t}.weight", True),
                  (f"params/{f}/bias", f"{t}.bias", False)]

@@ -40,17 +40,6 @@
 
 namespace {
 
-// s_idx[t] = support row of slot t, or -1 when masked. Needs
-// blockDim.x >= k.
-__device__ __forceinline__ void stage_rows(const int32_t* __restrict__ idx,
-                                           const bool* __restrict__ mask,
-                                           size_t row, int k, int* s_idx) {
-  if (threadIdx.x < k) {
-    const int t = threadIdx.x;
-    s_idx[t] = mask[row * k + t] ? idx[row * k + t] : -1;
-  }
-}
-
 template <typename T>
 __global__ void nmax_fwd_kernel(const T* __restrict__ f,
                                 const int32_t* __restrict__ idx,

@@ -1,5 +1,6 @@
 // Launch layout shared by the neighborhood kernels (pospool_xyz.cu,
-// pospool_sincos.cu, moments.cu, neighborhood_max.cu): one block per kQPB
+// pospool_sincos.cu, moments.cu, neighborhood_max.cu, gather_reduce.cu):
+// one block per kQPB
 // consecutive queries of one cloud (grid.y = cloud), which stages its
 // query's K <= kMaxK slots in shared memory with one thread per slot, then
 // strides its threads over the C channels.
@@ -18,6 +19,17 @@ int threads_for(int c) {
   const int threads = ((c + 31) / 32) * 32;
   // at least kMaxK threads: one thread stages each neighbor slot
   return std::max(64, std::min(256, threads));
+}
+
+// Stage the K slots of query row `row` without positions: s_idx[t] =
+// support row of slot t, or -1 when masked. Needs blockDim.x >= k.
+__device__ __forceinline__ void stage_rows(const int32_t* __restrict__ idx,
+                                           const bool* __restrict__ mask,
+                                           size_t row, int k, int* s_idx) {
+  if (threadIdx.x < k) {
+    const int t = threadIdx.x;
+    s_idx[t] = mask[row * k + t] ? idx[row * k + t] : -1;
+  }
 }
 
 // Stage the K slots of query row `row` (q is [B*Nq, 3], sb the cloud's

@@ -1,11 +1,13 @@
-"""Local aggregation: PosPool and adaptive weight.
+"""Local aggregation: PosPool, adaptive weight and point-wise MLP.
 
 Counterpart of ``closerlook3d_tpu/models/aggregation.py::LocalAggregation``.
 For query i with padded neighborhood N(i), dp_ij = (p_j - p_i) / r and
 
   * PosPool (parameter-free): the xyz embedding scales channel third d of
     f_j by dp_ij[d]; the sin/cos embedding multiplies f_j by a sinusoidal
-    embedding of dp_ij; then a masked avg or sum (``ops/aggregation.py``);
+    embedding of dp_ij; then a masked avg or sum (``ops/aggregation.py``),
+    or a masked max on the gather path (the JAX package has no kernel for
+    it);
   * adaptive weight: a small MLP on [dp | f_j | f_j - f_i] predicts a
     per-neighbor weight vector (optionally softmax-normalized over the
     neighborhood, optionally shared across channel groups), then a
@@ -13,10 +15,15 @@ For query i with padded neighborhood N(i), dp_ij = (p_j - p_i) / r and
     no softmax, avg|sum) factorizes exactly through the neighborhood
     moments (``ops/moments.py``); every other setting takes the gather
     path in plain PyTorch, as in the JAX package, which has no kernel for
-    it.
+    it;
+  * point-wise MLP: FC -> masked BatchNorm -> ReLU layers on
+    [dp | f_j | f_j - f_i] per neighbor, then a masked reduction. The
+    paper's best setting (one FC, max) factorizes into per-point
+    projections and the neighborhood min/max kernels
+    (``ops/gather_reduce.py``); every other setting takes the gather path
+    in plain PyTorch.
 
-Point-wise MLP, pseudo-grid and PosPool's max reduction are not ported
-yet (ROADMAP A).
+Pseudo-grid is not ported yet (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from closerlook3d_tpu_torch.models.nn_utils import ConvBN
+from closerlook3d_tpu_torch.models.nn_utils import ConvBN, MaskedBatchNorm
 from closerlook3d_tpu_torch.ops.aggregation import (
-    CHANNEL_MULTIPLE, pospool_fused)
+    CHANNEL_MULTIPLE, pospool_fused, sinusoidal_embedding)
+from closerlook3d_tpu_torch.ops.gather_reduce import (
+    gather_sub_minmax, pwmlp_minmax_stats)
 from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets)
 from closerlook3d_tpu_torch.ops.moments import neighborhood_moments
@@ -40,12 +49,14 @@ def _not_ported(what: str):
 
 class LocalAggregation(nn.Module):
     """forward(query_xyz, support_xyz, support_features, neighbor_idx,
-    neighbor_mask) -> [B, Nq, out_channels].
+    neighbor_mask) -> [B, Nq, out_channels]. Train mode (the point-wise
+    MLP's masked BatchNorm) is ``self.training``.
 
     Submodules in flax's creation order (``convert.py`` relies on it):
     ``weight_convs`` (the adaptive gather path's ConvBNs, ``ConvBN_0`` ..
-    ``ConvBN_{fc_num-2}``), ``dense`` (its ``Dense_0``), ``output_conv``
-    (the next ``ConvBN``).
+    ``ConvBN_{fc_num-2}``), ``dense`` (its ``Dense_0``), ``pw_linears`` and
+    ``pw_bns`` (the point-wise MLP's ``pw_kernel_i`` and ``pw_bn_i``),
+    ``output_conv`` (the next ``ConvBN``).
     """
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
@@ -56,7 +67,10 @@ class LocalAggregation(nn.Module):
         self.dtype = dtype
         self.weight_convs = nn.ModuleList()
         self.dense = None
+        self.pw_linears = nn.ModuleList()
+        self.pw_bns = nn.ModuleList()
         self.factorized = False
+        out_width = in_channels  # before the output conv
         if self.kind == "pospool":
             p = config.pospool
             if p.position_embedding not in CHANNEL_MULTIPLE:
@@ -66,8 +80,8 @@ class LocalAggregation(nn.Module):
             if in_channels % multiple != 0:
                 raise ValueError(f"{p.position_embedding} PosPool needs "
                                  f"channels % {multiple} == 0")
-            if p.reduction not in ("avg", "sum"):
-                raise _not_ported(f"PosPool reduction={p.reduction!r}")
+            if p.reduction not in REDUCTIONS:
+                raise ValueError(f"unknown reduction {p.reduction!r}")
         elif self.kind == "adaptive_weight":
             p = config.adaptive_weight
             if in_channels % p.shared_channels != 0:
@@ -84,31 +98,71 @@ class LocalAggregation(nn.Module):
                     fan_in, cw, config.batchnorm_momentum, dtype=dtype))
                 fan_in = cw
             self.dense = nn.Linear(fan_in, cw)
+        elif self.kind == "pointwisemlp":
+            p = config.pointwisemlp
+            if p.reduction not in REDUCTIONS:
+                raise ValueError(f"unknown reduction {p.reduction!r}")
+            # the JAX gate _use_fused_pointwisemlp, on every device
+            self.factorized = p.num_mlps == 1 and p.reduction == "max"
+            ft = p.feature_type
+            fan_in = (3 * ("dp" in ft) + in_channels * ("fi" in ft)
+                      + in_channels * ("df" in ft))
+            for _ in range(p.num_mlps):
+                self.pw_linears.append(nn.Linear(fan_in, out_channels,
+                                                 bias=False))
+                # the factorized path's BN is f32, the gather path's takes
+                # the model dtype, as in the JAX package
+                self.pw_bns.append(MaskedBatchNorm(
+                    out_channels, config.batchnorm_momentum,
+                    dtype=torch.float32 if self.factorized else dtype))
+                fan_in = out_channels
+            out_width = out_channels
         else:
             raise _not_ported(f"local_aggregation_type={self.kind!r}")
         self.p = p
-        # the JAX module's _maybe_output_conv
+        # the JAX module's _maybe_output_conv; the pointwisemlp config has
+        # no output_conv key
         self.output_conv = None
-        if p.output_conv or in_channels != out_channels:
-            self.output_conv = ConvBN(in_channels, out_channels,
+        if getattr(p, "output_conv", False) or out_width != out_channels:
+            self.output_conv = ConvBN(out_width, out_channels,
                                       config.batchnorm_momentum, dtype=dtype)
 
     def forward(self, query_xyz, support_xyz, support_features, neighbor_idx,
                 neighbor_mask):
         q, s = query_xyz.float(), support_xyz.float()
+        args = (q, s, support_features, neighbor_idx, neighbor_mask)
         if self.kind == "pospool":
-            out = pospool_fused(q, s, support_features, neighbor_idx,
-                                neighbor_mask, self.radius,
-                                self.p.position_embedding, self.p.reduction)
-        elif self.factorized:
-            out = self._adaptive_factorized(q, s, support_features,
-                                            neighbor_idx, neighbor_mask)
+            if self.p.reduction in ("avg", "sum"):
+                out = pospool_fused(*args, self.radius,
+                                    self.p.position_embedding,
+                                    self.p.reduction)
+            else:
+                out = self._pospool_gather(*args)
+        elif self.kind == "adaptive_weight":
+            out = (self._adaptive_factorized(*args) if self.factorized
+                   else self._adaptive_gather(*args))
         else:
-            out = self._adaptive_gather(q, s, support_features, neighbor_idx,
-                                        neighbor_mask)
+            out = (self._pointwisemlp_factorized(*args) if self.factorized
+                   else self._pointwisemlp_gather(*args))
         if self.output_conv is not None:
             out = self.output_conv(out)
         return out
+
+    def _pospool_gather(self, q, s, f_support, idx, mask):
+        """The JAX package's gather path (``_pospool``), for the max
+        reduction, which no kernel of either package takes: dp rounded to
+        the features' dtype, as that path rounds it."""
+        f = group_features(f_support, idx)  # [B, Nq, K, C]
+        dp = neighbor_offsets(q, s, idx, self.radius, f.dtype)
+        c = f.shape[-1]
+        if self.p.position_embedding == "xyz":
+            g = c // 3
+            enc = torch.cat([f[..., :g] * dp[..., 0:1],
+                             f[..., g:2 * g] * dp[..., 1:2],
+                             f[..., 2 * g:] * dp[..., 2:3]], dim=-1)
+        else:
+            enc = f * sinusoidal_embedding(dp.float(), c).to(f.dtype)
+        return REDUCTIONS[self.p.reduction](enc, mask)
 
     def _expand(self, v):
         """[.., C/shared] -> [.., C]: channel c uses weight c // shared."""
@@ -150,3 +204,87 @@ class LocalAggregation(nn.Module):
             w32 = w.float().masked_fill(~mask[..., None], -1e9)
             w = torch.softmax(w32, dim=2).to(f.dtype)
         return REDUCTIONS[self.p.reduction](self._expand(w) * f, mask)
+
+    def _pointwisemlp_gather(self, q, s, f_support, idx, mask):
+        """The JAX package's gather path (``_pointwisemlp``): per neighbor
+        [dp | f_j | f_j - f_i] (f_i = slot 0, the query's own point or its
+        nearest carrier), then FC -> masked BN -> ReLU layers, then the
+        masked reduction."""
+        ft = self.p.feature_type
+        f = group_features(f_support, idx)  # [B, Nq, K, C]
+        parts = []
+        if "dp" in ft:
+            parts.append(neighbor_offsets(q, s, idx, self.radius, f.dtype))
+        if "fi" in ft:
+            parts.append(f)
+        if "df" in ft:
+            parts.append(f - f[:, :, :1, :])
+        h = torch.cat(parts, dim=-1)
+        for lin, bn in zip(self.pw_linears, self.pw_bns):
+            h = torch.relu(bn(F.linear(h, lin.weight.to(h.dtype)), mask))
+        return REDUCTIONS[self.p.reduction](h, mask)
+
+    def _pointwisemlp_factorized(self, q, s, fx, idx, mask):
+        """One FC then max (the JAX ``_pointwisemlp_factorized``): with W =
+        [W_dp; W_fi; W_df], h[i, k] = G[idx[i, k]] - D[i] for the per-point
+        projections G = (s / r) W_dp + f W_fi + f W_df and D = (q / r) W_dp
+        + f_i W_df (f_i = the features at slot 0, whatever its mask).
+
+        Each projection multiplies operands rounded to the model dtype in
+        f32, and G, D and G² stay f32 until one cast, as JAX's
+        ``preferred_element_type=f32`` products do. Train mode reduces G
+        with the min/max + statistics kernel and forms the masked BN's
+        mean and variance from its sums; eval mode takes the min/max of
+        h with the gather-subtract kernel. BN then ReLU commute with the
+        max: relu(s * max h + b) for s >= 0, relu(s * min h + b) for s < 0.
+        """
+        ft = self.p.feature_type
+        dt = self.dtype
+        c = fx.shape[-1]
+        w = self.pw_linears[0].weight.t()  # [din, C_out] f32
+        bn = self.pw_bns[0]
+
+        def dot(x, ws):
+            return torch.matmul(x.to(dt).float(), ws.to(dt).float())
+
+        inv_r = torch.full((), 1.0 / self.radius, dtype=torch.float32,
+                           device=q.device)
+        g = d = None
+        off = 0
+        if "dp" in ft:
+            g = dot(s * inv_r, w[0:3])
+            d = dot(q * inv_r, w[0:3])
+            off = 3
+        if "fi" in ft:
+            t = dot(fx, w[off:off + c])
+            g = t if g is None else g + t
+            off += c
+        if "df" in ft:
+            wdf = w[off:off + c]
+            t = dot(fx, wdf)
+            g = t if g is None else g + t
+            f0 = torch.gather(fx, 1, idx[:, :, 0].long()[..., None].expand(
+                -1, -1, c))
+            t = dot(f0, wdf)
+            d = t if d is None else d + t
+        if d is None:  # feature_type without dp or df: nothing query-side
+            d = torch.zeros((*q.shape[:2], g.shape[-1]), dtype=torch.float32,
+                            device=g.device)
+        if self.training:
+            gmax, gmin, s1, s2 = pwmlp_minmax_stats(g.to(dt), (g * g).to(dt),
+                                                    idx, mask)
+            hmax, hmin = gmax - d, gmin - d
+            cnt = mask.sum(dim=-1, keepdim=True).float()
+            total = torch.clamp(cnt.sum(), min=1.0)
+            mean = (s1 - cnt * d).sum(dim=(0, 1)) / total
+            ex2 = (s2 - 2.0 * d * s1 + cnt * d * d).sum(dim=(0, 1)) / total
+            var = torch.clamp(ex2 - mean ** 2, min=0.0)
+            eff_s, eff_b = bn.stats_affine(mean, var)
+        else:
+            eff_s, eff_b = bn.stats_affine()
+            hmax, hmin = gather_sub_minmax(g.to(dt), d.to(dt), idx, mask)
+        eff_s, eff_b = eff_s.float(), eff_b.float()
+        h = torch.where(eff_s >= 0, eff_s * hmax, eff_s * hmin) + eff_b
+        out = torch.relu(h)
+        any_valid = mask.any(dim=-1, keepdim=True)
+        return torch.where(any_valid, out, torch.zeros_like(out)).to(dt)

@@ -47,16 +47,66 @@ class BatchNorm(nn.Module):
             mean = x32.mean(dim=rows)
             var = torch.clamp((x32 * x32).mean(dim=rows) - mean * mean,
                               min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean) * mul + self.bias
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """ra = momentum * ra + (1 - momentum) * stat, for both running
+        statistics."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
+
+class MaskedBatchNorm(BatchNorm):
+    """BatchNorm whose statistics skip masked neighbor slots: the JAX
+    package's ``MaskedBatchNorm`` (``_MaskedBNCore``), same parameters and
+    running statistics as ``BatchNorm``, in its two modes:
+
+      * ``forward(x, mask)``: x [..., C], mask [...] bool. Train mode takes
+        the masked mean and the two-pass masked variance
+        sum(m (x - mean)^2) / cnt in f32 (cnt = max(valid count, 1));
+        returns x * eff_scale + eff_bias in the module's dtype;
+      * ``stats_affine(mean, var)``: (eff_scale, eff_bias) for statistics
+        computed elsewhere (the factorized point-wise MLP's analytic ones;
+        ignored, and may be None, in eval mode).
+
+    Train mode is ``self.training``; only it updates the running
+    statistics, with flax's momentum convention. eff_scale = scale *
+    rsqrt(var + eps) and eff_bias = bias - mean * eff_scale are computed in
+    f32 and cast to ``dtype``.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__(features, momentum, eps)
+        self.dtype = dtype
+
+    def stats_affine(self, mean=None, var=None):
+        if self.training:
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        eff_scale = self.weight * torch.rsqrt(var + self.eps)
+        eff_bias = self.bias - mean * eff_scale
+        return eff_scale.to(self.dtype), eff_bias.to(self.dtype)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        mean = var = None
+        if self.training:
+            m = mask[..., None].float()
+            x32 = x.float()
+            rows = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (x32 * m).sum(dim=rows) / cnt
+            var = (m * (x32 - mean) ** 2).sum(dim=rows) / cnt
+        eff_scale, eff_bias = self.stats_affine(mean, var)
+        return x * eff_scale + eff_bias
 
 
 class ConvBN(nn.Module):

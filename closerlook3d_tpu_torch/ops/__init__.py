@@ -6,15 +6,24 @@
                             sin/cos fwd + bwd
   neighborhood_moments   <- ops/pallas/moments.py moments fwd + bwd
   neighborhood_max       <- ops/pallas/gather_reduce.py masked max fwd + bwd
+  pwmlp_minmax_stats     <- ops/pallas/gather_reduce.py point-wise MLP
+                            min/max + BN statistics fwd + bwd
+  gather_sub_minmax      <- ops/pallas/gather_reduce.py point-wise MLP
+                            gather-subtract min/max fwd + bwd
   group_features, masked_* reductions: plain gathers.
 """
 
 from closerlook3d_tpu_torch.ops.aggregation import pospool_fused  # noqa: F401
+from closerlook3d_tpu_torch.ops.gather_reduce import (  # noqa: F401
+    gather_sub_minmax,
+    pwmlp_minmax_stats,
+)
 from closerlook3d_tpu_torch.ops.grouping import (  # noqa: F401
     group_features,
     group_xyz,
     masked_avg,
     masked_max,
+    masked_min,
     masked_sum,
     neighborhood_max,
 )

@@ -1,7 +1,8 @@
 """Neighbor gathers, masked reductions, and the neighborhood max kernel.
 
 Same conventions as ``closerlook3d_tpu/ops/grouping.py``:
-  * max: invalid slots -> -inf; queries with no valid neighbor -> 0;
+  * max (and min): invalid slots -> -inf (+inf); queries with no valid
+    neighbor -> 0;
   * avg (also called mean): sum of valid / max(count, 1);
   * sum: sum of valid.
 Indices stay int32 at the public functions and widen to int64 only at the
@@ -48,6 +49,14 @@ def masked_max(values: torch.Tensor, mask: Optional[torch.Tensor],
     if mask is None:
         return values.amax(dim=dim)
     out = values.masked_fill(~mask[..., None], float("-inf")).amax(dim=dim)
+    any_valid = mask.any(dim=-1, keepdim=True)
+    return torch.where(any_valid, out, torch.zeros_like(out))
+
+
+def masked_min(values: torch.Tensor, mask: torch.Tensor,
+               dim: int = -2) -> torch.Tensor:
+    """Min over the neighbor axis; empty neighborhoods produce 0."""
+    out = values.masked_fill(~mask[..., None], float("inf")).amin(dim=dim)
     any_valid = mask.any(dim=-1, keepdim=True)
     return torch.where(any_valid, out, torch.zeros_like(out))
 

@@ -10,17 +10,18 @@ forward and of the ModelNet40 train step; these cases cover what those
 paths do not reach: FPS beyond 1024 points (several points per thread),
 query counts off the block size, supports across shared-memory tile
 edges, K at its bound and above Ns, channel counts off the thread block
-(C = 3, 300, 1152), masked queries and empty neighborhoods, f32 and
+(C = 3, 8, 300, 1152), masked queries and empty neighborhoods, f32 and
 bf16, the backward kernels (PosPool xyz and sin/cos, the neighborhood
-moments, and the neighborhood max, ties included), the autograd wiring,
-and the wrappers' refusals.
+moments, the neighborhood max and the point-wise MLP's min/max kernels,
+ties included), the autograd wiring, and the wrappers' refusals.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from closerlook3d_tpu_torch.ops import aggregation, grouping, moments
+from closerlook3d_tpu_torch.ops import (
+    aggregation, gather_reduce, grouping, moments)
 from closerlook3d_tpu_torch.ops.aggregation import (
     pospool_sincos_bwd_cuda, pospool_sincos_bwd_plain, pospool_sincos_cuda,
     pospool_sincos_plain, pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain,
@@ -330,3 +331,126 @@ def test_sincos_and_moments_wrappers_refuse():
                                       0.4, "avg")
     with pytest.raises(ValueError, match="avg|sum"):
         neighborhood_moments_cuda(q, s, f, idx, nmask, 0.4, "max")
+
+
+# the point-wise MLP's kernels: K6 (min/max + BN statistics) and K7
+# (gather-subtract min/max)
+def _pwmlp_inputs(nq, ns, c, k, dtype, values, seed):
+    _, _, idx, nmask = _neighborhoods(nq, ns, k, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g32 = torch.randn((3, ns, c), generator=gen, device="cuda")
+    if values == "ties":  # a coarse grid: exact ties in a neighborhood
+        g32 = torch.round(g32 * 2) / 2
+    d = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
+    cot = [torch.randn((3, nq, c), generator=gen, device="cuda")
+           for _ in range(4)]
+    return g32.to(dtype), (g32 * g32).to(dtype), d, idx, nmask, cot
+
+
+def _pwmlp_bwd_tol(dtype):
+    # the same f32 terms scattered in atomic order; bf16: both sum in f32
+    # and round once
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["ties", "distinct"])
+@pytest.mark.parametrize("nq,ns,c,k", [
+    (70, 300, 8, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
+    (40, 5, 12, 8)])  # C off the thread block and at 1152; K > Ns
+def test_pwmlp_stats_kernels_match_plain(dtype, values, nq, ns, c, k):
+    g, gsq, _, idx, nmask, cot = _pwmlp_inputs(nq, ns, c, k, dtype, values,
+                                               20)
+    outs = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+    ref = gather_reduce.pwmlp_minmax_stats_plain(g, gsq, idx, nmask)
+    assert all(o.dtype == torch.float32 and o.shape == (3, nq, c)
+               for o in outs)
+    assert torch.equal(outs[0], ref[0]) and torch.equal(outs[1], ref[1])
+    for o, r in zip(outs[2:], ref[2:]):  # f32 sums in slot order vs ATen's
+        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5)
+    assert all((o[-1] == 0).all() for o in outs)  # the masked cloud
+    got = gather_reduce.pwmlp_minmax_stats_bwd_cuda(g, idx, nmask, outs[0],
+                                                    outs[1], *cot)
+    twin = gather_reduce.pwmlp_minmax_stats_bwd_plain(g, idx, nmask, outs[0],
+                                                      outs[1], *cot)
+    for o, r in zip(got, twin):
+        assert o.dtype == dtype and o.shape == g.shape
+        torch.testing.assert_close(o.float(), r.float(),
+                                   **_pwmlp_bwd_tol(dtype))
+        assert (o[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("values", ["ties", "distinct"])
+@pytest.mark.parametrize("nq,ns,c,k", [
+    (70, 300, 8, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
+    (40, 5, 12, 8)])
+def test_gather_sub_minmax_kernels_match_plain(dtype, values, nq, ns, c, k):
+    g, _, d, idx, nmask, cot = _pwmlp_inputs(nq, ns, c, k, dtype, values, 22)
+    hm = gather_reduce.gather_sub_minmax_cuda(g, d, idx, nmask)
+    ref = gather_reduce.gather_sub_minmax_plain(g, d, idx, nmask)
+    assert torch.equal(hm[0], ref[0]) and torch.equal(hm[1], ref[1])
+    assert (hm[0][-1] == 0).all() and (hm[1][-1] == 0).all()
+    dg, dd = gather_reduce.gather_sub_minmax_bwd_cuda(g, d, idx, nmask, *hm,
+                                                      *cot[:2])
+    tdg, tdd = gather_reduce.gather_sub_minmax_bwd_plain(g, d, idx, nmask,
+                                                         *hm, *cot[:2])
+    assert dg.dtype == dd.dtype == dtype and dd.shape == d.shape
+    tol = _pwmlp_bwd_tol(dtype)
+    torch.testing.assert_close(dg.float(), tdg.float(), **tol)
+    torch.testing.assert_close(dd.float(), tdd.float(), **tol)
+    assert (dg[-1] == 0).all() and (dd[-1] == 0).all()
+
+
+@pytest.mark.parametrize("op", ["stats", "minmax"])
+def test_autograd_launches_pwmlp_kernels(op):
+    g, gsq, d, idx, nmask, cot = _pwmlp_inputs(60, 200, 24, 16,
+                                               torch.float32, "distinct", 24)
+    if op == "stats":
+        fused = gather_reduce.pwmlp_minmax_stats
+        plain = gather_reduce.pwmlp_minmax_stats_plain
+        fwd = gather_reduce.pwmlp_minmax_stats_cuda
+        bwd = gather_reduce.pwmlp_minmax_stats_bwd_cuda
+        inputs, cots = (g, gsq), cot
+    else:
+        fused = gather_reduce.gather_sub_minmax
+        plain = gather_reduce.gather_sub_minmax_plain
+        fwd = gather_reduce.gather_sub_minmax_cuda
+        bwd = gather_reduce.gather_sub_minmax_bwd_cuda
+        inputs, cots = (g, d), cot[:2]
+    xs = [x.clone().requires_grad_(True) for x in inputs]
+    before = (fwd.launches, bwd.launches)
+    got = torch.autograd.grad(fused(*xs, idx, nmask), xs, cots)
+    ref = torch.autograd.grad(plain(*xs, idx, nmask), xs, cots)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    with torch.no_grad():  # no backward, no record
+        fused(*xs, idx, nmask)
+    assert bwd.launches == before[1] + 1
+
+
+def test_pwmlp_wrappers_refuse():
+    g, gsq, d, idx, nmask, cot = _pwmlp_inputs(20, 50, 9, 4, torch.float32,
+                                               "distinct", 26)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gather_reduce.pwmlp_minmax_stats_cuda(g.double(), gsq.double(), idx,
+                                              nmask)
+    with pytest.raises(ValueError, match="dtype"):
+        gather_reduce.pwmlp_minmax_stats_cuda(g, gsq.bfloat16(), idx, nmask)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather_reduce.gather_sub_minmax_cuda(g, d.cpu(), idx, nmask)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_reduce.gather_sub_minmax_cuda(
+            g.transpose(0, 1).contiguous().transpose(0, 1), d, idx, nmask)
+    with pytest.raises(ValueError, match="int32"):
+        gather_reduce.gather_sub_minmax_cuda(g, d, idx.long(), nmask)
+    gmax, gmin, _, _ = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx,
+                                                             nmask)
+    with pytest.raises(ValueError, match="wrong dtype"):  # f32 cotangents
+        gather_reduce.pwmlp_minmax_stats_bwd_cuda(
+            g, idx, nmask, gmax, gmin, cot[0].bfloat16(), *cot[1:])
+    with pytest.raises(ValueError, match="shapes"):
+        gather_reduce.gather_sub_minmax_cuda(g, d[:, :10].contiguous(), idx,
+                                             nmask)

@@ -53,6 +53,7 @@ def _one_aten_thread():
 CONFIGS = {
     "sincos": "configs/modelnet40/pospool_sincos_avg.yaml",
     "adaptive": "configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml",
+    "pwmlp": "configs/modelnet40/pointwisemlp_dp_fi_df_fc1_max.yaml",
 }
 
 
@@ -72,6 +73,8 @@ def _tiny_jcfg(kind: str):
         "adaptive"])))
     jcfg.local_aggregation_type = full.local_aggregation_type
     jcfg.pospool.position_embedding = full.pospool.position_embedding
+    for key, value in full.pointwisemlp.items():
+        jcfg.pointwisemlp[key] = value
     if kind == "adaptive_gather":  # every branch of the gather path
         jcfg.adaptive_weight.local_input_feature = "dp_fi_df"
         jcfg.adaptive_weight.fc_num = 2
@@ -132,11 +135,9 @@ def _seeded_variables(jcfg, model, tx, jbatch):
 STEPS = 3
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def trained(request):
+def run_tiny(kind: str) -> dict:
     """Eval logits, first-step gradients and STEPS train steps of one tiny
     config in JAX and in the port, from the same variables and batch."""
-    kind = request.param
     jcfg = _tiny_jcfg(kind)
     cfg = Config(jcfg.to_dict())
     spe = 2
@@ -186,6 +187,12 @@ def trained(request):
             "logits": (tlogits.numpy(), jlogits),
             "grads": (tgrads, jgrads),
             "losses": (np.array(tlog), np.array(jlog))}
+
+
+# the point-wise MLP config runs in tests/test_torch_pwmlp.py
+@pytest.fixture(scope="module", params=["adaptive", "sincos"])
+def trained(request):
+    return run_tiny(request.param)
 
 
 def test_operator_config_eval_logits_match_jax(trained):
