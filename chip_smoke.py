@@ -12,22 +12,32 @@ with every check raising on failure and no CPU fallback:
   forward (1024 points, width 144, depth 2, bf16), serves requests
   through ``Predictor``, checks the launch counters and the f32 forward
   against the CPU;
-* training, on four ModelNet40 configs at full width and depth (5000
+* training, on five ModelNet40 configs at full width and depth (5000
   points, batch 32; set here in code, so PyYAML is not needed):
   ``pospool_xyz_avg.yaml``, ``pospool_sincos_avg.yaml``,
-  ``adaptive_weight_dp_fc1_avg.yaml`` and
-  ``pointwisemlp_dp_fi_df_fc1_max.yaml``. For each: checks its
-  aggregation kernels (PosPool xyz, PosPool sin/cos, the neighborhood
-  moments, or the point-wise MLP's min/max + statistics and gather-subtract
-  min/max) forward and backward against their plain versions at every
-  call shape of the train step, in f32 and bf16 (for the xyz config also
-  the ball query, FPS and the neighborhood max); holds an f32 train step
+  ``adaptive_weight_dp_fc1_avg.yaml``,
+  ``pointwisemlp_dp_fi_df_fc1_max.yaml`` and ``pseudo_grid.yaml``. For
+  each: checks its aggregation kernels (PosPool xyz, PosPool sin/cos, the
+  neighborhood moments, the point-wise MLP's min/max + statistics and
+  gather-subtract min/max, or the pseudo-grid correlation at all three
+  influence modes) forward and backward against their plain versions at
+  every call shape of the train step, in f32 and bf16 (for the xyz config
+  also the ball query, FPS and the neighborhood max); holds an f32 train step
   through the kernels to one through the plain versions (same weights,
   batch and geometry) and checks that every parameter gets a gradient
   (for the point-wise MLP also the gradient of an eval-mode forward, the
   path of its gather-subtract backward); trains bf16 steps on one batch
   (the loss must fall) with exact per-step launch counts; ends with an
   eval step and timed ``Predictor`` requests at that config;
+* segmentation serving, at the full size of
+  ``configs/shapenetpart/pospool_xyz_avg.yaml`` (32 x 2048 points, 50
+  part logits per point) and ``configs/s3dis/pospool_xyz_avg.yaml`` (8 x
+  15000 points, grid subsampling, 13 class logits per point): checks the
+  k-NN kernel (the decoder's upsample indices) against its plain version
+  at every call shape and at k = 3 and k > Ns, and the ball query, PosPool
+  and the neighborhood max at these shapes; serves requests through
+  ``Predictor`` with exact launch counts, holds f32 per-point logits of
+  the card to the CPU's, and times requests;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -118,9 +128,10 @@ def slice_config():
 
 def operator_config(kind: str):
     """``configs/modelnet40/pospool_sincos_avg.yaml`` (kind "sincos"),
-    ``configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml`` ("adaptive") or
-    ``configs/modelnet40/pointwisemlp_dp_fi_df_fc1_max.yaml`` ("pwmlp"),
-    set in code; CPU tests hold each equal to its file."""
+    ``configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml`` ("adaptive"),
+    ``configs/modelnet40/pointwisemlp_dp_fi_df_fc1_max.yaml`` ("pwmlp") or
+    ``configs/modelnet40/pseudo_grid.yaml`` ("pgrid"), set in code; CPU
+    tests hold each equal to its file."""
     cfg = slice_config()
     if kind == "sincos":
         cfg.pospool.position_embedding = "sin_cos"
@@ -134,8 +145,51 @@ def operator_config(kind: str):
         cfg.pointwisemlp.feature_type = "dp_fi_df"
         cfg.pointwisemlp.num_mlps = 1
         cfg.pointwisemlp.reduction = "max"
+    elif kind == "pgrid":
+        cfg.local_aggregation_type = "pseudo_grid"
+        cfg.pseudo_grid.num_kernel_points = 15
+        cfg.pseudo_grid.KP_influence = "linear"
+        cfg.pseudo_grid.KP_extent = 1.0
+        cfg.pseudo_grid.convolution_mode = "sum"
     else:
         raise ValueError(kind)
+    return cfg
+
+
+def seg_config(name: str):
+    """``configs/shapenetpart/pospool_xyz_avg.yaml`` (name "shapenetpart")
+    or ``configs/s3dis/pospool_xyz_avg.yaml`` ("s3dis"), set in code; a
+    CPU test holds each equal to its file."""
+    from closerlook3d_tpu_torch.utils.config import load_config
+
+    cfg = load_config()
+    common = dict(
+        input_features="xyz", optimizer="sgd", lr_scheduler="cosine",
+        warmup_epoch=5, weight_decay=0.001, momentum=0.9,
+        label_smoothing=0.2, augment_rotation="z", augment_scale_min=0.8,
+        augment_scale_max=1.2, augment_noise=0.001, width=144, depth=2,
+        bottleneck_ratio=2, radius=0.1, nsamples=[26, 31, 38, 41, 39],
+        dropout_rate=0.5, local_aggregation_type="pospool")
+    if name == "shapenetpart":
+        common.update(
+            datasets="shapenetpart", task="part_segmentation",
+            num_points=2048, num_classes=16, batch_size=32, epochs=400,
+            base_learning_rate=0.002, sampling="fps",
+            npoints=[2048, 512, 128, 32, 8])
+    elif name == "s3dis":
+        common.update(
+            datasets="s3dis", task="scene_segmentation", num_points=15000,
+            num_classes=13, batch_size=8, input_features="ones,rgb,height",
+            epochs=600, base_learning_rate=0.01, sampling="grid",
+            npoints=[15000, 4096, 1152, 304, 88], sampleDl=0.08,
+            first_subsampling_dl=0.04, in_radius=2.0, num_steps=2000,
+            num_votes=20, color_drop=0.2)
+    else:
+        raise ValueError(name)
+    for key, value in common.items():
+        cfg[key] = value
+    cfg.pospool.position_embedding = "xyz"
+    cfg.pospool.reduction = "avg"
     return cfg
 
 
@@ -177,12 +231,13 @@ def kernel_wrappers():
     from closerlook3d_tpu_torch.ops import aggregation as agg
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
     from closerlook3d_tpu_torch.ops import moments as mom
+    from closerlook3d_tpu_torch.ops import neighbors as nbr
+    from closerlook3d_tpu_torch.ops import pseudo_grid as pg
     from closerlook3d_tpu_torch.ops.grouping import (
         neighborhood_max_bwd_cuda, neighborhood_max_cuda)
-    from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
     from closerlook3d_tpu_torch.ops.sampling import furthest_point_sample_cuda
 
-    return {"ball_query": ball_query_cuda,
+    return {"ball_query": nbr.ball_query_cuda,
             "fps": furthest_point_sample_cuda,
             "pospool_xyz": agg.pospool_xyz_cuda,
             "pospool_xyz_bwd": agg.pospool_xyz_bwd_cuda,
@@ -195,20 +250,28 @@ def kernel_wrappers():
             "pwmlp_stats": gr.pwmlp_minmax_stats_cuda,
             "pwmlp_stats_bwd": gr.pwmlp_minmax_stats_bwd_cuda,
             "gather_sub_minmax": gr.gather_sub_minmax_cuda,
-            "gather_sub_minmax_bwd": gr.gather_sub_minmax_bwd_cuda}
+            "gather_sub_minmax_bwd": gr.gather_sub_minmax_bwd_cuda,
+            "pseudo_grid": pg.pseudo_grid_cuda,
+            "pseudo_grid_bwd": pg.pseudo_grid_bwd_cuda,
+            # one kernel (csrc/knn.cu), counted by route: the JAX
+            # package's chunked 1-NN (K11) and its k-NN (K12)
+            "knn1": nbr.knn1_cuda,
+            "knn": nbr.knn_cuda}
 
 
 # The training configs, by kind, and the aggregation kernels each one's
 # LocalAggregation launches (14 calls per forward at depth 2): those of a
 # train step, and those of an eval-mode forward. The backward of an
 # eval-mode forward runs each of the latter's backward ("<name>_bwd").
-TRAIN_KINDS = ("xyz", "sincos", "adaptive", "pwmlp")
+TRAIN_KINDS = ("xyz", "sincos", "adaptive", "pwmlp", "pgrid")
 AGG_KERNELS = {"xyz": (("pospool_xyz", "pospool_xyz_bwd"), ("pospool_xyz",)),
                "sincos": (("pospool_sincos", "pospool_sincos_bwd"),
                           ("pospool_sincos",)),
                "adaptive": (("moments", "moments_bwd"), ("moments",)),
                "pwmlp": (("pwmlp_stats", "pwmlp_stats_bwd"),
-                         ("gather_sub_minmax",))}
+                         ("gather_sub_minmax",)),
+               "pgrid": (("pseudo_grid", "pseudo_grid_bwd"),
+                         ("pseudo_grid",))}
 
 
 def agg_kernels(kind: str, mode: str) -> tuple:
@@ -278,10 +341,11 @@ def plain_route():
     """CUDA tensors take the plain PyTorch versions: only for the runs
     that the kernels are compared with."""
     from closerlook3d_tpu_torch.ops import (
-        aggregation, gather_reduce, grouping, moments, neighbors, sampling)
+        aggregation, gather_reduce, grouping, moments, neighbors,
+        pseudo_grid, sampling)
 
     mods = (aggregation, gather_reduce, grouping, moments, neighbors,
-            sampling)
+            pseudo_grid, sampling)
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda t: False
@@ -309,7 +373,8 @@ def phase_device() -> dict:
 
 
 SOURCES = ("ball_query", "fps", "pospool_xyz", "neighborhood_max",
-           "pospool_sincos", "moments", "gather_reduce")
+           "pospool_sincos", "moments", "gather_reduce", "pseudo_grid",
+           "knn")
 
 
 def phase_build() -> dict:
@@ -651,6 +716,8 @@ def phase_train_kernel_parity(tcfg, kind: str) -> dict:
     phase = f"train-parity:{kind}"
     if kind == "pwmlp":
         return _pwmlp_parity(pp, gen, phase)
+    if kind == "pgrid":
+        return _pgrid_parity(tcfg, pp, gen, phase)
     (fwd_name, bwd_name), _ = AGG_KERNELS[kind]
     fwd, plain, bwd, twin, widen = agg_ops(kind)
     errs = {fwd_name: 0.0, bwd_name: 0.0}
@@ -827,6 +894,75 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
                     f"{e_t:.3g}, vs autograd {e_a:.3g}; gather_sub_minmax "
                     f"max/min equal, bwd vs twin {e_t7:.3g}, vs autograd "
                     f"{e_a7:.3g} (bwd tol {tol}); "
+                    f"{int(nmask.sum())} valid slots")
+    return errs
+
+
+def pgrid_geometry(tcfg, device):
+    """(kernel points [Kp, 3] f32 on ``device``, influence extent) of the
+    config's pseudo-grid, as its LocalAggregation builds them."""
+    from closerlook3d_tpu_torch.models.aggregation import (
+        _typical_spacing, kernel_point_layout)
+
+    p = tcfg.pseudo_grid
+    kp = kernel_point_layout(p.num_kernel_points, p.fixed_kernel_points)
+    return (torch.from_numpy(kp).to(device),
+            float(p.KP_extent * _typical_spacing(kp)))
+
+
+def _pgrid_tol(dtype):
+    """Pseudo-grid kernels vs their plain versions and twins, and vs
+    autograd of the plain forward (which gathers and sums in f32 too):
+    the same f32 terms summed in another order (slots in order, or f32
+    atomics, against a matmul and index_add_), rounded once; in bf16 one
+    ulp where the orders straddle a rounding boundary."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+def _pgrid_parity(tcfg, pp, gen, phase) -> dict:
+    """The pseudo-grid kernels (K10) forward and backward vs their plain
+    versions, the backward also vs autograd of the plain forward, at every
+    aggregation call shape of the train step, f32 and bf16, for all three
+    influence modes (the config trains with the linear one)."""
+    from closerlook3d_tpu_torch.ops import pseudo_grid as pg
+
+    kp, extent = pgrid_geometry(tcfg, DEVICE)
+    kpn = kp.shape[0]
+    errs = {"pseudo_grid": 0.0, "pseudo_grid_bwd": 0.0}
+
+    def note(key, what, got, ref, tol):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol,
+                                   msg=lambda m: f"{what}: {m}")
+        err = float((got.float() - ref.float()).abs().max())
+        errs[key] = max(errs[key], err)
+        return err
+
+    for name, (q, s, idx, nmask, r), c, _ in pp:
+        for dtype in (torch.float32, torch.bfloat16):
+            f = _features(gen, s, c, dtype)
+            dy = _features(gen, q, kpn * c, dtype)
+            tol = _pgrid_tol(dtype)
+            for mode in ("linear", "constant", "gaussian"):
+                args = (kp, r, extent, mode)
+                what = (f"pseudo_grid {name} C={c} K={idx.shape[2]} "
+                        f"Kp={kpn} {str(dtype)[6:]} {mode}")
+                e_f = note("pseudo_grid", what,
+                           pg.pseudo_grid_cuda(q, s, f, idx, nmask, *args),
+                           pg.pseudo_grid_plain(q, s, f, idx, nmask, *args),
+                           tol)
+                got = pg.pseudo_grid_bwd_cuda(q, s, idx, nmask, kp, dy, r,
+                                              extent, mode)
+                e_t = note("pseudo_grid_bwd", what + " bwd vs twin", got,
+                           pg.pseudo_grid_bwd_plain(q, s, idx, nmask, kp, dy,
+                                                    r, extent, mode), tol)
+                _, ref = _vjp(lambda x: pg.pseudo_grid_plain(
+                    q, s, x, idx, nmask, *args), f, dy)
+                e_a = note("pseudo_grid_bwd", what + " bwd vs autograd",
+                           got, ref, tol)
+                log(phase, f"{what}: max abs err fwd {e_f:.3g}, bwd vs twin "
+                    f"{e_t:.3g}, vs autograd {e_a:.3g} (tol {tol}); "
                     f"{int(nmask.sum())} valid slots")
     return errs
 
@@ -1166,6 +1302,17 @@ def _profiled(fn, n: int, unprofiled_ms: float):
                   "device_idle_share_est": 1 - busy_ms / unprofiled_ms}
 
 
+def _top_kernels(prof, n: int, rows: int = 15) -> list:
+    """The ``rows`` device kernels with the most time in a profile of ``n``
+    runs, per run (device kernels only: an ATen op's entry repeats its
+    kernels' time)."""
+    avgs = sorted((e for e in prof.key_averages() if _device_us(e) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=_device_us, reverse=True)
+    return [{"name": e.key[:90], "ms_per_run": _device_us(e) / n / 1e3,
+             "calls_per_run": e.count / n} for e in avgs[:rows]]
+
+
 def phase_timing(cfg, serving) -> dict:
     """Serving: the forward's geometry and PosPool kernels per flagship
     forward against their plain versions, and request latency."""
@@ -1315,6 +1462,50 @@ def _pwmlp_cases(calls, gen):
     return cases
 
 
+def pgrid_flops_per_slot(kpn: int, c: int, backward: bool) -> int:
+    """f32 operations per valid slot of a pseudo-grid call with C input
+    channels and Kp kernel points: u (3 subtractions, 3 multiplies); per
+    kernel point d2 (3 subtractions, 3 multiplies, 2 adds) and the
+    influence (about 4: sqrt, multiply, subtract, max); per kernel point
+    and channel one multiply-add (2); the backward adds one atomic add per
+    channel."""
+    return 6 + 12 * kpn + 2 * kpn * c + (c if backward else 0)
+
+
+def _pgrid_cases(tcfg, calls, gen):
+    """``_kernel_cases`` for the pseudo-grid config: K10 forward and
+    backward per train step, bf16, the config's linear influence."""
+    from closerlook3d_tpu_torch.ops import pseudo_grid as pg
+
+    bf = torch.bfloat16
+    kp, extent = pgrid_geometry(tcfg, DEVICE)
+    kpn = kp.shape[0]
+    mode = tcfg.pseudo_grid.KP_influence
+    cases = {"pseudo_grid": [], "pseudo_grid_bwd": []}
+    for i, (name, _, c, count) in enumerate(calls[0][2]):
+        fwd, bwd = [], []
+        for cs in calls:
+            q, s, idx, nmask, r = cs[2][i][1]
+            f = _features(gen, s, c, bf)
+            dy = _features(gen, q, kpn * c, bf)
+            fwd.append((q, s, f, idx, nmask, kp, r, extent, mode))
+            bwd.append((q, s, idx, nmask, kp, dy, r, extent, mode))
+        q, s, f, idx, nmask = fwd[0][:5]
+        dy = bwd[0][5]
+        valid = float(nmask.sum())
+        # bytes: inputs read once, the output written once (dy has the
+        # forward output's size, f the backward's)
+        cases["pseudo_grid"].append((
+            name, count, pg.pseudo_grid_cuda, pg.pseudo_grid_plain, fwd,
+            (_nbytes(q, s, f, idx, nmask, kp, dy),
+             valid * pgrid_flops_per_slot(kpn, c, False))))
+        cases["pseudo_grid_bwd"].append((
+            name, count, pg.pseudo_grid_bwd_cuda, pg.pseudo_grid_bwd_plain,
+            bwd, (_nbytes(q, s, idx, nmask, kp, dy, f),
+                  valid * pgrid_flops_per_slot(kpn, c, True))))
+    return cases
+
+
 def _kernel_cases(tcfg, calls, gen, kind: str):
     """{kernel: [(call name, per step, kernel fn, plain fn, inputs per
     input set, (bytes, flops) of the first set)]} for one train step of
@@ -1328,6 +1519,8 @@ def _kernel_cases(tcfg, calls, gen, kind: str):
 
     if kind == "pwmlp":
         return _pwmlp_cases(calls, gen)
+    if kind == "pgrid":
+        return _pgrid_cases(tcfg, calls, gen)
     bf = torch.bfloat16
     (fwd_name, bwd_name), _ = AGG_KERNELS[kind]
     fwd_fn, plain_fn, bwd_fn, twin_fn, widen = agg_ops(kind)
@@ -1442,13 +1635,7 @@ def phase_train_timing(tcfg, training, kind: str) -> dict:
         training["batch"]
     nsteps = 3
     prof, split = _profiled(lambda: step(state, batch, SEED), nsteps, med)
-    # device kernels only (an ATen op's entry repeats its kernels' time)
-    avgs = sorted((e for e in prof.key_averages() if _device_us(e) > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=_device_us, reverse=True)
-    top = [{"name": e.key[:90], "ms_per_step": _device_us(e) / nsteps / 1e3,
-            "calls_per_step": e.count / nsteps} for e in avgs[:15]]
-    split["top"] = top
+    split["top"] = top = _top_kernels(prof, nsteps)
     pts = tcfg.batch_size * tcfg.num_points
     log(phase, f"train step (batch {tcfg.batch_size} x "
         f"{tcfg.num_points} points, bf16, batch copy included): median "
@@ -1462,8 +1649,8 @@ def phase_train_timing(tcfg, training, kind: str) -> dict:
         f"{100 * split['device_idle_share_est']:.1f}% of the unprofiled "
         f"median, an estimate)")
     for row in top:
-        log(phase, f"  {row['ms_per_step']:9.4f} ms "
-            f"{row['calls_per_step']:6.1f} calls/step  {row['name']}")
+        log(phase, f"  {row['ms_per_run']:9.4f} ms "
+            f"{row['calls_per_run']:6.1f} calls/step  {row['name']}")
     predictor, rmed = training["predictor"], training["request_ms_median"]
     _, rsplit = _profiled(lambda: predictor(batch["xyz"], batch["mask"],
                                             batch["features"]), 5, rmed)
@@ -1476,6 +1663,339 @@ def phase_train_timing(tcfg, training, kind: str) -> dict:
             "step_ms_all": training["step_ms"], "host_ms_median": hmed,
             "points_per_s": pts / (med / 1e3), "split": split,
             "request_ms_median": rmed, "request_split": rsplit}
+
+
+# ---- segmentation serving ---------------------------------------------------
+
+SEG_NAMES = ("shapenetpart", "s3dis")
+
+
+def seg_batch(cfg, seed: int, padded=(), all_masked=(), duplicated=(),
+              batch: int = 0) -> dict:
+    """Morton-sorted synthetic clouds of the config's task, as the data
+    loader feeds them: two-category part shapes (part segmentation) or
+    rooms with colors (scene segmentation), with the config's input
+    features. Clouds listed in ``padded`` keep their first 70% of points,
+    those in ``all_masked`` none, and those in ``duplicated`` repeat their
+    first 10% of points right after them (exact distance ties)."""
+    from closerlook3d_tpu_torch.data.loader import build_features
+    from closerlook3d_tpu_torch.data.spatial_host import morton_sort_batch
+    from closerlook3d_tpu_torch.data.synthetic import (
+        SyntheticPartSegmentation, SyntheticSceneSegmentation)
+
+    nb, n = batch or cfg.batch_size, cfg.num_points
+    make = (SyntheticPartSegmentation if cfg.task == "part_segmentation"
+            else SyntheticSceneSegmentation)
+    ds = make(nb, n, seed=seed)
+    samples = [ds[i] for i in range(nb)]
+    out = {k: np.stack([sm[k] for sm in samples]) for k in samples[0]}
+    keep, span = n * 7 // 10, n // 10
+    for i in padded:
+        out["mask"][i, keep:] = False
+    for i in all_masked:
+        out["mask"][i] = False
+    for i in duplicated:
+        for k in ("xyz", "rgb"):
+            if k in out:
+                out[k][i, span:2 * span] = out[k][i, :span]
+    out["features"] = build_features(out, cfg.input_features)
+    return morton_sort_batch(out)
+
+
+def seg_launches(cfg) -> dict:
+    """Exact launches of every kernel in one segmentation request: the
+    encoder's (9 ball queries, FPS between stages unless the config
+    samples by grid, 14 PosPool, 4 maxima) and the decoder's 1-NN per
+    stage, on the route of the JAX package's chunked 1-NN for supports of
+    >= 1024 points, else on that of its k-NN."""
+    from closerlook3d_tpu_torch.ops.neighbors import KNN1_CHUNKED_MIN_SUPPORT
+    from closerlook3d_tpu_torch.utils.config import stage_plan
+
+    npoints = stage_plan(cfg)["npoints"]
+    counts = dict.fromkeys(kernel_wrappers(), 0)
+    counts.update(ball_query=9, pospool_xyz=14, neighborhood_max=4,
+                  fps=4 if cfg.sampling == "fps" else 0)
+    for ns in npoints[1:]:
+        counts["knn1" if ns >= KNN1_CHUNKED_MIN_SUPPORT else "knn"] += 1
+    return counts
+
+
+def seg_calls(cfg, g):
+    """The kernel calls of one segmentation forward, from its geometry
+    ``g`` (``compute_geometry(need_up=True)`` on the card): (ball-query
+    calls, PosPool calls as ``path_calls`` gives them, upsample k-NN calls
+    (name, (query xyz, support xyz, k, support mask)))."""
+    from closerlook3d_tpu_torch.utils.config import stage_plan
+
+    plan = stage_plan(cfg)
+    radii, ks, widths = plan["radii"], plan["nsamples"], plan["widths"]
+    x0, m0 = g["xyz_0"], g["mask_0"]
+    bq = [("s0", (x0, x0, radii[0], ks[0], m0, m0))]
+    pp = [("s0", (x0, x0, g["idx_0"], g["nmask_0"], radii[0]),
+           widths[0] // 2, 2)]
+    for s in range(1, len(ks)):
+        xs, ms, xp, mp = g[f"xyz_{s}"], g[f"mask_{s}"], g[f"xyz_{s - 1}"], \
+            g[f"mask_{s - 1}"]
+        bq += [(f"s{s}-strided", (xs, xp, radii[s - 1] * 2.0, ks[s - 1], ms,
+                                  mp)),
+               (f"s{s}", (xs, xs, radii[s], ks[s], ms, ms))]
+        pp += [(f"s{s}-strided", (xs, xp, g[f"sidx_{s}"], g[f"smask_{s}"],
+                                  radii[s - 1] * 2.0), widths[s] // 2, 1),
+               (f"s{s}", (xs, xs, g[f"idx_{s}"], g[f"nmask_{s}"], radii[s]),
+                widths[s] // 2, cfg.depth)]
+    up = [(f"up{s}", (g[f"xyz_{s}"], g[f"xyz_{s + 1}"], 1,
+                      g[f"mask_{s + 1}"])) for s in range(len(ks) - 1)]
+    return bq, pp, up
+
+
+def _knn_route(q, s, k, smask):
+    """The wrapper ``ops/neighbors.py::knn`` launches for these inputs."""
+    from closerlook3d_tpu_torch.ops import neighbors as nbr
+
+    if k == 1 and s.shape[1] >= nbr.KNN1_CHUNKED_MIN_SUPPORT:
+        return nbr.knn1_cuda
+    return nbr.knn_cuda
+
+
+def _knn_err(what, got, ref) -> float:
+    """Indices equal and d2 equal to the bit, or raise; returns 0."""
+    (ki, kd), (pi, pd) = got, ref
+    torch.cuda.synchronize()
+    if not (torch.equal(ki, pi) and torch.equal(kd, pd)):
+        bad = (ki != pi) | (kd != pd)
+        raise AssertionError(
+            f"{what}: kernel and plain disagree at {int(bad.sum())} slots, "
+            f"first {bad.nonzero()[:4].tolist()}")
+    return 0.0
+
+
+def phase_seg_kernel_parity(cfg, name: str) -> dict:
+    """The k-NN kernel against its plain version at every upsample call of
+    a segmentation forward (k = 1 on the route the forward takes, then k =
+    3, and k = 16 > Ns on a 10-point support), and the ball query, PosPool
+    xyz and the neighborhood max at this config's shapes; a padded, an
+    all-masked (its supports all masked at every stage) and a duplicated
+    cloud. {kernel: max abs err}."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+    from closerlook3d_tpu_torch.ops.aggregation import (
+        pospool_xyz_cuda, pospool_xyz_plain)
+    from closerlook3d_tpu_torch.ops.grouping import (
+        neighborhood_max_cuda, neighborhood_max_plain)
+    from closerlook3d_tpu_torch.ops.neighbors import MAX_KNN, knn_plain
+
+    dev = torch.device(DEVICE)
+    nb = cfg.batch_size
+    b = seg_batch(cfg, SEED + 800, padded=(nb - 4,), all_masked=(nb - 3,),
+                  duplicated=(nb - 2, nb - 1))
+    with torch.no_grad():
+        g = compute_geometry(cfg, torch.from_numpy(b["xyz"]).to(dev),
+                             torch.from_numpy(b["mask"]).to(dev),
+                             need_up=True)
+    bq, pp, up = seg_calls(cfg, g)
+    phase = f"seg-parity:{name}"
+    errs = dict(_geometry_parity(bq, []), knn=0.0, pospool_xyz=0.0,
+                neighborhood_max=0.0)
+    del errs["fps"]
+    for call, (q, s, _, sm) in up:
+        cases = [(call, q, s, 1, sm), (call + " k=3", q, s, 3, sm),
+                 (call + f" k={MAX_KNN} on 10 supports", q,
+                  s[:, :10].contiguous(), MAX_KNN, sm[:, :10].contiguous())]
+        for what, qq, ss, k, mm in cases:
+            fn = _knn_route(qq, ss, k, mm)
+            errs["knn"] = max(errs["knn"], _knn_err(
+                f"knn {what}", fn(qq, ss, k, mm), knn_plain(qq, ss, k, mm)))
+            log(phase, f"knn {what} q{tuple(qq.shape)} s{tuple(ss.shape)} "
+                f"({fn.__name__}): idx equal, d2 equal to the bit "
+                f"({int(mm.sum())} valid supports)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for call, (q, s, idx, nmask, r), c, _ in pp:
+        for dtype in (torch.float32, torch.bfloat16):
+            f = _features(gen, s, c, dtype)
+            got = pospool_xyz_cuda(q, s, f, idx, nmask, r, "avg").float()
+            ref = pospool_xyz_plain(q, s, f, idx, nmask, r, "avg").float()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref,
+                                       **_pospool_fwd_tol(dtype, "avg"))
+            err = float((got - ref).abs().max())
+            errs["pospool_xyz"] = max(errs["pospool_xyz"], err)
+            log(phase, f"pospool_xyz {call} C={c} K={idx.shape[2]} "
+                f"{str(dtype)[6:]} avg: max abs err {err:.3g}")
+    for call, (s, idx, nmask), c in max_calls(cfg, pp):
+        for dtype in (torch.float32, torch.bfloat16):
+            f = _tie_features(gen, s, c, dtype)
+            errs["neighborhood_max"] = max(
+                errs["neighborhood_max"],
+                _max_err(f"neighborhood_max {call}",
+                         neighborhood_max_cuda(f, idx, nmask),
+                         neighborhood_max_plain(f, idx, nmask)))
+            log(phase, f"neighborhood_max {call} C={c} {str(dtype)[6:]}: "
+                f"equal")
+    return errs
+
+
+def phase_seg_serving(cfg, name: str, weights, wrappers) -> dict:
+    """Requests through ``Predictor`` at the config's batch and points:
+    per-point logits, exact launches per request, then 10 timed requests
+    (host clock, ending in a synchronize), peak memory and a profiled
+    device split."""
+    from closerlook3d_tpu_torch.serving import Predictor
+
+    predictor = Predictor(cfg, weights, device=DEVICE)
+    nb, n = cfg.batch_size, cfg.num_points
+    width = predictor.model.head.fc.out_features
+    batches = [seg_batch(cfg, SEED + 900 + r, padded=(1,) if r else ())
+               for r in range(2)]
+    expected = seg_launches(cfg)
+    totals = dict.fromkeys(wrappers, 0)
+    for i, bt in enumerate(batches):
+        reset_counts(wrappers)
+        out = predictor(bt["xyz"], bt["mask"], bt["features"])
+        torch.cuda.synchronize()
+        counts = read_counts(wrappers)
+        check_counts(f"{name} request {i}", counts, expected)
+        for k in totals:
+            totals[k] += counts[k]
+        if (tuple(out.shape) != (nb, n, width) or out.dtype != torch.float32
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"{name} logits {tuple(out.shape)} "
+                                 f"{out.dtype} not finite f32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = _request_latencies(predictor, batches, 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = lat[len(lat) // 2]
+    bt = batches[0]
+    prof, split = _profiled(
+        lambda: predictor(bt["xyz"], bt["mask"], bt["features"]), 3, med)
+    split["top"] = _top_kernels(prof, 3, rows=10)
+    phase = f"seg-serving:{name}"
+    log(phase, f"{len(batches)} requests of {nb} x {n} points (bf16) "
+        f"answered: per-point logits {(nb, n, width)} finite f32; launches "
+        f"per request " + str({k: v for k, v in expected.items() if v}))
+    log(phase, f"request median {med:.3f} ms over 10 (host clock incl. "
+        f"input copy), min {lat[0]:.3f}, max {lat[-1]:.3f}; "
+        f"{nb * n / (med / 1e3):.0f} points/s; peak memory {peak:.2f} GiB; "
+        f"profiled 3 requests: wall {split['wall_ms_profiled']:.3f} ms, "
+        f"device busy {split['device_busy_ms']:.3f} ms/request (idle "
+        f"{100 * split['device_idle_share_est']:.1f}% of the unprofiled "
+        f"median, an estimate)")
+    for row in split["top"]:
+        log(phase, f"  {row['ms_per_run']:9.4f} ms "
+            f"{row['calls_per_run']:6.1f} calls/request  {row['name']}")
+    return {"predictor": predictor, "batches": batches, "launches": totals,
+            "launches_per_request": expected, "request_ms_median": med,
+            "request_ms_all": lat, "points_per_s": nb * n / (med / 1e3),
+            "peak_gib": peak, "split": split}
+
+
+def phase_seg_forward_parity(cfg, name: str, weights, batch,
+                             clouds: int) -> dict:
+    """f32 per-point logits on the card (kernels) vs on the CPU (plain
+    versions) for the first ``clouds`` clouds of a request (cloud 1
+    padded); their geometry (grid barycenters and upsample indices
+    included) must be equal."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+    from closerlook3d_tpu_torch.serving import Predictor
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.precision = "f32"
+    part = {k: v[:clouds] for k, v in batch.items()}
+    with torch.inference_mode():
+        gg = compute_geometry(cfg32, torch.from_numpy(part["xyz"]).to(DEVICE),
+                              torch.from_numpy(part["mask"]).to(DEVICE),
+                              need_up=True)
+        cg = compute_geometry(cfg32, torch.from_numpy(part["xyz"]),
+                              torch.from_numpy(part["mask"]), need_up=True)
+    for k in cg:
+        if not torch.equal(gg[k].cpu(), cg[k]):
+            raise AssertionError(f"{name} geometry {k}: card and CPU differ")
+    lg = Predictor(cfg32, weights, device=DEVICE)(
+        part["xyz"], part["mask"], part["features"]).cpu()
+    lc = Predictor(cfg32, weights, device="cpu")(
+        part["xyz"], part["mask"], part["features"])
+    # f32 throughout (TF32 off); cuBLAS/ATen-CUDA and the CPU sum matmuls,
+    # BN and PosPool neighborhoods in different orders through 15 blocks
+    # and the decoder
+    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=1e-4)
+    err = float((lg - lc).abs().max())
+    log(f"seg-forward:{name}", f"f32 per-point logits {tuple(lc.shape)}, "
+        f"card vs CPU plain: max abs err {err:.3g} (|logits| max "
+        f"{float(lc.abs().max()):.3g}); geometry ({len(cg)} tensors, grid "
+        f"and upsample indices included) equal")
+    return {"max_abs_err": err, "clouds": clouds,
+            "geometry_tensors": len(cg)}
+
+
+def knn_library(q, s, k, smask):
+    """PyTorch's own calls for the same function, the yardstick of the
+    kernels line: ``torch.cdist`` squared plus the masked supports' bias,
+    then a sorted ``torch.topk`` (ties in unspecified order)."""
+    d2 = torch.cdist(q, s).square() + torch.where(smask, 0.0, 1e10)[:, None]
+    return torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+
+
+def phase_seg_timing(cfg, name: str) -> dict:
+    """The k-NN kernel per request (its 4 upsample calls) against its
+    plain version, PyTorch's cdist + topk and its bound; inputs from three
+    requests' geometry."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+    from closerlook3d_tpu_torch.ops.neighbors import knn_plain
+
+    dev = torch.device(DEVICE)
+    ups = []
+    for r in range(3):
+        b = seg_batch(cfg, SEED + 1000 + r)
+        with torch.no_grad():
+            g = compute_geometry(cfg, torch.from_numpy(b["xyz"]).to(dev),
+                                 torch.from_numpy(b["mask"]).to(dev),
+                                 need_up=True)
+        ups.append(seg_calls(cfg, g)[2])
+    rows = []
+    for i, (call, (q, s, k, sm)) in enumerate(ups[0]):
+        ins = [u[i][1] for u in ups]
+        fn = _knn_route(q, s, k, sm)
+        ms, plain_ms = _time(fn, ins, 20), _time(knn_plain, ins, 3)
+        lib_ms = _time(knn_library, ins, 3)
+        # 9 f32 operations per (query, valid support) pair: 3
+        # subtractions, 3 multiplies, 2 adds and the compare
+        pairs = float((sm.sum(1) * q.shape[1]).sum())
+        nbytes = _nbytes(q, s, sm) + q.shape[0] * q.shape[1] * k * 8
+        bound_ms, bound_by = _bound(nbytes, 9 * pairs)
+        rows.append({"call": call, "route": fn.__name__, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "flops": 9 * pairs})
+        log(f"seg-timing:{name}", f"knn {call} ({fn.__name__}) "
+            f"q{tuple(q.shape)} s{tuple(s.shape)}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    tot = {key: sum(r[key] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = {}
+    for r in rows:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+    tot["bound_by"] = max(by, key=by.get)
+    log(f"seg-timing:{name}", f"knn per request: kernel {tot['ms']:.4f} ms, "
+        f"plain {tot['plain_ms']:.4f} ms, cdist+topk "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({tot['bound_by']})")
+    return {"calls": rows, **tot}
+
+
+def run_segmentation(name: str, wrappers) -> dict:
+    """Every segmentation phase of one config."""
+    cfg = seg_config(name)
+    run = {"parity": phase_seg_kernel_parity(cfg, name)}
+    weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 20))
+    serving = phase_seg_serving(cfg, name, weights, wrappers)
+    run["serving"] = {k: v for k, v in serving.items()
+                      if k not in ("predictor", "batches")}
+    # the CPU's plain forward at 15000 points is slow: two S3DIS clouds
+    run["forward_parity"] = phase_seg_forward_parity(
+        cfg, name, weights, serving["batches"][1],
+        clouds=2 if name == "s3dis" else 4)
+    run["timing"] = phase_seg_timing(cfg, name)
+    return run
 
 
 # ---- main -------------------------------------------------------------------
@@ -1519,15 +2039,54 @@ REPLACES = {
     "gather_sub_minmax_bwd": (
         "closerlook3d_tpu_torch/csrc/gather_reduce.cu",
         "closerlook3d_tpu/ops/pallas/gather_reduce.py:353", None),
+    "pseudo_grid": ("closerlook3d_tpu_torch/csrc/pseudo_grid.cu",
+                    "closerlook3d_tpu/ops/pallas/pseudo_grid.py:112", None),
+    "pseudo_grid_bwd": ("closerlook3d_tpu_torch/csrc/pseudo_grid.cu",
+                        "closerlook3d_tpu/ops/pallas/pseudo_grid.py:185",
+                        None),
+    # one kernel for the JAX package's k-NN (K12) and chunked 1-NN (K11)
+    "knn": ("closerlook3d_tpu_torch/csrc/knn.cu",
+            "closerlook3d_tpu/ops/pallas/neighbors.py:598",
+            "closerlook3d_tpu/ops/pallas/neighbors.py:498"),
 }
 
 
 def home_kind(kernel: str) -> str:
-    """The training config whose run gives a kernel's launches and times:
-    the one whose aggregation it is, else the xyz config."""
+    """The run that gives a kernel's launches and times: the segmentation
+    serving runs for the k-NN, else the training config whose aggregation
+    it is, else the xyz config."""
+    if kernel == "knn":
+        return "seg"
     return next((k for k in AGG_KERNELS
                  if kernel in agg_kernels(k, "train")
                  + agg_kernels(k, "eval_grad")), "xyz")
+
+
+def knn_row(record) -> dict:
+    """The kernels line's k-NN row: launches on both segmentation configs'
+    checked requests (both routes), times per S3DIS request (whose four
+    calls take both routes), ShapeNetPart's beside them."""
+    seg = record["seg"]
+    launches = {route: sum(run["serving"]["launches"][route]
+                           for run in seg.values())
+                for route in ("knn1", "knn")}
+    t = seg["s3dis"]["timing"]
+    return {"launches": launches["knn1"] + launches["knn"],
+            "max_abs_err": max(run["parity"]["knn"] for run in seg.values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # two calls, cdist then topk, plus the square and the bias
+            "library_ms": t["library_ms"],
+            "config": "s3dis (per request)",
+            "launches_by_route": {"knn1 (K11 route)": launches["knn1"],
+                                  "knn (K12 route)": launches["knn"]},
+            "launches_per_request": {
+                name: {r: run["serving"]["launches_per_request"][r]
+                       for r in ("knn1", "knn")}
+                for name, run in seg.items()},
+            "shapenetpart_per_request": {
+                k: seg["shapenetpart"]["timing"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
 
 
 def main() -> int:
@@ -1571,11 +2130,18 @@ def main() -> int:
         run["launches"] = {k: sum(r[k] for r in runs) for k in wrappers}
         record["train"][kind] = run
         del training
+    record["seg"] = {name: run_segmentation(name, wrappers)
+                     for name in SEG_NAMES}
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}
     for name, (src, rep, also) in REPLACES.items():
         kind = home_kind(name)
+        if kind == "seg":
+            kernels_line["kernels"].append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": rep, "also_replaces": also, **knn_row(record)})
+            continue
         run = record["train"][kind]
         t = run["timing"]["per_kernel"][name]
         # measured against the plain versions at every shape the kernel

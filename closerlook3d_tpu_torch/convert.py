@@ -11,8 +11,12 @@ the same order, so each flax scope has one counterpart:
     .../Bottleneck_i/ConvBN_2                  backbone.blocks.i.shortcut
   ClassifierHead_0/ConvBN_j                    head.convs.j
   ClassifierHead_0/Dense_0                     head.fc
+  SceneSegHead_0/_Decoder_0/ConvBN_j           head.decoder.convs.j
+  SceneSegHead_0/ConvBN_0                      head.conv
+  SceneSegHead_0/Dense_0                       head.fc
 
-and within each LocalAggregation_0:
+(``MultiPartSegHead_0`` as ``SceneSegHead_0``), and within each
+LocalAggregation_0:
 
   ConvBN_0 .. ConvBN_{n-1}   weight_convs.0 .. weight_convs.{n-1}
                              (adaptive weight: the gather path's
@@ -21,6 +25,8 @@ and within each LocalAggregation_0:
   pw_kernel_i                pw_linears.i.weight (point-wise MLP, a bare
                              [in, out] param)
   pw_bn_i                    pw_bns.i (point-wise MLP, MaskedBatchNorm)
+  kernel_weights             kernel_weights.weight (pseudo-grid, a bare
+                             [Kp*C, out] param)
   ConvBN_n                   output_conv
 
 (output convs and shortcuts exist only where channels change, or where
@@ -28,7 +34,8 @@ the operator's config asks for an output conv). Within a ConvBN,
 ``Dense_0/kernel`` [in, out] is the transpose of ``linear.weight``
 [out, in], as ``pw_kernel_i`` is of ``pw_linears.i.weight``; BatchNorm
 (and MaskedBatchNorm) ``scale``/``bias`` come from ``params`` and
-``mean``/``var`` from ``batch_stats``.
+``mean``/``var`` from ``batch_stats``. ``kernel_weights`` is transposed
+the same way.
 
 Flax variables are given as numpy arrays, either nested
 (``{"params": {...}, "batch_stats": {...}}``) or flat with '/'-joined
@@ -43,6 +50,9 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from closerlook3d_tpu_torch.models.heads import (
+    ClassifierHead, MultiPartSegHead, SceneSegHead)
 
 
 def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
@@ -61,10 +71,10 @@ def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
 
 
 def _agg_scopes(agg: nn.Module, f: str, t: str):
-    """(ConvBN pairs, Dense pairs, point-wise MLP layer pairs) of one
-    LocalAggregation at flax scope ``f`` and torch prefix ``t``; a layer
-    pair is (flax scope, torch prefix) of the layer's kernel and of its
-    MaskedBatchNorm."""
+    """(ConvBN pairs, Dense pairs, point-wise MLP layer pairs, bare kernel
+    pairs) of one LocalAggregation at flax scope ``f`` and torch prefix
+    ``t``; a layer pair is (flax scope, torch prefix) of the layer's
+    kernel and of its MaskedBatchNorm."""
     convs = [(f"{f}/ConvBN_{i}", f"{t}.weight_convs.{i}")
              for i in range(len(agg.weight_convs))]
     if agg.output_conv is not None:
@@ -74,12 +84,20 @@ def _agg_scopes(agg: nn.Module, f: str, t: str):
     pw = [((f"{f}/pw_kernel_{i}", f"{t}.pw_linears.{i}"),
            (f"{f}/pw_bn_{i}", f"{t}.pw_bns.{i}"))
           for i in range(len(agg.pw_linears))]
+    if agg.kernel_weights is not None:
+        pw.append(((f"{f}/kernel_weights", f"{t}.kernel_weights"), None))
     return convs, dense, pw
+
+
+_HEAD_SCOPES = ((ClassifierHead, "ClassifierHead_0"),
+                (SceneSegHead, "SceneSegHead_0"),
+                (MultiPartSegHead, "MultiPartSegHead_0"))
 
 
 def _scopes(model: nn.Module):
     """(flax scope, torch prefix) pairs: (every ConvBN, every Dense with a
-    bias, every point-wise MLP layer as in ``_agg_scopes``)."""
+    bias, every bare kernel with its MaskedBatchNorm or None, as
+    ``_agg_scopes``' layer pairs)."""
     bb = model.backbone
     convs = [("ResNetBackbone_0/ConvBN_0", "backbone.stem")]
     dense, pw = [], []
@@ -99,9 +117,17 @@ def _scopes(model: nn.Module):
         convs.append((f"{f}/ConvBN_1", f"{t}.expand"))
         if blk.shortcut is not None:
             convs.append((f"{f}/ConvBN_2", f"{t}.shortcut"))
-    for j in range(len(model.head.convs)):
-        convs.append((f"ClassifierHead_0/ConvBN_{j}", f"head.convs.{j}"))
-    dense.append(("ClassifierHead_0/Dense_0", "head.fc"))
+    head = model.head
+    h = next(name for cls, name in _HEAD_SCOPES if isinstance(head, cls))
+    if isinstance(head, ClassifierHead):
+        for j in range(len(head.convs)):
+            convs.append((f"{h}/ConvBN_{j}", f"head.convs.{j}"))
+    else:
+        for j in range(len(head.decoder.convs)):
+            convs.append((f"{h}/_Decoder_0/ConvBN_{j}",
+                          f"head.decoder.convs.{j}"))
+        convs.append((f"{h}/ConvBN_0", "head.conv"))
+    dense.append((f"{h}/Dense_0", "head.fc"))
     return convs, dense, pw
 
 
@@ -121,8 +147,10 @@ def key_map(model: nn.Module) -> List[Tuple[str, str, bool]]:
     for f, t in convs:
         rows += [(f"params/{f}/Dense_0/kernel", f"{t}.linear.weight", True),
                  *_bn_rows(f"{f}/BatchNorm_0", f"{t}.bn")]
-    for (fk, tk), (fb, tb) in pw:
-        rows += [(f"params/{fk}", f"{tk}.weight", True), *_bn_rows(fb, tb)]
+    for (fk, tk), bn in pw:
+        rows.append((f"params/{fk}", f"{tk}.weight", True))
+        if bn is not None:
+            rows += _bn_rows(*bn)
     for f, t in dense:
         rows += [(f"params/{f}/kernel", f"{t}.weight", True),
                  (f"params/{f}/bias", f"{t}.bias", False)]

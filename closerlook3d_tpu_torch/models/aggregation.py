@@ -1,4 +1,5 @@
-"""Local aggregation: PosPool, adaptive weight and point-wise MLP.
+"""Local aggregation: PosPool, adaptive weight, point-wise MLP and
+pseudo-grid.
 
 Counterpart of ``closerlook3d_tpu/models/aggregation.py::LocalAggregation``.
 For query i with padded neighborhood N(i), dp_ij = (p_j - p_i) / r and
@@ -21,13 +22,20 @@ For query i with padded neighborhood N(i), dp_ij = (p_j - p_i) / r and
     paper's best setting (one FC, max) factorizes into per-point
     projections and the neighborhood min/max kernels
     (``ops/gather_reduce.py``); every other setting takes the gather path
-    in plain PyTorch.
-
-Pseudo-grid is not ported yet (ROADMAP A).
+    in plain PyTorch;
+  * pseudo-grid (KPConv-style): the neighbor features are distributed
+    onto Kp fixed kernel points by an influence of |dp - kp| (linear,
+    constant or gaussian; ``ops/pseudo_grid.py``, on every setting, as
+    the JAX package sends every setting to its kernel), then one
+    ``[Kp*C, C_out]`` weight matmul, then sum or avg over the
+    neighborhood (``convolution_mode``).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,11 +48,47 @@ from closerlook3d_tpu_torch.ops.gather_reduce import (
 from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets)
 from closerlook3d_tpu_torch.ops.moments import neighborhood_moments
+from closerlook3d_tpu_torch.ops.pseudo_grid import (
+    INFLUENCE_MODES, pseudo_grid_fused)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A, "
-                               f"remaining operators)")
+@functools.lru_cache(maxsize=None)
+def kernel_point_layout(num_points: int, fixed: str = "center",
+                        seed: int = 0) -> np.ndarray:
+    """Deterministic kernel-point disposition in the unit ball, [K, 3]
+    float32 with max norm 1: a copy of the JAX package's
+    ``models/aggregation.py::kernel_point_layout`` (the same seeded
+    repulsion in numpy, so the same array), cached per (K, fixed)."""
+    rng = np.random.default_rng(seed)
+    k = num_points
+    pts = rng.normal(size=(k, 3))
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True) + 1e-9
+    pts *= rng.uniform(0.3, 1.0, size=(k, 1))
+    if fixed == "center":
+        pts[0] = 0.0
+    lr = 0.01
+    for _ in range(400):
+        diff = pts[:, None, :] - pts[None, :, :]  # [K, K, 3]
+        d = np.linalg.norm(diff, axis=-1) + 1e-9
+        np.fill_diagonal(d, np.inf)
+        force = (diff / d[..., None] ** 3).sum(axis=1)  # repulsion
+        pts = pts + lr * force
+        if fixed == "center":
+            pts[0] = 0.0
+        norms = np.maximum(np.linalg.norm(pts, axis=1, keepdims=True), 1e-9)
+        pts = np.where(norms > 1.0, pts / norms, pts)  # confine to ball
+    scale = np.abs(pts).max() if k == 1 else np.linalg.norm(pts, axis=1).max()
+    return (pts / max(scale, 1e-9)).astype(np.float32)
+
+
+def _typical_spacing(kp: np.ndarray) -> float:
+    """Mean nearest-neighbor distance among kernel points (the influence
+    scale), as the JAX package computes it."""
+    if kp.shape[0] < 2:
+        return 1.0
+    d = np.linalg.norm(kp[:, None] - kp[None], axis=-1)
+    np.fill_diagonal(d, np.inf)
+    return float(d.min(axis=1).mean())
 
 
 class LocalAggregation(nn.Module):
@@ -56,7 +100,9 @@ class LocalAggregation(nn.Module):
     ``weight_convs`` (the adaptive gather path's ConvBNs, ``ConvBN_0`` ..
     ``ConvBN_{fc_num-2}``), ``dense`` (its ``Dense_0``), ``pw_linears`` and
     ``pw_bns`` (the point-wise MLP's ``pw_kernel_i`` and ``pw_bn_i``),
-    ``output_conv`` (the next ``ConvBN``).
+    ``kernel_weights`` (the pseudo-grid's ``[Kp*C, C_out]`` param, as a
+    bias-free Linear), ``output_conv`` (the next ``ConvBN``). The
+    pseudo-grid's kernel points are a buffer outside the ``state_dict``.
     """
 
     def __init__(self, in_channels: int, out_channels: int, radius: float,
@@ -69,6 +115,7 @@ class LocalAggregation(nn.Module):
         self.dense = None
         self.pw_linears = nn.ModuleList()
         self.pw_bns = nn.ModuleList()
+        self.kernel_weights = None
         self.factorized = False
         out_width = in_channels  # before the output conv
         if self.kind == "pospool":
@@ -117,8 +164,25 @@ class LocalAggregation(nn.Module):
                     dtype=torch.float32 if self.factorized else dtype))
                 fan_in = out_channels
             out_width = out_channels
+        elif self.kind == "pseudo_grid":
+            p = config.pseudo_grid
+            if p.KP_influence not in INFLUENCE_MODES:
+                raise ValueError(f"unknown KP_influence {p.KP_influence!r}")
+            if p.convolution_mode not in ("sum", "avg"):
+                raise ValueError(f"unknown convolution_mode "
+                                 f"{p.convolution_mode!r}")
+            kp = kernel_point_layout(p.num_kernel_points,
+                                     p.fixed_kernel_points)
+            self.extent = float(p.KP_extent * _typical_spacing(kp))
+            # moves with the module; not a parameter, not in the state_dict
+            self.register_buffer("kernel_points", torch.from_numpy(kp),
+                                 persistent=False)
+            self.kernel_weights = nn.Linear(kp.shape[0] * in_channels,
+                                            out_channels, bias=False)
+            out_width = out_channels
         else:
-            raise _not_ported(f"local_aggregation_type={self.kind!r}")
+            raise ValueError(f"unknown local_aggregation_type: "
+                             f"{self.kind!r}")
         self.p = p
         # the JAX module's _maybe_output_conv; the pointwisemlp config has
         # no output_conv key
@@ -141,6 +205,8 @@ class LocalAggregation(nn.Module):
         elif self.kind == "adaptive_weight":
             out = (self._adaptive_factorized(*args) if self.factorized
                    else self._adaptive_gather(*args))
+        elif self.kind == "pseudo_grid":
+            out = self._pseudo_grid(*args)
         else:
             out = (self._pointwisemlp_factorized(*args) if self.factorized
                    else self._pointwisemlp_gather(*args))
@@ -163,6 +229,19 @@ class LocalAggregation(nn.Module):
         else:
             enc = f * sinusoidal_embedding(dp.float(), c).to(f.dtype)
         return REDUCTIONS[self.p.reduction](enc, mask)
+
+    def _pseudo_grid(self, q, s, f, idx, mask):
+        """The JAX ``_pseudo_grid_fused``: kernel-point correlation
+        ``[B, Nq, Kp*C]`` in the features' dtype, then ``h @ W`` in that
+        dtype, then / max(count, 1) for ``convolution_mode: avg``."""
+        p = self.p
+        h = pseudo_grid_fused(q, s, f, idx, mask, self.kernel_points,
+                              self.radius, self.extent, p.KP_influence)
+        out = F.linear(h, self.kernel_weights.weight.to(h.dtype))
+        if p.convolution_mode == "avg":
+            cnt = mask.sum(dim=-1, keepdim=True).to(out.dtype)
+            out = out / torch.clamp(cnt, min=1.0)
+        return out
 
     def _expand(self, v):
         """[.., C/shared] -> [.., C]: channel c uses weight c // shared."""

@@ -8,14 +8,17 @@ Counterpart of ``closerlook3d_tpu/models/backbone.py``:
   * bottleneck = 1x1 reduce -> LocalAggregation -> 1x1 expand + shortcut
     (masked max over the neighborhood for strided blocks), ReLU after the
     residual add;
-  * the ball-query radius doubles per stage; FPS downsamples.
+  * the ball-query radius doubles per stage; FPS (shape tasks) or grid
+    barycenters (``sampling: grid``, scene tasks) downsample.
 Neighbor indices are computed once per stage and reused by every block of
-the stage. Flax infers input widths; here each module is built with them.
+the stage; segmentation models also get each stage's 1-NN upsample
+indices for the decoder. Flax infers input widths; here each module is
+built with them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +28,9 @@ from closerlook3d_tpu_torch.data.loader import feature_dim
 from closerlook3d_tpu_torch.models.aggregation import LocalAggregation
 from closerlook3d_tpu_torch.models.nn_utils import ConvBN, compute_dtype
 from closerlook3d_tpu_torch.ops.grouping import neighborhood_max
-from closerlook3d_tpu_torch.ops.neighbors import ball_query
-from closerlook3d_tpu_torch.ops.sampling import furthest_point_sample
+from closerlook3d_tpu_torch.ops.neighbors import ball_query, knn
+from closerlook3d_tpu_torch.ops.sampling import (
+    furthest_point_sample, grid_subsample)
 from closerlook3d_tpu_torch.utils.config import stage_plan
 
 
@@ -34,21 +38,25 @@ class StageOutput(NamedTuple):
     xyz: torch.Tensor  # [B, N_s, 3]
     mask: torch.Tensor  # [B, N_s]
     features: torch.Tensor  # [B, N_s, C_s]
+    # decoder: index of each stage-s point's nearest stage-(s+1) point
+    # (None for the last stage and for classification models)
+    up_idx: Optional[torch.Tensor] = None  # [B, N_s] int32
 
 
-def compute_geometry(cfg, xyz: torch.Tensor, mask: torch.Tensor
-                     ) -> Dict[str, torch.Tensor]:
+def compute_geometry(cfg, xyz: torch.Tensor, mask: torch.Tensor,
+                     need_up: bool = False) -> Dict[str, torch.Tensor]:
     """All irregular geometry of one forward pass, as a flat dict.
 
     Keys: xyz_s/mask_s [B,N_s(,3)], idx_s/nmask_s (same-resolution
-    neighbors), sidx_s/smask_s (strided, coarse into fine, s >= 1).
+    neighbors), sidx_s/smask_s (strided, coarse into fine, s >= 1), and
+    with ``need_up`` up_s [B,N_s] (s < last: each stage-s point's nearest
+    valid stage-(s+1) point, the masked 1-NN).
     """
-    if cfg.sampling != "fps":
-        raise NotImplementedError(
-            f"sampling={cfg.sampling!r} (grid_subsample) is not ported yet "
-            f"(ROADMAP A, segmentation)")
+    if cfg.sampling not in ("fps", "grid"):
+        raise ValueError(f"unknown sampling {cfg.sampling!r}")
     plan = stage_plan(cfg)
     npoints, radii, nsamples = plan["npoints"], plan["radii"], plan["nsamples"]
+    cells = plan["cells"]
     xyz = xyz.float()
 
     g = {"xyz_0": xyz, "mask_0": mask}
@@ -56,10 +64,14 @@ def compute_geometry(cfg, xyz: torch.Tensor, mask: torch.Tensor
         xyz, xyz, radii[0], nsamples[0], query_mask=mask, support_mask=mask)
     prev_xyz, prev_mask = xyz, mask
     for s in range(1, len(nsamples)):
-        fidx, new_mask = furthest_point_sample(prev_xyz, npoints[s],
-                                               prev_mask)
-        new_xyz = torch.gather(
-            prev_xyz, 1, fidx.to(torch.int64)[..., None].expand(-1, -1, 3))
+        if cfg.sampling == "fps":
+            fidx, new_mask = furthest_point_sample(prev_xyz, npoints[s],
+                                                   prev_mask)
+            new_xyz = torch.gather(prev_xyz, 1, fidx.to(torch.int64)[
+                ..., None].expand(-1, -1, 3))
+        else:
+            new_xyz, new_mask = grid_subsample(prev_xyz, cells[s],
+                                               npoints[s], prev_mask)
         g[f"sidx_{s}"], g[f"smask_{s}"] = ball_query(
             new_xyz, prev_xyz, radii[s - 1] * 2.0, nsamples[s - 1],
             query_mask=new_mask, support_mask=prev_mask)
@@ -68,6 +80,11 @@ def compute_geometry(cfg, xyz: torch.Tensor, mask: torch.Tensor
             support_mask=new_mask)
         g[f"xyz_{s}"], g[f"mask_{s}"] = new_xyz, new_mask
         prev_xyz, prev_mask = new_xyz, new_mask
+    if need_up:
+        for s in range(len(nsamples) - 1):
+            up, _ = knn(g[f"xyz_{s}"], g[f"xyz_{s + 1}"], 1,
+                        support_mask=g[f"mask_{s + 1}"])
+            g[f"up_{s}"] = up[..., 0]
     return g
 
 
@@ -140,7 +157,8 @@ class ResNetBackbone(nn.Module):
     def forward(self, xyz, mask, features, geometry=None
                 ) -> List[StageOutput]:
         g = geometry if geometry is not None else compute_geometry(
-            self.config, xyz, mask)
+            self.config, xyz, mask,
+            need_up="segmentation" in self.config.task)
         blocks = iter(self.blocks)
         outputs: List[StageOutput] = []
 
@@ -149,7 +167,7 @@ class ResNetBackbone(nn.Module):
         feats = self.stem(features.to(self.dtype))
         feats = self.stem_agg(xyz, xyz, feats, idx, nmask)
         feats = next(blocks)(xyz, mask, xyz, mask, feats, idx, nmask)
-        outputs.append(StageOutput(xyz, mask, feats))
+        outputs.append(StageOutput(xyz, mask, feats, g.get("up_0")))
 
         for s in range(1, self.nstage):
             new_xyz, new_mask = g[f"xyz_{s}"], g[f"mask_{s}"]
@@ -159,5 +177,5 @@ class ResNetBackbone(nn.Module):
             idx, nmask = g[f"idx_{s}"], g[f"nmask_{s}"]
             for _ in range(self.config.depth):
                 feats = next(blocks)(xyz, mask, xyz, mask, feats, idx, nmask)
-            outputs.append(StageOutput(xyz, mask, feats))
+            outputs.append(StageOutput(xyz, mask, feats, g.get(f"up_{s}")))
         return outputs

@@ -1,11 +1,15 @@
-"""Model factories (``closerlook3d_tpu/models/build.py``), classification.
+"""Model factories (``closerlook3d_tpu/models/build.py``): classification,
+scene segmentation and part segmentation.
 
 ``spatial_sort="host"`` (the default) means the data pipeline already
 Morton-sorted each batch (``data/spatial_host.py``), so the model does not
-sort on the device; the device sort of the other modes is not ported yet.
-Train or eval mode is the module's own (``model.train()`` /
+sort on the device; the device sort of the other modes
+(``ops/spatial.py::morton_sort`` in the JAX package) is not ported yet
+(ROADMAP A). Train or eval mode is the module's own (``model.train()`` /
 ``model.eval()``): BatchNorm reads it, and so does the head's dropout,
-which draws from the generator given to ``forward``.
+which draws from the generator given to ``forward``. The segmentation
+losses are not ported yet either (ROADMAP A): the segmentation models
+serve (``serving/predictor.py``) but do not train.
 """
 
 from __future__ import annotations
@@ -17,34 +21,83 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from closerlook3d_tpu_torch.data.shapenetpart import NUM_PARTS
 from closerlook3d_tpu_torch.models.backbone import ResNetBackbone
-from closerlook3d_tpu_torch.models.heads import ClassifierHead
+from closerlook3d_tpu_torch.models.heads import (
+    ClassifierHead, MultiPartSegHead, SceneSegHead)
 from closerlook3d_tpu_torch.models.losses import (
     label_smoothing_cross_entropy)
 from closerlook3d_tpu_torch.models.nn_utils import BatchNorm
+from closerlook3d_tpu_torch.utils.config import stage_plan
 
 
-class ClassificationModel(nn.Module):
+def _check_sort(config) -> None:
+    if config.spatial_sort not in ("host", "never"):
+        raise NotImplementedError(
+            f"spatial_sort={config.spatial_sort!r}: the on-device sort "
+            f"(ops/spatial.py::morton_sort) is not ported yet (ROADMAP A); "
+            f"sort on the host (spatial_sort: host)")
+
+
+class _Model(nn.Module):
     """forward(xyz [B,N,3] f32, mask [B,N] bool, features [B,N,D] f32,
-    geometry=None, generator=None) -> logits [B, num_classes] f32.
+    geometry=None, generator=None) -> the head's f32 logits.
 
-    ``geometry`` is a precomputed ``compute_geometry`` dict; ``generator``
-    draws the dropout masks in train mode."""
+    ``geometry`` is a precomputed ``compute_geometry`` dict (with the
+    upsample indices for segmentation); ``generator`` draws the dropout
+    masks in train mode."""
 
-    def __init__(self, config):
+    def __init__(self, config, head: nn.Module):
         super().__init__()
-        if config.spatial_sort not in ("host", "never"):
-            raise NotImplementedError(
-                f"spatial_sort={config.spatial_sort!r}: the on-device sort "
-                f"(ops/spatial) is not ported yet (ROADMAP A, segmentation)")
+        _check_sort(config)
         self.backbone = ResNetBackbone(config)
-        self.head = ClassifierHead(self.backbone.out_channels,
-                                   config.num_classes, config)
+        self.head = head
 
     def forward(self, xyz, mask, features, geometry=None, generator=None):
         return self.head(self.backbone(xyz, mask, features,
                                        geometry=geometry),
                          generator=generator)
+
+
+class ClassificationModel(_Model):
+    """Logits [B, num_classes]."""
+
+    def __init__(self, config):
+        super().__init__(config, ClassifierHead(
+            stage_plan(config)["widths"][-1], config.num_classes, config))
+
+
+class SceneSegModel(_Model):
+    """Per-point logits [B, N, num_classes]."""
+
+    def __init__(self, config):
+        super().__init__(config, SceneSegHead(config.num_classes, config))
+
+
+class MultiPartSegModel(_Model):
+    """Per-point part logits [B, N, sum(num_parts)] over every category's
+    parts (``part_counts``)."""
+
+    def __init__(self, config):
+        super().__init__(config, MultiPartSegHead(part_counts(config),
+                                                  config))
+
+
+def part_counts(config) -> list:
+    """Per-category part counts: ``num_parts``, or ShapeNetPart's table
+    for a config that names the dataset without them (the JAX package's
+    dataset factory fills them in the same way)."""
+    if list(config.num_parts):
+        return [int(n) for n in config.num_parts]
+    if config.datasets == "shapenetpart":
+        return list(NUM_PARTS)
+    raise ValueError(f"part segmentation on {config.datasets!r} needs "
+                     f"num_parts in the config")
+
+
+_MODELS = {"classification": ClassificationModel,
+           "scene_segmentation": SceneSegModel,
+           "part_segmentation": MultiPartSegModel}
 
 
 @torch.no_grad()
@@ -69,10 +122,9 @@ def build_model(cfg, generator: Optional[torch.Generator] = None
                 ) -> nn.Module:
     """Build the model for ``cfg.task`` on the CPU, in eval mode, with
     weights drawn from ``generator`` (default: seeded by cfg.rng_seed)."""
-    if cfg.task != "classification":
-        raise NotImplementedError(
-            f"task={cfg.task!r} is not ported yet (ROADMAP A, segmentation)")
-    model = ClassificationModel(cfg)
+    if cfg.task not in _MODELS:
+        raise ValueError(f"unknown task: {cfg.task}")
+    model = _MODELS[cfg.task](cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(int(cfg.rng_seed))
     init_weights_(model, generator)
@@ -90,3 +142,21 @@ def build_classification(cfg) -> Tuple[nn.Module, Callable]:
     loss_fn = functools.partial(label_smoothing_cross_entropy,
                                 smoothing=cfg.label_smoothing)
     return build_model(cfg), loss_fn
+
+
+def _no_segmentation_loss(task: str):
+    return NotImplementedError(
+        f"the {task} loss is not ported yet (ROADMAP A, segmentation "
+        f"training); build_model(cfg) gives the model for serving")
+
+
+def build_scene_segmentation(cfg):
+    """The JAX package's (model, masked cross-entropy): refused until the
+    segmentation losses are ported."""
+    raise _no_segmentation_loss("scene segmentation")
+
+
+def build_multi_part_segmentation(cfg):
+    """The JAX package's (model, multi-shape cross-entropy): refused until
+    the segmentation losses are ported."""
+    raise _no_segmentation_loss("part segmentation")

@@ -10,7 +10,13 @@
                             min/max + BN statistics fwd + bwd
   gather_sub_minmax      <- ops/pallas/gather_reduce.py point-wise MLP
                             gather-subtract min/max fwd + bwd
-  group_features, masked_* reductions: plain gathers.
+  pseudo_grid_fused      <- ops/pallas/pseudo_grid.py kernel-point
+                            correlation fwd + bwd
+  knn                    <- ops/pallas/neighbors.py 1-NN (chunked) and
+                            k-NN kernels
+  group_features, masked_* reductions, grid_subsample, nearest_upsample,
+  three_interpolate: plain PyTorch (no kernel in either package; the
+  last two reach knn).
 """
 
 from closerlook3d_tpu_torch.ops.aggregation import pospool_fused  # noqa: F401
@@ -27,13 +33,22 @@ from closerlook3d_tpu_torch.ops.grouping import (  # noqa: F401
     masked_sum,
     neighborhood_max,
 )
+from closerlook3d_tpu_torch.ops.interpolate import (  # noqa: F401
+    nearest_upsample,
+    three_interpolate,
+)
 from closerlook3d_tpu_torch.ops.moments import (  # noqa: F401
     neighborhood_moments,
 )
 from closerlook3d_tpu_torch.ops.neighbors import (  # noqa: F401
     ball_query,
+    knn,
     pairwise_dist2,
+)
+from closerlook3d_tpu_torch.ops.pseudo_grid import (  # noqa: F401
+    pseudo_grid_fused,
 )
 from closerlook3d_tpu_torch.ops.sampling import (  # noqa: F401
     furthest_point_sample,
+    grid_subsample,
 )

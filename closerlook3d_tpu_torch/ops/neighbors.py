@@ -1,14 +1,17 @@
-"""Masked ordered ball query over padded point clouds.
+"""Masked ordered ball query and k nearest neighbors over padded clouds.
 
-For each query point: up to ``nsample`` support points within ``radius``,
-sorted by ascending squared distance (lowest index first on ties),
-invalid slots padded with the nearest support's index, plus a validity
-mask. Same semantics, layouts and dtypes as
-``closerlook3d_tpu/ops/neighbors.py::ball_query``: ``[B, N, 3]`` f32
-points, ``[B, N]`` bool masks, ``[B, Nq, K]`` int32 indices.
+Ball query: for each query point, up to ``nsample`` support points within
+``radius``, sorted by ascending squared distance (lowest index first on
+ties), invalid slots padded with the nearest support's index, plus a
+validity mask. k-NN: the k nearest supports, ascending, with their
+squared distances; masked supports sit 1e10 further away. Same
+semantics, layouts and dtypes as ``closerlook3d_tpu/ops/neighbors.py``'s
+``ball_query`` and ``knn`` (its jnp path): ``[B, N, 3]`` f32 points,
+``[B, N]`` bool masks, ``[B, Nq, K]`` int32 indices.
 
-``ball_query`` runs the CUDA kernel (``csrc/ball_query.cu``) on CUDA
-tensors and the plain PyTorch version on CPU tensors.
+``ball_query`` runs the CUDA kernel of ``csrc/ball_query.cu`` and ``knn``
+that of ``csrc/knn.cu`` on CUDA tensors, the plain PyTorch versions on
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 
 _BIG = 1e10  # exactly representable in f32 (2^10 * 9765625)
 MAX_K = 64  # per-query candidate list held by one thread in the kernel
+MAX_KNN = 16  # k-NN list held by one thread in the kernel
+# k = 1 over supports of at least this many points takes the route of the
+# JAX package's chunked 1-NN kernel (its ops/neighbors.py knn)
+KNN1_CHUNKED_MIN_SUPPORT = 1024
 
 
 def _r2(radius: float) -> float:
@@ -161,3 +168,98 @@ def ball_query(
                                query_mask, support_mask)
     return ball_query_plain(query_xyz, support_xyz, radius, nsample,
                             query_mask, support_mask)
+
+
+def knn_plain(query_xyz, support_xyz, k: int, support_mask=None):
+    """Plain PyTorch k-NN (the jnp reference's arithmetic): a stable sort
+    of d2 (``torch.topk``'s order on ties is unspecified)."""
+    d2 = pairwise_dist2(query_xyz, support_xyz)
+    if support_mask is not None:
+        bias = torch.where(support_mask, 0.0, _BIG).to(torch.float32)
+        d2 = d2 + bias[:, None, :]
+    d2k, idx = _topk_neighbors(d2, k)
+    return idx, d2k
+
+
+def _knn_launch(what: str, query_xyz, support_xyz, k: int, support_mask):
+    """Launch ``csrc/knn.cu``; raises on anything it does not take."""
+    b, nq, _ = query_xyz.shape
+    ns = support_xyz.shape[1]
+    if support_mask is None:
+        support_mask = torch.ones((b, ns), dtype=torch.bool,
+                                  device=support_xyz.device)
+    kernels.require_cuda(what, query_xyz=query_xyz, support_xyz=support_xyz,
+                         support_mask=support_mask)
+    kernels.require(query_xyz.dtype == torch.float32
+                    and support_xyz.dtype == torch.float32,
+                    f"{what}: points must be float32")
+    kernels.require(support_mask.dtype == torch.bool,
+                    f"{what}: support_mask must be bool")
+    kernels.require(query_xyz.shape == (b, nq, 3)
+                    and support_xyz.shape == (b, ns, 3)
+                    and support_mask.shape == (b, ns),
+                    f"{what}: shapes {tuple(query_xyz.shape)}, "
+                    f"{tuple(support_xyz.shape)}, "
+                    f"{tuple(support_mask.shape)} do not fit [B,Nq,3], "
+                    f"[B,Ns,3], [B,Ns]")
+    kernels.require(1 <= k <= MAX_KNN,
+                    f"{what}: k {k} outside [1, {MAX_KNN}]")
+    kernels.require(ns >= 1 and b <= 65535, f"{what}: need 1 <= Ns and "
+                    f"B <= 65535, got Ns={ns}, B={b}")
+    idx = torch.empty((b, nq, k), dtype=torch.int32, device=query_xyz.device)
+    d2 = torch.empty((b, nq, k), dtype=torch.float32,
+                     device=query_xyz.device)
+    if b * nq == 0:
+        return idx, d2
+    lib, fn = kernels.entry("knn", "cl3d_knn",
+                            [kernels.P] * 3 + [kernels.I] * 4
+                            + [kernels.P] * 3)
+    with torch.cuda.device(query_xyz.device):
+        err = fn(query_xyz.data_ptr(), support_xyz.data_ptr(),
+                 support_mask.data_ptr(), b, nq, ns, k, idx.data_ptr(),
+                 d2.data_ptr(), kernels.stream_of(idx))
+    kernels.check(lib, err, what)
+    return idx, d2
+
+
+def knn1_cuda(query_xyz, support_xyz, k: int = 1, support_mask=None):
+    """The 1-NN over large supports (the route of the JAX package's
+    chunked 1-NN kernel): ``csrc/knn.cu`` with k = 1."""
+    kernels.require(k == 1, f"knn1_cuda: k must be 1, got {k}")
+    out = _knn_launch("knn1_cuda", query_xyz, support_xyz, 1, support_mask)
+    knn1_cuda.launches += 1
+    return out
+
+
+knn1_cuda.launches = 0
+
+
+def knn_cuda(query_xyz, support_xyz, k: int, support_mask=None):
+    """Every other k-NN (the route of the JAX package's k-NN kernel):
+    ``csrc/knn.cu``."""
+    out = _knn_launch("knn_cuda", query_xyz, support_xyz, k, support_mask)
+    knn_cuda.launches += 1
+    return out
+
+
+knn_cuda.launches = 0
+
+
+def knn(
+    query_xyz: torch.Tensor,
+    support_xyz: torch.Tensor,
+    k: int,
+    support_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbors: (idx [B,Nq,k] int32, dist2 [B,Nq,k] f32).
+
+    Ascending by distance, lowest index first on ties. Masked supports
+    (support_mask False) are pushed to +1e10, so they are returned only
+    when a cloud has fewer than k valid points; for k > Ns the extra slots
+    repeat the nearest index at distance 1e10.
+    """
+    if use_kernel(query_xyz):
+        if k == 1 and support_xyz.shape[1] >= KNN1_CHUNKED_MIN_SUPPORT:
+            return knn1_cuda(query_xyz, support_xyz, 1, support_mask)
+        return knn_cuda(query_xyz, support_xyz, k, support_mask)
+    return knn_plain(query_xyz, support_xyz, k, support_mask)

@@ -1,9 +1,12 @@
-"""Greedy furthest point sampling over masked clouds.
+"""Greedy furthest point sampling and voxel-grid subsampling over masked
+clouds.
 
 Same semantics, layouts and dtypes as
-``closerlook3d_tpu/ops/sampling.py::furthest_point_sample``. Runs the CUDA
-kernel (``csrc/fps.cu``) on CUDA tensors and the plain PyTorch version on
-CPU tensors. ``grid_subsample`` is not ported yet (ROADMAP A).
+``closerlook3d_tpu/ops/sampling.py``'s ``furthest_point_sample`` and
+``grid_subsample``. FPS runs the CUDA kernel (``csrc/fps.cu``) on CUDA
+tensors and the plain PyTorch version on CPU tensors. The grid
+subsampling has no kernel in either package: it is plain PyTorch on both
+devices, with the same arithmetic on both.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ import torch
 
 from closerlook3d_tpu_torch.ops import kernels
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
+from closerlook3d_tpu_torch.ops.spatial import morton_code
+
+_SENTINEL = 2**30  # voxel key of invalid points: after every 30-bit code
 
 
 def furthest_point_sample_plain(xyz, npoint: int, mask=None):
@@ -94,3 +100,77 @@ def furthest_point_sample(
     if use_kernel(xyz):
         return furthest_point_sample_cuda(xyz, npoint, mask)
     return furthest_point_sample_plain(xyz, npoint, mask)
+
+
+def grid_subsample(
+    xyz: torch.Tensor,
+    cell_size: float,
+    max_out: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Voxel-grid barycenter subsampling with a fixed output size.
+
+    Each occupied voxel of side ``cell_size`` (cells counted from the
+    cloud's valid minimum, 1024 per axis at most) gives the barycenter of
+    its points. Voxels come out in Morton-key order; a cloud with more
+    than ``max_out`` occupied voxels drops the highest-keyed ones, one
+    with fewer pads with mask False.
+
+    The JAX package sums each voxel's points one after another in sorted
+    order (a scatter-add); so does this version, on every device: the
+    points of a voxel are contiguous after the stable key sort, are laid
+    out by their rank within the voxel, and the ranks are added in order.
+    No atomics, so the card's barycenters equal the CPU's bit for bit
+    (they feed the ball query, where one ulp can flip a neighbor). The
+    loop over ranks needs the deepest voxel's size on the host: one
+    synchronization per call on the card.
+
+    Args:
+      xyz:  [B, N, 3] float32.
+      cell_size: voxel edge length.
+      max_out:   output point budget M.
+      mask: [B, N] bool.
+
+    Returns:
+      sub_xyz [B, M, 3] float32, sub_mask [B, M] bool.
+    """
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    x = xyz.float()
+    valid = (torch.ones((b, n), dtype=torch.bool, device=dev)
+             if mask is None else mask)
+    mins = torch.where(valid[..., None], x, 1e10).amin(dim=1, keepdim=True)
+    # divide by a tensor: a Python scalar divisor may become a multiply by
+    # its reciprocal on CUDA, which rounds differently
+    cell = torch.full((), cell_size, dtype=torch.float32, device=dev)
+    cells = torch.clamp(torch.floor((x - mins) / cell), 0, 1023).to(
+        torch.int32)
+    key = torch.where(valid, morton_code(cells), _SENTINEL)
+    ksort, order = torch.sort(key, dim=1, stable=True)
+    xsort = torch.gather(x, 1, order[..., None].expand(-1, -1, 3))
+
+    newflag = torch.ones_like(ksort, dtype=torch.bool)
+    newflag[:, 1:] = ksort[:, 1:] != ksort[:, :-1]
+    seg = torch.cumsum(newflag.to(torch.int64), dim=1) - 1  # voxel rank
+    # invalid points and voxels beyond the budget go to bucket max_out
+    seg = torch.where(ksort < _SENTINEL, seg, max_out).clamp(max=max_out)
+    keep = seg < max_out
+    pos = torch.arange(n, device=dev).expand(b, n)
+    start = torch.cummax(torch.where(newflag, pos, 0), dim=1).values
+    rank = torch.where(keep, pos - start, 0)  # position within the voxel
+    depth = int(rank.max()) + 1 if n else 1
+
+    bidx = torch.arange(b, device=dev)[:, None].expand(b, n)
+    dense = torch.zeros((b, max_out + 1, depth, 3), dtype=torch.float32,
+                        device=dev)
+    # unique (voxel, rank) per kept point: each slot takes 0 + x exactly
+    dense.index_put_((bidx, seg, rank),
+                     torch.where(keep[..., None], xsort, 0.0),
+                     accumulate=True)
+    counts = torch.zeros((b, max_out + 1), dtype=torch.float32, device=dev)
+    counts.index_put_((bidx, seg), keep.float(), accumulate=True)  # exact
+    sums = dense[:, :max_out, 0]
+    for r in range(1, depth):
+        sums = sums + dense[:, :max_out, r]
+    counts = counts[:, :max_out]
+    return sums / torch.clamp(counts, min=1.0)[..., None], counts > 0

@@ -1,7 +1,10 @@
 """Serving entry point: ``Predictor(cfg, weights, device)``.
 
 Counterpart of ``closerlook3d_tpu/serving/export.py::Predictor``: answers
-``predictor(xyz, mask, features) -> logits`` with the eval-mode forward.
+``predictor(xyz, mask, features) -> logits`` with the eval-mode forward of
+the config's task: classification ([B, num_classes]), scene segmentation
+([B, N, num_classes]) or part segmentation ([B, N, sum(num_parts)], every
+category's parts; the caller takes its category's slice).
 Where the JAX predictor replays an exported StableHLO function
 (``forward.bin``), this one rebuilds the model from the config and loads
 weights; ``forward.bin`` is not read.
@@ -38,8 +41,9 @@ class Predictor:
     Inputs are array-likes or tensors: xyz [B,N,3] f32, mask [B,N] bool,
     features [B,N,D] f32, already Morton-sorted per cloud the way the data
     loader sorts them (``data/spatial_host.py::morton_sort_batch``); the
-    pooled logits do not depend on point order, but the kernels' tie
-    breaks follow it. Returns logits [B, num_classes] f32 on ``device``.
+    kernels' tie breaks follow the point order, and per-point logits come
+    back in it. Returns f32 logits on ``device``: [B, num_classes] for
+    classification, [B, N, classes or parts] for segmentation.
     """
 
     def __init__(self, cfg, weights: Weights, device="cuda"):

@@ -13,15 +13,20 @@ edges, K at its bound and above Ns, channel counts off the thread block
 (C = 3, 8, 300, 1152), masked queries and empty neighborhoods, f32 and
 bf16, the backward kernels (PosPool xyz and sin/cos, the neighborhood
 moments, the neighborhood max and the point-wise MLP's min/max kernels,
-ties included), the autograd wiring, and the wrappers' refusals.
+ties included), the pseudo-grid kernels at every influence mode with Kp
+beyond one register chunk, the k-NN kernel (k = 1 and above, k > Ns,
+ties, all-masked supports) and its routing, the grid subsampling on the
+card against the CPU, the autograd wiring, and the wrappers' refusals.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from closerlook3d_tpu_torch.models.aggregation import (
+    _typical_spacing, kernel_point_layout)
 from closerlook3d_tpu_torch.ops import (
-    aggregation, gather_reduce, grouping, moments)
+    aggregation, gather_reduce, grouping, moments, neighbors, pseudo_grid)
 from closerlook3d_tpu_torch.ops.aggregation import (
     pospool_sincos_bwd_cuda, pospool_sincos_bwd_plain, pospool_sincos_cuda,
     pospool_sincos_plain, pospool_xyz_bwd_cuda, pospool_xyz_bwd_plain,
@@ -33,9 +38,13 @@ from closerlook3d_tpu_torch.ops.moments import (
     neighborhood_moments_bwd_cuda, neighborhood_moments_bwd_plain,
     neighborhood_moments_cuda, neighborhood_moments_plain)
 from closerlook3d_tpu_torch.ops.neighbors import (
-    MAX_K, ball_query_cuda, ball_query_plain)
+    MAX_K, MAX_KNN, ball_query_cuda, ball_query_plain, knn1_cuda, knn_cuda,
+    knn_plain)
+from closerlook3d_tpu_torch.ops.pseudo_grid import (
+    pseudo_grid_bwd_cuda, pseudo_grid_bwd_plain, pseudo_grid_cuda,
+    pseudo_grid_plain)
 from closerlook3d_tpu_torch.ops.sampling import (
-    furthest_point_sample_cuda, furthest_point_sample_plain)
+    furthest_point_sample_cuda, furthest_point_sample_plain, grid_subsample)
 
 pytestmark = pytest.mark.cuda
 
@@ -454,3 +463,142 @@ def test_pwmlp_wrappers_refuse():
     with pytest.raises(ValueError, match="shapes"):
         gather_reduce.gather_sub_minmax_cuda(g, d[:, :10].contiguous(), idx,
                                              nmask)
+
+
+def _kernel_points(kpn):
+    kp = kernel_point_layout(kpn, "center" if kpn > 1 else "none")
+    return (torch.from_numpy(kp).cuda(),
+            1.2 * _typical_spacing(kp) if kpn > 1 else 0.7)
+
+
+def _pgrid_tol(dtype):
+    """Kernel vs plain version and twin: the same f32 terms summed in
+    another order (slot order or atomics vs a matmul and index_add_), each
+    rounded once; in bf16 one ulp where the orders straddle a rounding
+    boundary."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+@pytest.mark.parametrize("nq,ns,c,k,kpn", [
+    (70, 300, 6, 8, 15), (257, 500, 72, 26, 15),
+    (33, 90, 300, MAX_K, 15),   # C off the thread block, K at its bound
+    (40, 5, 12, 8, 15),         # K > Ns
+    (50, 200, 24, 16, 20),      # Kp over one register chunk of 16
+    (50, 200, 10, 16, 1)])      # one kernel point
+def test_pseudo_grid_kernels_match_plain(dtype, mode, nq, ns, c, k, kpn):
+    q, s, idx, nmask = _neighborhoods(nq, ns, k, seed=30)
+    kp, extent = _kernel_points(kpn)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    f = torch.randn((3, ns, c), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((3, nq, kpn * c), generator=gen,
+                     device="cuda").to(dtype)
+    args = (kp, 0.4, extent, mode)
+    got = pseudo_grid_cuda(q, s, f, idx, nmask, *args)
+    ref = pseudo_grid_plain(q, s, f, idx, nmask, *args)
+    assert got.dtype == dtype and got.shape == (3, nq, kpn * c)
+    tol = _pgrid_tol(dtype)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert (got[-1] == 0).all()  # all-masked cloud: empty neighborhoods
+    dg = pseudo_grid_bwd_cuda(q, s, idx, nmask, kp, dy, 0.4, extent, mode)
+    twin = pseudo_grid_bwd_plain(q, s, idx, nmask, kp, dy, 0.4, extent, mode)
+    assert dg.dtype == dtype and dg.shape == f.shape
+    torch.testing.assert_close(dg.float(), twin.float(), **tol)
+    x = f.detach().clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(
+        pseudo_grid_plain(q, s, x, idx, nmask, *args), x, dy)
+    torch.testing.assert_close(dg.float(), auto.float(), **tol)
+
+
+def test_autograd_launches_pseudo_grid_kernels():
+    q, s, idx, nmask = _neighborhoods(60, 200, 16, seed=32)
+    kp, extent = _kernel_points(15)
+    f = torch.randn((3, 200, 24), device="cuda", requires_grad=True)
+    before = (pseudo_grid_cuda.launches, pseudo_grid_bwd_cuda.launches)
+    dy = torch.randn((3, 60, 15 * 24), device="cuda")
+    (got,) = torch.autograd.grad(pseudo_grid.pseudo_grid_fused(
+        q, s, f, idx, nmask, kp, 0.4, extent, "linear"), f, dy)
+    (ref,) = torch.autograd.grad(pseudo_grid_plain(
+        q, s, f, idx, nmask, kp, 0.4, extent, "linear"), f, dy)
+    assert (pseudo_grid_cuda.launches, pseudo_grid_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_pseudo_grid_wrappers_refuse():
+    q, s, idx, nmask = _neighborhoods(20, 50, 4, seed=33)
+    kp, extent = _kernel_points(15)
+    f = torch.randn((3, 50, 9), device="cuda")
+    with pytest.raises(ValueError, match="Kp=65"):
+        pseudo_grid_cuda(q, s, f, idx, nmask, torch.zeros((65, 3),
+                                                          device="cuda"),
+                         0.4, extent, "linear")
+    with pytest.raises(ValueError, match="KP_influence"):
+        pseudo_grid_cuda(q, s, f, idx, nmask, kp, 0.4, extent, "cubic")
+    with pytest.raises(ValueError, match="int32"):
+        pseudo_grid_cuda(q, s, f, idx.long(), nmask, kp, 0.4, extent,
+                         "linear")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pseudo_grid_cuda(q, s, f, idx, nmask, kp.cpu(), 0.4, extent,
+                         "linear")
+    with pytest.raises(ValueError, match="dy must be"):
+        pseudo_grid_bwd_cuda(q, s, idx, nmask, kp,
+                             torch.randn((3, 20, 16), device="cuda"), 0.4,
+                             extent, "linear")
+
+
+@pytest.mark.parametrize("nq,ns,k,grid", [
+    (100, 300, 1, False), (100, 300, 3, False),
+    (64, 1500, MAX_KNN, False),  # k at its bound, supports across tiles
+    (37, 5, 8, False),           # k > Ns: padded slots
+    (200, 200, 3, True),         # duplicated points: exact ties
+    (1, 1, 1, False)])
+def test_knn_kernel_equals_plain(nq, ns, k, grid):
+    # the last cloud's supports are all masked
+    s, smask = _cloud(40, 3, ns, masked_frac=0.2, grid=grid)
+    q, _ = _cloud(41, 3, nq, grid=grid)
+    ki, kd = knn_cuda(q, s, k, smask)
+    pi, pd = knn_plain(q, s, k, smask)
+    torch.cuda.synchronize()
+    assert ki.shape == kd.shape == (3, nq, k)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd, pd)  # d2 bit for bit
+    ki, kd = knn_cuda(q, s, k)  # no mask: the wrapper supplies one
+    pi, pd = knn_plain(q, s, k)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def test_knn_routes_as_the_jax_package():
+    s, smask = _cloud(42, 2, 1100, masked_frac=0.3)
+    q, _ = _cloud(43, 2, 500)
+    before = (knn1_cuda.launches, knn_cuda.launches)
+    ki, kd = neighbors.knn(q, s, 1, smask)  # k = 1, Ns >= 1024: K11's route
+    pi, pd = knn_plain(q, s, 1, smask)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    neighbors.knn(q, s[:, :1000].contiguous(), 1,
+                  smask[:, :1000].contiguous())  # K12's
+    neighbors.knn(q, s, 3, smask)  # K12's
+    assert (knn1_cuda.launches, knn_cuda.launches) == (
+        before[0] + 1, before[1] + 2)
+
+
+def test_knn_wrappers_refuse():
+    q, qmask = _cloud(44, 2, 50)
+    with pytest.raises(ValueError, match="k 17"):
+        knn_cuda(q, q, MAX_KNN + 1, qmask)
+    with pytest.raises(ValueError, match="k 0"):
+        knn_cuda(q, q, 0, qmask)
+    with pytest.raises(ValueError, match="k must be 1"):
+        knn1_cuda(q, q, 3, qmask)
+    with pytest.raises(ValueError, match="bool"):
+        knn_cuda(q, q, 2, qmask.int())
+
+
+def test_grid_subsample_on_the_card_equals_the_cpu():
+    s, smask = _cloud(45, 3, 3000, masked_frac=0.2)
+    for cell, budget in ((0.1, 1200), (0.1, 300), (0.5, 64)):
+        gx, gm = grid_subsample(s, cell, budget, smask)
+        cx, cm = grid_subsample(s.cpu(), cell, budget, smask.cpu())
+        assert torch.equal(gm.cpu(), cm) and torch.equal(gx.cpu(), cx)

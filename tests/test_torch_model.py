@@ -195,6 +195,15 @@ def test_port_imports_no_jax():
         "x = np.random.default_rng(0).uniform(-1, 1, (2, 64, 3))\n"
         "out = p(x, np.ones((2, 64), bool), x)\n"
         "assert out.shape == (2, 8) and torch.isfinite(out).all()\n"
+        "from closerlook3d_tpu_torch.models import build_model\n"
+        "seg = load_config()\n"
+        "seg.update(num_points=64, width=24, depth=1, nsamples=[8, 8, 8],\n"
+        "           radius=0.4, precision='f32', task='scene_segmentation',\n"
+        "           sampling='grid', sampleDl=0.2, num_classes=4,\n"
+        "           local_aggregation_type='pseudo_grid')\n"
+        "p = Predictor(seg, build_model(seg).state_dict(), device='cpu')\n"
+        "out = p(x, np.ones((2, 64), bool), x)\n"
+        "assert out.shape == (2, 64, 4) and torch.isfinite(out).all()\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_collections',\n"
         "                   'closerlook3d_tpu') if m in sys.modules]\n"
         "bad += [m for m in sys.modules\n"

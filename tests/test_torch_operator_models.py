@@ -54,6 +54,7 @@ CONFIGS = {
     "sincos": "configs/modelnet40/pospool_sincos_avg.yaml",
     "adaptive": "configs/modelnet40/adaptive_weight_dp_fc1_avg.yaml",
     "pwmlp": "configs/modelnet40/pointwisemlp_dp_fi_df_fc1_max.yaml",
+    "pgrid": "configs/modelnet40/pseudo_grid.yaml",
 }
 
 
@@ -75,6 +76,8 @@ def _tiny_jcfg(kind: str):
     jcfg.pospool.position_embedding = full.pospool.position_embedding
     for key, value in full.pointwisemlp.items():
         jcfg.pointwisemlp[key] = value
+    for key, value in full.pseudo_grid.items():
+        jcfg.pseudo_grid[key] = value
     if kind == "adaptive_gather":  # every branch of the gather path
         jcfg.adaptive_weight.local_input_feature = "dp_fi_df"
         jcfg.adaptive_weight.fc_num = 2
