@@ -46,12 +46,16 @@ with every check raising on failure and no CPU fallback:
   every kernel of the train step against its plain version at every call
   shape, f32 and bf16, on a padded, an all-masked and a duplicated cloud
   (K13, the masked neighborhood sum, equal to the bit forward, also with
-  repeated support rows); holds an f32 train step through the kernels,
+  repeated support rows, and backward to its twin on CPU copies); holds an f32 train step through the kernels,
   geometry computed in the step, to one through the plain versions (each
   gradient within 2% relative L2); trains 15 bf16 steps on one batch
   (the loss must fall) with exact per-step launch counts, then an eval
-  step; times the step and K13 against its plain version, its bound and
-  one ``torch.bmm`` of the multi-hot count matrix;
+  step; times the step;
+* K13 per step of that ShapeNetPart run (timed first, right after the
+  build) against its plain version, its bound and one ``torch.bmm`` of
+  the multi-hot count matrix, by device time (torch.profiler, kernel and
+  library in turns, beside an empty kernel's launch) and by CUDA events
+  over eager launches, each K13 call one device kernel;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -1273,6 +1277,59 @@ def _time(fn, inputs, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_time(fn, inputs, reps: int):
+    """(ms, device ops) per call on the device, from torch.profiler over
+    ``reps`` calls cycling through ``inputs``: the mean duration of each
+    distinct device kernel, memset or copy, summed over them, and their
+    number. Each must run once a call (raises otherwise); the mean, not
+    the sum over ``reps``, because a profile can miss some of a window's
+    events. Unlike ``_time`` it leaves out the host's launch path and the
+    gaps between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in inputs:  # warm-up
+        fn(*a)
+    torch.cuda.synchronize()
+    spans = {}
+    for _ in range(3):  # a window whose device events all went missing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if spans:
+            break
+    if not spans or any(len(d) > reps for d in spans.values()):
+        raise AssertionError(
+            f"{getattr(fn, '__name__', fn)}: device ops recorded over {reps} "
+            f"calls: { {n: len(d) for n, d in spans.items()} }")
+    return sum(sum(d) / len(d) for d in spans.values()) / 1e3, len(spans)
+
+
+def _device_pair(fn_a, ins_a, fn_b, ins_b, reps: int):
+    """``_device_time`` of two functions read in turns (a, b, b, a):
+    ((ms, ops) of a, (ms, ops) of b), each the mean of its two
+    readings."""
+    a1, b1, b2, a2 = (_device_time(fn, ins, reps) for fn, ins in (
+        (fn_a, ins_a), (fn_b, ins_b), (fn_b, ins_b), (fn_a, ins_a)))
+    return (((a1[0] + a2[0]) / 2, a1[1]), ((b1[0] + b2[0]) / 2, b1[1]))
+
+
+def empty_launch():
+    """One launch of an empty kernel (``cl3d_empty`` of
+    ``csrc/gather_reduce.cu``) on the current stream: the floor under any
+    kernel's device time."""
+    from closerlook3d_tpu_torch.ops import kernels
+
+    lib, fn = kernels.entry("gather_reduce", "cl3d_empty", [kernels.P])
+    kernels.check(lib, fn(torch.cuda.current_stream().cuda_stream),
+                  "cl3d_empty")
+
+
 def _request_latencies(predictor, batches, n: int) -> list:
     """Sorted host-clock ms of ``n`` requests cycling over ``batches``
     (numpy, as a caller sends them), each ending in a synchronize, after
@@ -2184,7 +2241,10 @@ def _nsum_parity(pp, gen, phase) -> dict:
     route, on f = [g, g²] as ``pwmlp_minmax_stats`` builds it, f32 and
     bf16, with the neighborhoods as the ball query gives them and with
     repeated support rows. The forward must be equal: both add in f32 in
-    slot order and round once."""
+    slot order and round once. The backward must equal the twin run on
+    CPU copies (both add in (q, t) order; on the card the twin's
+    index_add_ adds in atomic order) and give the same bits on a second
+    launch."""
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
 
     errs = dict.fromkeys(NSUM_KERNELS, 0.0)
@@ -2209,16 +2269,23 @@ def _nsum_parity(pp, gen, phase) -> dict:
                 errs["neighborhood_sum"] = max(errs["neighborhood_sum"],
                                                _max_err(what, out, ref))
                 got = gr.neighborhood_sum_bwd_cuda(idx, nmask, dy, ns)
+                twin = gr.neighborhood_sum_bwd_plain(
+                    idx.cpu(), nmask.cpu(), dy.cpu(), ns)
+                errs["neighborhood_sum_bwd"] = max(
+                    errs["neighborhood_sum_bwd"],
+                    _max_err(what + " bwd vs twin on the CPU", got.cpu(),
+                             twin))
+                if not torch.equal(
+                        gr.neighborhood_sum_bwd_cuda(idx, nmask, dy, ns),
+                        got):
+                    raise AssertionError(f"{what} bwd: two launches differ")
                 tol = _pwmlp_bwd_tol(dtype)
-                e_t = _note_close(errs, "neighborhood_sum_bwd",
-                                  what + " bwd vs twin", got,
-                                  gr.neighborhood_sum_bwd_plain(
-                                      idx, nmask, dy, ns), tol)
                 e_a = _note_close(errs, "neighborhood_sum_bwd",
                                   what + " bwd vs autograd", got, ref_grad,
                                   tol)
-                log(phase, f"{what}: fwd equal to the bit; max abs err bwd "
-                    f"vs twin {e_t:.3g}, vs autograd {e_a:.3g} (tol {tol}); "
+                log(phase, f"{what}: fwd equal to the bit, bwd equal to "
+                    f"the twin on the CPU and across launches; max abs err "
+                    f"bwd vs autograd {e_a:.3g} (tol {tol}); "
                     f"{int(nmask.sum())} valid slots")
     return errs
 
@@ -2421,7 +2488,12 @@ def _nsum_timing(cfg, phase) -> dict:
     route) against the plain version and twin, the bound, and one
     ``torch.bmm`` of the multi-hot count matrix (built outside the timed
     call) with f forward and of its transpose with dy backward; inputs
-    from three batches' geometry."""
+    from three batches' geometry. Each is timed two ways: by CUDA events
+    over eager launches (``ms``/``stream_ms``, ``library_ms``: what the
+    eager step pays, host launch path included) and by the device time
+    the profiler records (``device_ms``, ``library_device_ms``: kernel
+    against library call in turns), beside the device time of an empty
+    launch (``launch_floor_ms``)."""
     from closerlook3d_tpu_torch.models.backbone import compute_geometry
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
 
@@ -2435,6 +2507,8 @@ def _nsum_timing(cfg, phase) -> dict:
         sets.append(_k13_calls(seg_calls(cfg, g)[1]))
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     bf = torch.bfloat16
+    floor_ms, _ = _device_time(empty_launch, [()], 50)
+    log(phase, f"empty kernel launch: {floor_ms:.5f} ms device time")
     rows = {k: [] for k in NSUM_KERNELS}
     for i, (name, _, c, count) in enumerate(sets[0]):
         fwd, bwd, lib_f, lib_b = [], [], [], []
@@ -2450,9 +2524,9 @@ def _nsum_timing(cfg, phase) -> dict:
             lib_b.append((m.transpose(1, 2).contiguous(), dy))
         f, idx, nmask = fwd[0]
         dy = bwd[0][2]
-        # one f32 add per valid slot and channel (an atomic add backward);
-        # bytes: inputs read once, the output written once (dy has the
-        # forward output's size, f the backward's)
+        # one f32 add per valid slot and channel; bytes: inputs read once,
+        # the output written once (dy has the forward output's size, f the
+        # backward's)
         flops = float(nmask.sum()) * f.shape[2]
         cases = {"neighborhood_sum": (gr.neighborhood_sum_cuda,
                                       gr.neighborhood_sum_plain, fwd, lib_f,
@@ -2461,18 +2535,26 @@ def _nsum_timing(cfg, phase) -> dict:
                                           gr.neighborhood_sum_bwd_plain, bwd,
                                           lib_b, _nbytes(idx, nmask, dy, f))}
         for kernel, (fn, plain, ins, lib_ins, nbytes) in cases.items():
-            ms, plain_ms = _time(fn, ins, 50), _time(plain, ins, 5)
-            lib_ms = _time(torch.bmm, lib_ins, 50)
+            ms, lib_ms = _time(fn, ins, 50), _time(torch.bmm, lib_ins, 50)
+            (dev_ms, ops), (lib_dev_ms, lib_ops) = _device_pair(
+                fn, ins, torch.bmm, lib_ins, 50)
+            plain_ms = _time(plain, ins, 5)
             bound_ms, bound_by = _bound(nbytes, flops)
             rows[kernel].append({
-                "call": name, "per_step": count, "ms": ms,
+                "call": name, "per_step": count, "ms": ms, "stream_ms": ms,
+                "device_ms": dev_ms, "device_ops_per_call": ops,
                 "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library_device_ms": lib_dev_ms,
+                "library_device_ops_per_call": lib_ops,
+                "launch_floor_ms": floor_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                 "flops": flops})
             log(phase, f"{kernel} {name} f{tuple(f.shape)} K={idx.shape[2]} "
-                f"x{count}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"torch.bmm {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by}; {nbytes / 1e6:.2f} MB)")
+                f"x{count}: device {dev_ms:.5f} ms ({ops:g} device ops a "
+                f"call), torch.bmm device {lib_dev_ms:.5f} ms ({lib_ops:g}); "
+                f"events over eager launches: kernel {ms:.4f} ms, torch.bmm "
+                f"{lib_ms:.4f} ms; plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.5f} ms ({bound_by}; {nbytes / 1e6:.2f} MB)")
     out = {}
     for kernel, calls in rows.items():
         by = {}
@@ -2481,23 +2563,39 @@ def _nsum_timing(cfg, phase) -> dict:
                                  + r["bound_ms"] * r["per_step"])
         out[kernel] = {"calls": calls, **{
             k: sum(r[k] * r["per_step"] for r in calls)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            for k in ("ms", "stream_ms", "device_ms", "plain_ms",
+                      "library_ms", "library_device_ms", "launch_floor_ms",
+                      "bound_ms")},
             "bound_by": max(by, key=by.get)}
         t = out[kernel]
-        log(phase, f"{kernel} per step: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        log(phase, f"{kernel} per step: device {t['device_ms']:.5f} ms, "
+            f"torch.bmm device {t['library_device_ms']:.5f} ms, launch "
+            f"floor {t['launch_floor_ms']:.5f} ms; events: kernel "
+            f"{t['ms']:.4f} ms, torch.bmm {t['library_ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
     return out
 
 
 def phase_seg_train_timing(cfg, name: str, training) -> dict:
     """The bf16 train step's median by CUDA events over steps 4-15 and
-    its profiled device split; for the point-wise MLP run also K13 per
-    step (``_nsum_timing``)."""
-    phase = f"seg-train-timing:{name}"
-    out = _step_timing(cfg, training, phase)
-    if seg_train_kind(name) == "pwmlp":
-        out["per_kernel"] = _nsum_timing(cfg, phase)
+    its profiled device split."""
+    return _step_timing(cfg, training, f"seg-train-timing:{name}")
+
+
+def phase_k13_timing() -> dict:
+    """K13 per ShapeNetPart point-wise MLP step (``_nsum_timing``), run
+    right after the build: in a fresh process the profiler records every
+    device op of a window, where after this run's long profiles it has
+    missed some, once all. Fails unless each K13 call is one device
+    kernel (no fill, no cast)."""
+    out = _nsum_timing(seg_train_config("shapenetpart_pwmlp"), "k13-timing")
+    for kernel, t in out.items():
+        for r in t["calls"]:
+            if r["device_ops_per_call"] != 1:
+                raise AssertionError(
+                    f"{kernel} {r['call']}: {r['device_ops_per_call']:g} "
+                    f"device operations a call, expected 1")
     return out
 
 
@@ -2620,14 +2718,21 @@ def knn_row(record) -> dict:
 
 def nsum_row(record, name: str) -> dict:
     """The kernels line's row of K13 forward (``neighborhood_sum``) or
-    backward, from the ShapeNetPart point-wise MLP training run."""
+    backward: launches and errors from the ShapeNetPart point-wise MLP
+    training run, times from ``phase_k13_timing``."""
     run = record["seg_train"]["shapenetpart_pwmlp"]
-    t = run["timing"]["per_kernel"][name]
+    t = record["k13_timing"][name]
     return {"launches": run["launches"][name],
             "max_abs_err": run["parity"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            # ms and library_ms: CUDA events over eager launches, as every
+            # row; device_ms and library_device_ms: the profiler's device
+            # time, read in turns; launch_floor_ms: an empty kernel's
+            "stream_ms": t["stream_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "launch_floor_ms": t["launch_floor_ms"],
             "library_note": "one torch.bmm of the [B, Nq, Ns] multi-hot "
                             "count matrix (its transpose backward), the "
                             "TPU kernel's formulation; building the "
@@ -2641,6 +2746,7 @@ def main() -> int:
     record = {"device": phase_device()}
     record["build"] = phase_build()
     wrappers = kernel_wrappers()
+    record["k13_timing"] = phase_k13_timing()
 
     cfg = flagship_config()
     record["parity"] = phase_kernel_parity(cfg)

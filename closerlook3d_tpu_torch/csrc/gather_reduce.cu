@@ -34,26 +34,46 @@
 // as the plain version does, so the two agree whatever their summation
 // order: the masked BN variance formed from them, E[h^2] - mean^2,
 // cancels, and f32 summation noise would move a train step's gradients
-// by percents. K13 sums in f32 slot by slot, in slot order, and rounds
-// once to f's dtype, as the TPU kernel writes it (its caller, the
-// pwmlp_minmax_stats route for fewer than 128 folded queries, takes the
-// reference's rounding of s1 and s2 to g's dtype with it); the plain
-// version adds in the same order, so the two are equal to the bit.
-// dmax / n is an f32 division; the scatters sum in
+// by percents. dmax / n is an f32 division; the K6 and K7 scatters sum in
 // f32 with atomics (order varies run to run) into zeroed f32 scratch that
 // the wrapper casts once to g's dtype, as the plain twins do.
+// K13 sums in f32 and rounds once to f's dtype: forward slot by slot in
+// slot order, as the TPU kernel writes it (its caller, the
+// pwmlp_minmax_stats route for at most 64 folded queries, takes the
+// reference's rounding of s1 and s2 to g's dtype with it); backward, per
+// support row, over the slots that hold it in (q, t) order, with no
+// atomics. The plain version and, on CPU tensors, the twin's index_add_
+// add in the same orders, so each equals its kernel to the bit, and the
+// backward gives the same bits on every run. The Pallas backward rounds
+// each query tile's partial to the output dtype; at the caller's shapes
+// there is one tile, so it too rounds once.
 //
-// Layout (query_blocks.cuh): one block per kQPB consecutive queries of one
-// cloud stages the K slot rows in shared memory; threads stride over the
-// C channels, so a warp's loads (and atomics) of one support row are
-// coalesced.
+// Layout. K6 and K7 (query_blocks.cuh): one block per kQPB consecutive
+// queries of one cloud stages the K slot rows in shared memory; threads
+// stride over the C channels, so a warp's loads (and atomics) of one
+// support row are coalesced. K13 has its own, below: forward a warp per
+// (query, 256-channel bf16 slice; 128 in f32), a block per 8 queries of
+// one cloud; backward a warp per 1-4 support rows and slice.
 //
 // Bound on the H100: bytes. The forward does a few f32 (and two f64)
 // operations per gathered value and writes f32 outputs (K6 four, K7 two),
 // which dominate the bytes; the K-fold re-reads of support rows hit L2.
-// K13 does one f32 add per gathered value (one atomic add backward) and
-// writes one output row in f's dtype per query (one df row per support);
-// at its one caller's shapes (8 clouds of 8 queries) it is launch-bound.
+// K13 does one f32 add per gathered value and writes one row in f's dtype
+// per query (per support row backward). At its one caller's shapes (8
+// clouds of 8 queries, f = [g, g^2] of 2304 bf16 channels, Ns 32 or 8,
+// K 41 or 39) its bytes (at most 1.5 MB) take 0.4 us, below the 0.9 us
+// of device time that one launch of an empty kernel takes: launch and
+// memory latency bound it, not bytes. The kQPB layout gave it 16 blocks
+// on 132 SMs, each thread walking 39-41 dependent 2-byte loads, and a
+// backward of three launches (zeroed scratch, atomics, a cast). Here:
+// 72 blocks at each call, every lane moving 16 bytes a row; one round
+// trip to device memory for the slots and the rows (the forward stages
+// its cloud's support rows' slice in shared memory, so each is read once
+// a block, not once a slot; the backward stages its queries' dy slice);
+// walks without branches, 8-16 rows in flight; one launch each way.
+// The backward needs no float atomics: in (q, t) order a row's terms are
+// dy[q] repeated n[q, s] times, so integer counts, exact in any order,
+// fix the sum.
 
 #include "query_blocks.cuh"
 
@@ -275,62 +295,400 @@ __global__ void mm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ d,
   }
 }
 
-// K13 forward: out[q, c] = the f32 sum of f[idx[t], c] over the valid slots
-// t = 0, 1, ..., K-1 in that order, rounded once to T.
-template <typename T>
-__global__ void nsum_fwd_kernel(const T* __restrict__ f,
-                                const int32_t* __restrict__ idx,
-                                const bool* __restrict__ mask, int nq, int ns,
-                                int c, int k, T* __restrict__ out) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  const T* fb = f + static_cast<size_t>(b) * ns * c;
+// ---- K13: own launch geometry (not query_blocks.cuh's) ----------------------
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      float acc = 0.f;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) acc += to_f32(fb[static_cast<size_t>(j) * c + ch]);
-      }
-      out[row * c + ch] = from_f32<T>(acc);
+constexpr unsigned kFull = 0xffffffffu;
+// forward: queries (one a warp) a block; support rows staged in shared
+// memory (up to kStageRows; more are read from global memory); rows a
+// lane loads at once in full batches
+constexpr int kSumWarps = 8;
+constexpr int kSumThreads = kSumWarps * 32;
+constexpr int kStageRows = 64;
+constexpr int kSumUnroll = 16;
+// backward: warps a block; a round reads up to kChunkSlots slot entries
+// and stages up to kChunkQueries dy rows, which a walk loads kWalkUnroll
+// at a time
+constexpr int kRowWarps = 8;
+constexpr int kRowThreads = kRowWarps * 32;
+constexpr int kChunkSlots = 512;
+constexpr int kChunkQueries = 16;
+constexpr int kWalkUnroll = 8;
+// a walk's last, partial batch loads this many rows at once
+constexpr int kTailUnroll = 8;
+
+// The channels one lane of a warp covers in a slice of 32 x kW channels,
+// kW = 16 bytes of T, as one 16-byte Raw. Vectorized (kVec): kW
+// consecutive channels, one 16-byte load and store; needs C % kW == 0 and
+// 16-byte aligned rows. Scalar: channels lane, lane + 32, ..., coalesced
+// across the warp, any C and any alignment. Shared memory holds a row's
+// slice as 32 Raws (uint4s), lane by lane.
+template <typename T, bool kVec>
+struct LaneChannels {
+  static constexpr int kW = 16 / sizeof(T);
+  static constexpr int kSlice = 32 * kW;
+  struct alignas(16) Raw {
+    T v[kW];
+  };
+  __device__ __forceinline__ static uint4 bits(const Raw& r) {
+    return *reinterpret_cast<const uint4*>(&r);
+  }
+  __device__ __forceinline__ static Raw raw(const uint4& u) {
+    Raw r;
+    *reinterpret_cast<uint4*>(&r) = u;
+    return r;
+  }
+  int first, c;
+
+  __device__ LaneChannels(int slice, int lane, int c_)
+      : first(slice * kSlice + (kVec ? lane * kW : lane)), c(c_) {}
+  __device__ __forceinline__ int ch(int i) const {
+    return first + (kVec ? i : 32 * i);
+  }
+  __device__ __forceinline__ Raw load(const T* __restrict__ row) const {
+    Raw r;
+    if (kVec) {
+      if (first < c) r = raw(*reinterpret_cast<const uint4*>(row + first));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        r.v[i] = ch(i) < c ? row[ch(i)] : from_f32<T>(0.f);
     }
+    return r;
+  }
+  __device__ __forceinline__ static void to_floats(const Raw& r,
+                                                   float (&x)[kW]) {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) x[i] = to_f32(r.v[i]);
+  }
+  __device__ __forceinline__ static void add(float (&acc)[kW],
+                                             const Raw& r) {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) acc[i] += to_f32(r.v[i]);
+  }
+  __device__ __forceinline__ void store(T* __restrict__ row,
+                                        const float (&acc)[kW]) const {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) r.v[i] = from_f32<T>(acc[i]);
+    if (kVec) {
+      if (first < c) *reinterpret_cast<uint4*>(row + first) = bits(r);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        if (ch(i) < c) row[ch(i)] = r.v[i];
+    }
+  }
+};
+
+// Adds the rows of list[t0], ..., list[min(t0 + U, n) - 1] to acc in that
+// order, their U loads (row(list entry) -> Raw) all started first. Past n it
+// loads list[n - 1] again and does not add it: no branches.
+template <int U, typename Lanes, typename Entry, typename RowLoad>
+__device__ __forceinline__ void add_batch(float (&acc)[Lanes::kW],
+                                          const Entry* list, int t0, int n,
+                                          RowLoad row) {
+  typename Lanes::Raw r[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) r[u] = row(list[min(t0 + u, n - 1)]);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (t0 + u < n) Lanes::add(acc, r[u]);
+}
+
+// Adds the rows of list[0..n) to acc in list order: full batches of
+// kSumUnroll, then batches of kTailUnroll.
+template <typename Lanes, typename Entry, typename RowLoad>
+__device__ __forceinline__ void add_list(float (&acc)[Lanes::kW],
+                                         const Entry* list, int n,
+                                         RowLoad row) {
+  int t0 = 0;
+  for (; t0 + kSumUnroll <= n; t0 += kSumUnroll)
+    add_batch<kSumUnroll, Lanes>(acc, list, t0, n, row);
+  for (; t0 < n; t0 += kTailUnroll)
+    add_batch<kTailUnroll, Lanes>(acc, list, t0, n, row);
+}
+
+// K13 forward: out[q, c] = the f32 sum of f[idx[t], c] over the valid slots
+// t = 0, 1, ..., K-1 in that order, rounded once to T. One warp per query
+// and channel slice; a block holds kSumWarps queries of one cloud. With
+// kStaged (Ns <= kStageRows) the block first copies its cloud's support
+// rows' slice into shared memory, so each row is read from device memory
+// once a block, not once a slot. The warp reads its K <= 64 slots itself
+// (lane t holds slots t and t + 32), lists its valid slots' support rows
+// in slot order (ballot, prefix counts) and adds them (add_list).
+template <typename T, bool kVec, bool kStaged>
+__global__ void __launch_bounds__(kSumThreads)
+    nsum_fwd_kernel(const T* __restrict__ f, const int32_t* __restrict__ idx,
+                    const bool* __restrict__ mask, int nq, int ns, int c,
+                    int k, int slices, T* __restrict__ out) {
+  using Lanes = LaneChannels<T, kVec>;
+  using Raw = typename Lanes::Raw;
+  __shared__ uint4 s_rows[kStaged ? kStageRows : 1][32];
+  __shared__ int s_j[kSumWarps][kMaxK];  // each warp's valid slots' rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, slice = blockIdx.x % slices;
+  const int q = (blockIdx.x / slices) * kSumWarps + warp;
+  const bool live = q < nq;  // warp-uniform
+  const Lanes lc(slice, lane, c);
+  const T* fb = f + static_cast<size_t>(b) * ns * c;
+  const size_t slot0 = (static_cast<size_t>(b) * nq + q) * k;
+  // the slot loads and the staging loads are independent: one round trip
+  const int j_lo = live && lane < k ? idx[slot0 + lane] : 0;
+  const int j_hi = live && lane + 32 < k ? idx[slot0 + lane + 32] : 0;
+  const bool v_lo = live && lane < k && mask[slot0 + lane];
+  const bool v_hi = live && lane + 32 < k && mask[slot0 + lane + 32];
+  if constexpr (kStaged) {
+    constexpr int kPer = kStageRows * 32 / kSumThreads;
+    Raw r[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int v = i * kSumThreads + threadIdx.x;  // row v / 32, lane v % 32
+      if (v < ns * 32)
+        r[i] = Lanes(slice, v & 31, c).load(fb + static_cast<size_t>(v >> 5) *
+                                                     c);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int v = i * kSumThreads + threadIdx.x;
+      if (v < ns * 32) s_rows[v >> 5][v & 31] = Lanes::bits(r[i]);
+    }
+  }
+  const unsigned below = (1u << lane) - 1;
+  const unsigned m_lo = __ballot_sync(kFull, v_lo);
+  const unsigned m_hi = __ballot_sync(kFull, v_hi);
+  const int n_lo = __popc(m_lo), n = n_lo + __popc(m_hi);
+  if (v_lo) s_j[warp][__popc(m_lo & below)] = j_lo;
+  if (v_hi) s_j[warp][n_lo + __popc(m_hi & below)] = j_hi;
+  if constexpr (kStaged)
+    __syncthreads();
+  else
+    __syncwarp();
+  if (!live) return;
+  float acc[Lanes::kW] = {};
+  if constexpr (kStaged) {
+    add_list<Lanes>(acc, s_j[warp], n,
+                    [&](int j) { return Lanes::raw(s_rows[j][lane]); });
+  } else {
+    add_list<Lanes>(acc, s_j[warp], n, [&](int j) {
+      return lc.load(fb + static_cast<size_t>(j) * c);
+    });
+  }
+  lc.store(out + (static_cast<size_t>(b) * nq + q) * c, acc);
+}
+
+// K13 backward: df[s, c] = the f32 sum of dy[q, c] over the valid slots
+// (q, t) with idx[q, t] == s, in (q, t) order, rounded once to T; 0 where
+// no slot reaches s. In that order a query's slots that hold s follow one
+// another, so df[s] adds dy[q] n[q, s] times for q = 0, 1, ..., where
+// n[q, s] counts q's valid slots at s: integer counts, which shared-memory
+// atomics build exactly, in any order. A gather by support row, not a
+// scatter: a block owns kRowWarps * kRows support rows of one cloud (warp
+// w the rows w * kRows + m) and a channel slice. In rounds of up to
+// kChunkQueries queries (at most kChunkSlots slot entries) the block
+// stages the round's dy rows' slice and counts n[q, s] for its rows in
+// shared memory; then each warp walks the round's queries in order, dy
+// rows kWalkUnroll at a time, converts each once and adds it to each of
+// its rows as many times as counted. No float atomics, no scratch: each
+// df row is written once, in dy's dtype.
+template <typename T, bool kVec, int kRows>
+__global__ void __launch_bounds__(kRowThreads)
+    nsum_bwd_kernel(const int32_t* __restrict__ idx,
+                    const bool* __restrict__ mask, const T* __restrict__ dy,
+                    int nq, int ns, int c, int k, int slices, int qchunk,
+                    T* __restrict__ df) {
+  using Lanes = LaneChannels<T, kVec>;
+  using Raw = typename Lanes::Raw;
+  constexpr int kW = Lanes::kW;
+  constexpr int kTile = kRowWarps * kRows;
+  constexpr int kDyPer = kChunkQueries * 32 / kRowThreads;
+  constexpr int kPer = kChunkSlots / kRowThreads;  // entries a thread reads
+  __shared__ uint4 s_dy[kChunkQueries][32];
+  // [round parity][query in the round][tile row]: n[q, s]
+  __shared__ int s_cnt[2][kChunkQueries][kTile];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, slice = blockIdx.x % slices;
+  const int r0 = (blockIdx.x / slices) * kTile;
+  const Lanes lc(slice, lane, c);
+  const int32_t* ib = idx + static_cast<size_t>(b) * nq * k;
+  const bool* mb = mask + static_cast<size_t>(b) * nq * k;
+  const T* dyb = dy + static_cast<size_t>(b) * nq * c;
+  for (int v = threadIdx.x; v < kChunkQueries * kTile; v += kRowThreads)
+    s_cnt[0][v / kTile][v % kTile] = 0;
+  float acc[kRows][kW] = {};
+  int parity = 0;
+  for (int q0 = 0; q0 < nq; q0 += qchunk, parity ^= 1) {
+    const int qn = min(qchunk, nq - q0), entries = qn * k;
+    const size_t e0 = static_cast<size_t>(q0) * k;
+    // the round's loads at once: the dy slice, Raw v = i * kRowThreads +
+    // thread (query v / 32, lane v % 32), and the slot entries
+    Raw d[kDyPer];
+#pragma unroll
+    for (int i = 0; i < kDyPer; ++i) {
+      const int v = i * kRowThreads + threadIdx.x;
+      if (v < qn * 32)
+        d[i] = Lanes(slice, v & 31, c).load(
+            dyb + static_cast<size_t>(q0 + (v >> 5)) * c);
+    }
+    int row[kPer];  // the tile row an entry counts at, or -1
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int e = i * kRowThreads + threadIdx.x;
+      int j = -1;
+      bool valid = false;
+      if (e < entries) {  // two independent loads
+        j = ib[e0 + e] - r0;
+        valid = mb[e0 + e];
+      }
+      row[i] = valid && j >= 0 && j < kTile ? j : -1;
+    }
+    __syncthreads();  // the previous round's walks are done
+#pragma unroll
+    for (int i = 0; i < kDyPer; ++i) {
+      const int v = i * kRowThreads + threadIdx.x;
+      if (v < qn * 32) s_dy[v >> 5][v & 31] = Lanes::bits(d[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (row[i] >= 0)
+        atomicAdd(&s_cnt[parity][(i * kRowThreads + threadIdx.x) / k][row[i]],
+                  1);
+    // the next round counts from zero (last read last round)
+    for (int v = threadIdx.x; v < kChunkQueries * kTile; v += kRowThreads)
+      s_cnt[parity ^ 1][v / kTile][v % kTile] = 0;
+    __syncthreads();  // the dy slice and the counts complete
+    for (int t0 = 0; t0 < qn; t0 += kWalkUnroll) {
+      Raw r[kWalkUnroll];
+      int n[kWalkUnroll][kRows];
+#pragma unroll
+      for (int u = 0; u < kWalkUnroll; ++u) {
+        const int q = min(t0 + u, qn - 1);  // past qn: counted as 0
+        r[u] = Lanes::raw(s_dy[q][lane]);
+#pragma unroll
+        for (int m = 0; m < kRows; ++m)
+          n[u][m] = t0 + u < qn ? s_cnt[parity][q][warp * kRows + m] : 0;
+      }
+      int most = 0;  // warp-uniform, like every count
+#pragma unroll
+      for (int u = 0; u < kWalkUnroll; ++u)
+#pragma unroll
+        for (int m = 0; m < kRows; ++m) most = max(most, n[u][m]);
+      // each dy row converted once, then added to each row as counted
+      if (most <= 1) {  // no row listed twice by one query: no loops
+#pragma unroll
+        for (int u = 0; u < kWalkUnroll; ++u) {
+          float x[kW];
+          Lanes::to_floats(r[u], x);
+#pragma unroll
+          for (int m = 0; m < kRows; ++m)
+            if (n[u][m] > 0)
+#pragma unroll
+              for (int i = 0; i < kW; ++i) acc[m][i] += x[i];
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kWalkUnroll; ++u) {
+          float x[kW];
+          Lanes::to_floats(r[u], x);
+#pragma unroll
+          for (int m = 0; m < kRows; ++m)
+            for (int rep = 0; rep < n[u][m]; ++rep)
+#pragma unroll
+              for (int i = 0; i < kW; ++i) acc[m][i] += x[i];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const int rr = r0 + warp * kRows + m;
+    if (rr < ns)
+      lc.store(df + (static_cast<size_t>(b) * ns + rr) * c, acc[m]);
   }
 }
 
-// K13 backward: each valid slot adds its query's dy row to its support row
-// of the zeroed f32 scratch df.
+// Whether the K13 kernels may take 16-byte vectors: C a multiple of the
+// vector width and every row pointer 16-byte aligned.
 template <typename T>
-__global__ void nsum_bwd_kernel(const int32_t* __restrict__ idx,
-                                const bool* __restrict__ mask,
-                                const T* __restrict__ dy, int nq, int ns,
-                                int c, int k, float* __restrict__ df) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  float* dfb = df + static_cast<size_t>(b) * ns * c;
+bool vec_ok(int c, const void* a, const void* b) {
+  return c % (16 / sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0;
+}
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    if (staged_count(s_idx, k) == 0) continue;  // uniform: no gradient
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const float v = to_f32(dy[row * c + ch]);
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) atomicAdd(dfb + static_cast<size_t>(j) * c + ch, v);
-      }
-    }
-  }
+template <typename T>
+int slices_of(int c) {
+  constexpr int width = LaneChannels<T, true>::kSlice;
+  return (c + width - 1) / width;
+}
+
+template <typename T, bool kVec>
+void launch_nsum_fwd_as(const T* f, const int32_t* idx, const bool* mask,
+                        int b, int nq, int ns, int c, int k, T* out,
+                        cudaStream_t stream) {
+  const int slices = slices_of<T>(c);
+  const dim3 grid((nq + kSumWarps - 1) / kSumWarps * slices, b);
+  if (ns <= kStageRows)
+    nsum_fwd_kernel<T, kVec, true><<<grid, kSumThreads, 0, stream>>>(
+        f, idx, mask, nq, ns, c, k, slices, out);
+  else
+    nsum_fwd_kernel<T, kVec, false><<<grid, kSumThreads, 0, stream>>>(
+        f, idx, mask, nq, ns, c, k, slices, out);
+}
+
+template <typename T>
+void launch_nsum_fwd(const void* f, const int32_t* idx, const bool* mask,
+                     int b, int nq, int ns, int c, int k, void* out,
+                     cudaStream_t stream) {
+  const T* fp = static_cast<const T*>(f);
+  T* op = static_cast<T*>(out);
+  if (vec_ok<T>(c, f, out))
+    launch_nsum_fwd_as<T, true>(fp, idx, mask, b, nq, ns, c, k, op,
+                                stream);
+  else
+    launch_nsum_fwd_as<T, false>(fp, idx, mask, b, nq, ns, c, k, op,
+                                 stream);
+}
+
+template <typename T, bool kVec, int kRows>
+void launch_nsum_bwd_rows(const int32_t* idx, const bool* mask,
+                          const T* dy, int b, int nq, int ns, int c, int k,
+                          T* df, cudaStream_t stream) {
+  const int slices = slices_of<T>(c);
+  const int qchunk = std::min(kChunkQueries, kChunkSlots / k);
+  constexpr int kTile = kRowWarps * kRows;
+  const dim3 grid((ns + kTile - 1) / kTile * slices, b);
+  nsum_bwd_kernel<T, kVec, kRows><<<grid, kRowThreads, 0, stream>>>(
+      idx, mask, dy, nq, ns, c, k, slices, qchunk, df);
+}
+
+// Rows a backward warp owns: one where the cloud has few support rows
+// (more warps, less idle work), up to four where it has many (each dy row
+// loaded once for four rows).
+template <typename T, bool kVec>
+void launch_nsum_bwd_as(const int32_t* idx, const bool* mask, const T* dy,
+                        int b, int nq, int ns, int c, int k, T* df,
+                        cudaStream_t stream) {
+  if (ns <= kRowWarps)
+    launch_nsum_bwd_rows<T, kVec, 1>(idx, mask, dy, b, nq, ns, c, k, df,
+                                     stream);
+  else if (ns <= 2 * kRowWarps)
+    launch_nsum_bwd_rows<T, kVec, 2>(idx, mask, dy, b, nq, ns, c, k, df,
+                                     stream);
+  else
+    launch_nsum_bwd_rows<T, kVec, 4>(idx, mask, dy, b, nq, ns, c, k, df,
+                                     stream);
+}
+
+template <typename T>
+void launch_nsum_bwd(const int32_t* idx, const bool* mask, const void* dy,
+                     int b, int nq, int ns, int c, int k, void* df,
+                     cudaStream_t stream) {
+  const T* dp = static_cast<const T*>(dy);
+  T* op = static_cast<T*>(df);
+  if (vec_ok<T>(c, dy, df))
+    launch_nsum_bwd_as<T, true>(idx, mask, dp, b, nq, ns, c, k, op, stream);
+  else
+    launch_nsum_bwd_as<T, false>(idx, mask, dp, b, nq, ns, c, k, op, stream);
 }
 
 bool bad_args(int b, int ns, int c, int k) {
@@ -434,6 +792,17 @@ extern "C" int cl3d_gather_sub_minmax_bwd(const void* g, const void* d,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One launch of an empty kernel: chip_smoke.py times it beside K13, whose
+// work at its caller's shapes is below any launch's own device time.
+extern "C" int cl3d_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Output: out [B, Nq, C] in f's dtype (bf16 when is_bf16, else f32).
 extern "C" int cl3d_neighborhood_sum(const void* f, const int32_t* idx,
                                      const bool* mask, int b, int nq, int ns,
@@ -441,34 +810,25 @@ extern "C" int cl3d_neighborhood_sum(const void* f, const int32_t* idx,
                                      cudaStream_t stream) {
   if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    nsum_fwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(f), idx, mask, nq, ns, c, k,
-            static_cast<__nv_bfloat16*>(out));
-  } else {
-    nsum_fwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(f), idx, mask, nq, ns, c, k,
-        static_cast<float*>(out));
-  }
+  if (is_bf16)
+    launch_nsum_fwd<__nv_bfloat16>(f, idx, mask, b, nq, ns, c, k, out,
+                                   stream);
+  else
+    launch_nsum_fwd<float>(f, idx, mask, b, nq, ns, c, k, out, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// df32 must be zeroed [B, Ns, C] float32; dy [B, Nq, C] is in f's dtype.
+// Output: df [B, Ns, C] in dy's dtype, written in full (no zeroing
+// needed); dy [B, Nq, C] is in f's dtype.
 extern "C" int cl3d_neighborhood_sum_bwd(const int32_t* idx, const bool* mask,
                                          const void* dy, int b, int nq, int ns,
-                                         int c, int k, int is_bf16,
-                                         float* df32, cudaStream_t stream) {
+                                         int c, int k, int is_bf16, void* df,
+                                         cudaStream_t stream) {
   if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
-  if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    nsum_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            idx, mask, static_cast<const __nv_bfloat16*>(dy), nq, ns, c, k,
-            df32);
-  } else {
-    nsum_bwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        idx, mask, static_cast<const float*>(dy), nq, ns, c, k, df32);
-  }
+  if (is_bf16)
+    launch_nsum_bwd<__nv_bfloat16>(idx, mask, dy, b, nq, ns, c, k, df,
+                                   stream);
+  else
+    launch_nsum_bwd<float>(idx, mask, dy, b, nq, ns, c, k, df, stream);
   return static_cast<int>(cudaGetLastError());
 }

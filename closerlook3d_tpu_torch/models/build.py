@@ -3,13 +3,14 @@ scene segmentation and part segmentation.
 
 ``spatial_sort="host"`` (the default) means the data pipeline already
 Morton-sorted each batch (``data/spatial_host.py``), so the model does not
-sort on the device; the device sort of the other modes
-(``ops/spatial.py::morton_sort`` in the JAX package) is not ported yet
-(ROADMAP A). Train or eval mode is the module's own (``model.train()`` /
-``model.eval()``): BatchNorm reads it, and so does the head's dropout,
-which draws from the generator given to ``forward``. Each task's
-builder returns (model, loss_fn) as the JAX package's does;
-``build_model`` gives the model alone, for serving.
+sort on the device; nor does "auto" at up to 2048 points a cloud, as in
+the JAX package. The device sort of "always" and of "auto" above 2048
+points (``ops/spatial.py::morton_sort`` in the JAX package) is not
+ported yet (ROADMAP A2): ``forward`` raises there. Train or eval mode is
+the module's own (``model.train()`` / ``model.eval()``): BatchNorm reads
+it, and so does the head's dropout, which draws from the generator given
+to ``forward``. Each task's factory returns (model, loss_fn) as the JAX
+package's does; ``build_model`` gives the model alone, for serving.
 """
 
 from __future__ import annotations
@@ -32,12 +33,16 @@ from closerlook3d_tpu_torch.models.nn_utils import BatchNorm
 from closerlook3d_tpu_torch.utils.config import stage_plan
 
 
-def _check_sort(config) -> None:
-    if config.spatial_sort not in ("host", "never"):
-        raise NotImplementedError(
-            f"spatial_sort={config.spatial_sort!r}: the on-device sort "
-            f"(ops/spatial.py::morton_sort) is not ported yet (ROADMAP A); "
-            f"sort on the host (spatial_sort: host)")
+def _check_sort(mode: str, n_points: int) -> None:
+    """Raise where ``mode`` would sort ``n_points``-point clouds on the
+    device, as the JAX package's ``_maybe_sort`` decides: "host" and
+    "never" never do, "auto" only above 2048 points, "always" always."""
+    if mode in ("host", "never") or (mode == "auto" and n_points <= 2048):
+        return
+    raise NotImplementedError(
+        f"spatial_sort={mode!r} at {n_points} points sorts on the device "
+        f"(ops/spatial.py::morton_sort), which is not ported yet (ROADMAP "
+        f"A2); sort on the host (spatial_sort: host)")
 
 
 class _Model(nn.Module):
@@ -50,11 +55,12 @@ class _Model(nn.Module):
 
     def __init__(self, config, head: nn.Module):
         super().__init__()
-        _check_sort(config)
+        self.spatial_sort = config.spatial_sort
         self.backbone = ResNetBackbone(config)
         self.head = head
 
     def forward(self, xyz, mask, features, geometry=None, generator=None):
+        _check_sort(self.spatial_sort, xyz.shape[1])
         return self.head(self.backbone(xyz, mask, features,
                                        geometry=geometry),
                          generator=generator)

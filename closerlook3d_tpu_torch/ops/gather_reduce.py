@@ -145,7 +145,10 @@ def neighborhood_sum_plain(f, idx, mask):
 def neighborhood_sum_bwd_plain(idx, mask, dy, ns: int):
     """Plain twin of the backward kernel: df [B, Ns, C] in dy's dtype (f's),
     each valid slot adding its query's dy row to its support row; the
-    scatter (``index_add_``) is f32 and rounded once, as the kernel's."""
+    scatter (``index_add_``) is f32 and rounded once, as the kernel's. On
+    CPU tensors ``index_add_`` adds in (b, q, t) order, the kernel's order,
+    so the two are equal to the bit (on CUDA tensors it adds in atomic
+    order)."""
     contrib = dy.float()[:, :, None, :] * mask[..., None]
     return scatter_to_support(contrib, idx, ns).to(dy.dtype)
 
@@ -298,19 +301,21 @@ neighborhood_sum_cuda.launches = 0
 
 def neighborhood_sum_bwd_cuda(idx, mask, dy, ns: int):
     """Launch the backward of K13: df [B, Ns, C] in dy's dtype (f's), from
-    the cotangent dy [B, Nq, C]. Raises on anything it does not take."""
+    the cotangent dy [B, Nq, C], in one launch that writes every row.
+    Raises on anything it does not take."""
     what = "neighborhood_sum_bwd_cuda"
     # dy [B, Nq, C] takes the checks of the forward's f [B, Ns, C]
     b, nq, _, c, k = _check_call(what, dy, idx, mask)
     kernels.require(dy.shape[1] == nq,
                     f"{what}: shapes do not fit dy [B,Nq,C], idx [B,Nq,K]")
     kernels.require(ns >= 1, f"{what}: need Ns >= 1, got {ns}")
-    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
-    if b * nq > 0:
-        _launch("cl3d_neighborhood_sum_bwd", what, (idx, mask, dy),
-                (b, nq, ns, c, k), dy.dtype == torch.bfloat16, (df,), dy)
-        neighborhood_sum_bwd_cuda.launches += 1
-    return df.to(dy.dtype)
+    if b * nq == 0:
+        return torch.zeros((b, ns, c), dtype=dy.dtype, device=dy.device)
+    df = torch.empty((b, ns, c), dtype=dy.dtype, device=dy.device)
+    _launch("cl3d_neighborhood_sum_bwd", what, (idx, mask, dy),
+            (b, nq, ns, c, k), dy.dtype == torch.bfloat16, (df,), dy)
+    neighborhood_sum_bwd_cuda.launches += 1
+    return df
 
 
 neighborhood_sum_bwd_cuda.launches = 0

@@ -480,28 +480,79 @@ def _dup_neighborhoods(nq, ns, k, seed):
     return idx, nmask
 
 
+def _nsum_check(f, idx, nmask, dy):
+    """K13 forward equal to its plain version; backward equal to the twin
+    run on CPU copies (both add in (q, t) order in f32 and round once; on
+    CUDA tensors the twin's index_add_ adds in atomic order) and
+    bit-identical across two launches."""
+    b, nq, _ = idx.shape
+    ns, c = f.shape[1:]
+    out = gather_reduce.neighborhood_sum_cuda(f, idx, nmask)
+    assert out.dtype == f.dtype and out.shape == (b, nq, c)
+    # both add in f32 slot by slot in slot order and round once
+    assert torch.equal(out, gather_reduce.neighborhood_sum_plain(f, idx,
+                                                                 nmask))
+    got = gather_reduce.neighborhood_sum_bwd_cuda(idx, nmask, dy, ns)
+    assert got.dtype == dy.dtype and got.shape == (b, ns, c)
+    twin = gather_reduce.neighborhood_sum_bwd_plain(
+        idx.cpu(), nmask.cpu(), dy.cpu(), ns)
+    assert torch.equal(got.cpu(), twin)
+    assert torch.equal(gather_reduce.neighborhood_sum_bwd_cuda(
+        idx, nmask, dy, ns), got)
+    return out, got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("nq,ns,c,k", [
     (70, 300, 8, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
-    (40, 5, 12, 8)])  # C off the thread block and at 1152; K > Ns
+    (40, 5, 12, 8), (50, 60, 13, 33)])
+# C off the vector width (12, 300 in bf16; 13) and at 1152; K > Ns
 def test_neighborhood_sum_kernels_match_plain(dtype, nq, ns, c, k):
     idx, nmask = _dup_neighborhoods(nq, ns, k, seed=40)
     gen = torch.Generator(device="cuda").manual_seed(41)
     f = torch.randn((3, ns, c), generator=gen, device="cuda").to(dtype)
-    out = gather_reduce.neighborhood_sum_cuda(f, idx, nmask)
-    assert out.dtype == dtype and out.shape == (3, nq, c)
-    # both add in f32 slot by slot in slot order and round once
-    assert torch.equal(out, gather_reduce.neighborhood_sum_plain(f, idx,
-                                                                 nmask))
-    assert (out[-1] == 0).all()  # the all-masked cloud
     dy = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
-    got = gather_reduce.neighborhood_sum_bwd_cuda(idx, nmask, dy, ns)
-    twin = gather_reduce.neighborhood_sum_bwd_plain(idx, nmask, dy, ns)
-    assert got.dtype == dtype and got.shape == (3, ns, c)
-    # the same f32 terms in atomic order; bf16: both round once
-    torch.testing.assert_close(got.float(), twin.float(),
-                               **_pwmlp_bwd_tol(dtype))
+    out, got = _nsum_check(f, idx, nmask, dy)
+    assert (out[-1] == 0).all()  # the all-masked cloud
     assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_neighborhood_sum_kernels_take_odd_offset_views(dtype):
+    """Contiguous views that start one element into their storage, so
+    rows are not 16-byte aligned though C is a multiple of the vector
+    width: the kernels take their scalar path."""
+    nq, ns, c, k = 24, 40, 256, 16
+    idx, nmask = _dup_neighborhoods(nq, ns, k, seed=45)
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    fs = torch.randn(3 * ns * c + 1, generator=gen, device="cuda").to(dtype)
+    ds = torch.randn(3 * nq * c + 1, generator=gen, device="cuda").to(dtype)
+    f, dy = fs[1:].view(3, ns, c), ds[1:].view(3, nq, c)
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    _nsum_check(f, idx, nmask, dy)
+
+
+def test_neighborhood_sum_bwd_is_one_device_kernel():
+    """The profiler sees one device kernel per backward call (no fill of
+    a scratch, no cast) and per forward call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, nmask = _dup_neighborhoods(8, 32, 41, seed=47)
+    f = torch.randn((3, 32, 2304), device="cuda").bfloat16()
+    dy = torch.randn((3, 8, 2304), device="cuda").bfloat16()
+    for fn, args in ((gather_reduce.neighborhood_sum_cuda, (f, idx, nmask)),
+                     (gather_reduce.neighborhood_sum_bwd_cuda,
+                      (idx, nmask, dy, 32))):
+        fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 4 and len(set(names)) == 1, names
 
 
 def test_autograd_launches_neighborhood_sum_kernels():

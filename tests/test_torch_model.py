@@ -148,6 +148,30 @@ def test_eval_logits_match_jax(flagship):
     np.testing.assert_allclose(logits.numpy(), jlogits, rtol=1e-4, atol=1e-5)
 
 
+def test_spatial_sort_auto_is_host_up_to_2048_points(flagship):
+    """As the JAX package's ``_maybe_sort``: "auto" does not sort clouds of
+    up to 2048 points, so its logits equal "host"'s to the bit; above 2048
+    points, and under "always", it would sort on the device, which is not
+    ported, and the forward raises."""
+    _, cfg, variables, batch, _ = flagship
+    args = [torch.from_numpy(batch[k]) for k in ("xyz", "mask", "features")]
+    models, logits = {}, {}
+    for mode in ("host", "auto", "always"):
+        models[mode] = build_model(Config(cfg.to_dict(), spatial_sort=mode))
+        models[mode].load_state_dict(
+            flax_to_state_dict(variables, models[mode]))
+    with torch.inference_mode():
+        for mode in ("host", "auto"):
+            logits[mode] = models[mode](*args)
+        assert torch.equal(logits["auto"], logits["host"])
+        with pytest.raises(NotImplementedError, match="device"):
+            models["always"](*args)
+        big = (torch.zeros((1, 2049, 3)), torch.ones((1, 2049), dtype=bool),
+               torch.zeros((1, 2049, 3)))
+        with pytest.raises(NotImplementedError, match="2049 points"):
+            models["auto"](*big)
+
+
 def test_predictor_serves_export_forward_weights(flagship, tmp_path):
     from closerlook3d_tpu.serving.export import export_forward
 

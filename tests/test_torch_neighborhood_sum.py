@@ -171,6 +171,31 @@ def test_plain_sums_in_slot_order_and_twin_matches_autograd(dtype):
     torch.testing.assert_close(twin.float(), ref.float(), **tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_twin_sums_in_query_slot_order(dtype):
+    """The backward twin on CPU tensors is, for each support row, the f32
+    running sum of dy[b, q] over the valid slots (q, t) that hold the row,
+    in (b, q, t) order, rounded once: the order the backward kernel adds
+    in, so that the two are equal to the bit. Rows that a neighborhood
+    lists twice (cloud 0's slots 0 and 1) add twice; magnitudes spread
+    over six decades so that another order would round otherwise."""
+    idx, mask = _neighborhoods(10)
+    scale = 10.0 ** np.random.default_rng(12).uniform(-3, 3, (B, NQ, 1))
+    dy = torch.from_numpy((_normal(11, B, NQ, C) * scale).astype(
+        np.float32)).to(dtype)
+    dyf = dy.float().numpy()
+    acc = np.zeros((B, NS, C), np.float32)
+    for b in range(B):
+        for q in range(NQ):
+            for t in range(K):
+                if mask[b, q, t]:
+                    acc[b, idx[b, q, t]] += dyf[b, q]
+    got = gather_reduce.neighborhood_sum_bwd_plain(
+        torch.from_numpy(idx), torch.from_numpy(mask), dy, NS)
+    assert got.dtype == dtype
+    assert torch.equal(got, torch.from_numpy(acc).to(dtype))
+
+
 def test_autograd_function_routes_through_the_kernels(kernel_route):
     idx, mask = _neighborhoods(7)
     it, mt = torch.from_numpy(idx), torch.from_numpy(mask)
