@@ -51,6 +51,10 @@ with every check raising on failure and no CPU fallback:
   gradient within 2% relative L2); trains 15 bf16 steps on one batch
   (the loss must fall) with exact per-step launch counts, then an eval
   step; times the step;
+* the ball query by device time at the 9 calls of the ModelNet40 xyz
+  train step, of the S3DIS train step and of a flagship request (right
+  after the build), beside its bound (bytes, or 8 operations per
+  in-radius pair) and the bound of a scan of all pairs;
 * K13 per step of that ShapeNetPart run (timed first, right after the
   build) against its plain version, its bound and one ``torch.bmm`` of
   the multi-hot count matrix, by device time (torch.profiler, kernel and
@@ -72,6 +76,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1277,14 +1282,24 @@ def _time(fn, inputs, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_time(fn, inputs, reps: int):
+def _is_device_op(e) -> bool:
+    """A profiled event that is work on the device (a kernel, memset or
+    copy): not a host event, and not a user annotation such as
+    ``Optimizer.step#SGD.step``, whose device-side span runs from its
+    first kernel to its last, host launch gaps included."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _device_time(fn, inputs, reps: int, per_op=None):
     """(ms, device ops) per call on the device, from torch.profiler over
     ``reps`` calls cycling through ``inputs``: the mean duration of each
     distinct device kernel, memset or copy, summed over them, and their
     number. Each must run once a call (raises otherwise); the mean, not
     the sum over ``reps``, because a profile can miss some of a window's
     events. Unlike ``_time`` it leaves out the host's launch path and the
-    gaps between launches."""
+    gaps between launches. A dict given as ``per_op`` receives each op's
+    mean ms by name."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in inputs:  # warm-up
@@ -1298,7 +1313,7 @@ def _device_time(fn, inputs, reps: int):
                 fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if _is_device_op(e):
                 spans.setdefault(e.name, []).append(
                     e.time_range.end - e.time_range.start)
         if spans:
@@ -1307,6 +1322,8 @@ def _device_time(fn, inputs, reps: int):
         raise AssertionError(
             f"{getattr(fn, '__name__', fn)}: device ops recorded over {reps} "
             f"calls: { {n: len(d) for n, d in spans.items()} }")
+    if per_op is not None:
+        per_op.update({n: sum(d) / len(d) / 1e3 for n, d in spans.items()})
     return sum(sum(d) / len(d) for d in spans.values()) / 1e3, len(spans)
 
 
@@ -1355,10 +1372,9 @@ def _device_us(evt) -> float:
 
 
 def _busy_us(prof) -> float:
-    """Union of device kernel intervals (us) in the trace."""
+    """Union of the intervals of device ops (us) in the trace."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in prof.events() if _is_device_op(e))
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -1400,7 +1416,7 @@ def _top_kernels(prof, n: int, rows: int = 15) -> list:
     runs, per run (device kernels only: an ATen op's entry repeats its
     kernels' time)."""
     avgs = sorted((e for e in prof.key_averages() if _device_us(e) > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA),
+                   and _is_device_op(e)),
                   key=_device_us, reverse=True)
     return [{"name": e.key[:90], "ms_per_run": _device_us(e) / n / 1e3,
              "calls_per_run": e.count / n} for e in avgs[:rows]]
@@ -1645,13 +1661,10 @@ def _kernel_cases(tcfg, calls, gen, kind: str):
     cases.update({k: [] for k in ("ball_query", "fps", "neighborhood_max",
                                   "neighborhood_max_bwd")})
     for i, (name, a) in enumerate(calls[0][0]):
-        q, s, _, k, qm, sm = a
-        b, nq = q.shape[:2]
-        valid_pairs = float((qm.sum(1) * sm.sum(1)).sum())
+        bound = bq_bound(a)
         cases["ball_query"].append((
             name, 1, nbr.ball_query_cuda, nbr.ball_query_plain,
-            [c[0][i][1] for c in calls],
-            (_nbytes(q, s, qm, sm) + b * nq * k * 5, 8 * valid_pairs)))
+            [c[0][i][1] for c in calls], (bound["bytes"], bound["flops"])))
     for i, (name, a) in enumerate(calls[0][1]):
         xyz, npoint, m = a
         cases["fps"].append((
@@ -2599,6 +2612,131 @@ def phase_k13_timing() -> dict:
     return out
 
 
+# ---- the ball query by device time -----------------------------------------
+
+# the forwards whose ball queries are timed call by call: the ModelNet40
+# xyz train step (32 x 5000 points, FPS), the S3DIS train step (8 x 15000,
+# grid sampling) and a flagship request (16 x 1024)
+BQ_STEPS = ("xyz", "s3dis", "flagship")
+
+
+def bq_step_calls(step: str, seed: int) -> list:
+    """The 9 ball-query calls of one forward of a ``BQ_STEPS`` entry,
+    geometry made on the card from a seeded batch: [(call, args of
+    ``ball_query_cuda``)]."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+
+    dev = torch.device(DEVICE)
+    if step in ("xyz", "flagship"):
+        cfg = train_config("xyz") if step == "xyz" else flagship_config()
+        b = make_batch(seed, batch=cfg.batch_size, points=cfg.num_points)
+        return path_calls(cfg, torch.from_numpy(b["xyz"]).to(dev),
+                          torch.from_numpy(b["mask"]).to(dev))[0]
+    cfg = seg_train_config(step)
+    b = seg_batch(cfg, seed)
+    with torch.no_grad():
+        g = compute_geometry(cfg, torch.from_numpy(b["xyz"]).to(dev),
+                             torch.from_numpy(b["mask"]).to(dev))
+    return seg_calls(cfg, g)[0]
+
+
+def bq_pairs_in_radius(q, s, radius, smask, chunk: int = 256) -> float:
+    """(query, valid support) pairs with d2 <= r2, d2 rounded as the
+    kernel and its plain version round it, counted on the card over
+    chunks of queries. Every query row counts, masked ones too: the
+    kernel computes their indices as well."""
+    from closerlook3d_tpu_torch.ops.neighbors import _r2, pairwise_dist2
+
+    r2, n = _r2(radius), 0
+    for i in range(0, q.shape[1], chunk):
+        d2 = pairwise_dist2(q[:, i:i + chunk], s)
+        n += int(((d2 <= r2) & smask[:, None, :]).sum())
+    return float(n)
+
+
+def bq_bound(args) -> dict:
+    """The ball query's bound for one call: the larger of its bytes
+    (points and masks read once, idx and mask written once) over the HBM
+    rate and 8 f32 operations (3 subtractions, 3 multiplies, 2 adds) per
+    in-radius (query, valid support) pair over the f32 peak; beside it
+    ``all_pairs_ms``, the same 8 operations for every (valid query, valid
+    support) pair, the work of a scan that prunes nothing."""
+    q, s, r, k, qm, sm = args
+    nbytes = _nbytes(q, s, qm, sm) + q.shape[0] * q.shape[1] * k * 5
+    pairs = bq_pairs_in_radius(q, s, r, sm)
+    all_pairs = float((qm.sum(1) * sm.sum(1)).sum())
+    bound_ms, bound_by = _bound(nbytes, 8 * pairs)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": 8 * pairs, "pairs_in_radius": pairs,
+            "all_pairs": all_pairs,
+            "all_pairs_ms": 8 * all_pairs / F32_FLOPS * 1e3}
+
+
+def _op_name(name: str) -> str:
+    """A device op's function name without namespace or arguments."""
+    m = re.search(r"(\w+)(<[^(]*>)?\(", name)
+    return m.group(1) if m else name
+
+
+def _bq_timing(reps: int = 20, seed: int = SEED + 600) -> dict:
+    """The ball query per call and per step (or request) at the 9 calls of
+    each ``BQ_STEPS`` forward (inputs from three seeded batches): device time
+    (``_device_time``: the profiler's mean per device op, summed over the
+    call's ops) and CUDA events over eager launches (``stream_ms``),
+    beside ``bq_bound``."""
+    from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
+
+    out = {}
+    for step in BQ_STEPS:
+        sets = [bq_step_calls(step, seed + r) for r in range(3)]
+        rows = []
+        for i, (name, a) in enumerate(sets[0]):
+            ins = [cs[i][1] for cs in sets]
+            row = {"call": name, "q": list(a[0].shape),
+                   "s": list(a[1].shape), "radius": a[2], "k": a[3],
+                   **bq_bound(a)}
+            row["stream_ms"] = _time(ball_query_cuda, ins, reps)
+            ops = row["device_ms_by_op"] = {}
+            row["device_ms"], row["device_ops_per_call"] = _device_time(
+                ball_query_cuda, ins, reps, ops)
+            rows.append(row)
+            log("bq-timing", f"{step} {name} q{tuple(a[0].shape)} "
+                f"s{tuple(a[1].shape)} r={a[2]:g} K={a[3]}: device "
+                f"{row['device_ms']:.5f} ms ("
+                + ", ".join(f"{_op_name(n)} {v:.5f}"
+                            for n, v in ops.items()) + ")"
+                + f"; events {row['stream_ms']:.4f} ms; bound "
+                f"{row['bound_ms']:.5f} ms ({row['bound_by']}; "
+                f"{row['pairs_in_radius']:.4g} pairs in radius), all pairs "
+                f"{row['all_pairs_ms']:.5f} ms")
+        keys = ["device_ms", "stream_ms", "bound_ms", "all_pairs_ms"]
+        tot = {k: sum(r[k] for r in rows) for k in keys}
+        by = {}
+        for r in rows:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        out[step] = {"calls": rows, **tot, "bound_by": max(by, key=by.get)}
+        log("bq-timing", f"{step} per step: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in tot.items()))
+    return out
+
+
+def phase_bq_timing() -> dict:
+    """The ball query by device time at the 9 calls of the ModelNet40 xyz
+    and the S3DIS train steps and of a flagship request (``_bq_timing``),
+    right after the build as K13's timing; fails unless each call runs
+    the kernel's two device ops (the preparation pass and the query
+    kernel)."""
+    out = _bq_timing()
+    for step, t in out.items():
+        for r in t["calls"]:
+            if r["device_ops_per_call"] != 2:
+                raise AssertionError(
+                    f"ball_query {step} {r['call']}: "
+                    f"{r['device_ops_per_call']:g} device operations a "
+                    f"call, expected 2")
+    return out
+
+
 def run_seg_training(name: str, wrappers) -> dict:
     """Every segmentation training phase of one config."""
     cfg = seg_train_config(name)
@@ -2741,12 +2879,30 @@ def nsum_row(record, name: str) -> dict:
             "launches_per_step": run["launches_per_step"][name]}
 
 
+def bq_row(record) -> dict:
+    """The ball query's keys beyond every row's: device time per step of
+    the ModelNet40 xyz config (whose events times, bound and launches the
+    row carries), of S3DIS and per flagship request, from
+    ``phase_bq_timing``, beside ``all_pairs_ms``, the bound of a scan that
+    prunes nothing."""
+    t = record["bq_timing"]
+    keys = ("device_ms", "stream_ms", "bound_ms", "bound_by", "all_pairs_ms")
+    return {"device_ms": t["xyz"]["device_ms"],
+            "all_pairs_ms": t["xyz"]["all_pairs_ms"],
+            "s3dis_per_step": {k: t["s3dis"][k] for k in keys},
+            "flagship_per_request": {k: t["flagship"][k] for k in keys},
+            "bound_note": "bytes once, or 8 f32 operations per in-radius "
+                          "(query, valid support) pair; all_pairs_ms: 8 "
+                          "per (valid query, valid support) pair"}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     record = {"device": phase_device()}
     record["build"] = phase_build()
     wrappers = kernel_wrappers()
     record["k13_timing"] = phase_k13_timing()
+    record["bq_timing"] = phase_bq_timing()
 
     cfg = flagship_config()
     record["parity"] = phase_kernel_parity(cfg)
@@ -2824,6 +2980,8 @@ def main() -> int:
                "serving_launches": serving["launches"][name]}
         if also:
             row["also_replaces"] = also
+        if name == "ball_query":
+            row.update(bq_row(record))
         kernels_line["kernels"].append(row)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

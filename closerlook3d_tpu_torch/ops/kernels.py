@@ -92,7 +92,7 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def entry(name: str, fn_name: str, argtypes: list):
+def entry(name: str, fn_name: str, argtypes: list, restype=ctypes.c_int):
     """(library, C entry point with argtypes set) from ``csrc/<name>.cu``.
 
     Pointers and the stream are ``c_void_p``: left undeclared, ctypes
@@ -102,7 +102,7 @@ def entry(name: str, fn_name: str, argtypes: list):
     fn = getattr(lib, fn_name)  # ctypes caches this object per library
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib, fn
 
 
@@ -137,4 +137,5 @@ def require_cuda(what: str, **tensors: torch.Tensor) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

@@ -127,7 +127,8 @@ def ball_query_plain(query_xyz, support_xyz, radius: float, nsample: int,
 
 def ball_query_cuda(query_xyz, support_xyz, radius: float, nsample: int,
                     query_mask=None, support_mask=None):
-    """Launch ``csrc/ball_query.cu``; raises on anything it does not take."""
+    """Launch ``csrc/ball_query.cu`` (its preparation pass, then its query
+    kernel); raises on anything it does not take."""
     what = "ball_query_cuda"
     b, nq, _ = query_xyz.shape
     ns = support_xyz.shape[1]
@@ -163,14 +164,23 @@ def ball_query_cuda(query_xyz, support_xyz, radius: float, nsample: int,
                         device=query_xyz.device)
     if b * nq == 0:
         return idx, valid
+    # the kernel's scratch (packed supports, tile and chunk boxes);
+    # torch.empty's blocks are 512-byte aligned, as its float4s need
+    _, ws_floats = kernels.entry("ball_query",
+                                 "cl3d_ball_query_workspace_floats",
+                                 [kernels.I, kernels.I], kernels.L)
+    work = torch.empty(ws_floats(b, ns), dtype=torch.float32,
+                       device=query_xyz.device)
     lib, fn = kernels.entry(
         "ball_query", "cl3d_ball_query",
-        [kernels.P] * 4 + [kernels.I] * 4 + [kernels.F] + [kernels.P] * 3)
+        [kernels.P] * 4 + [kernels.I] * 4 + [kernels.F] + [kernels.P] * 3
+        + [kernels.L, kernels.P])
     with torch.cuda.device(query_xyz.device):
         err = fn(query_xyz.data_ptr(), support_xyz.data_ptr(),
                  query_mask.data_ptr(), support_mask.data_ptr(),
                  b, nq, ns, nsample, _r2(radius),
-                 idx.data_ptr(), valid.data_ptr(), kernels.stream_of(idx))
+                 idx.data_ptr(), valid.data_ptr(), work.data_ptr(),
+                 work.numel(), kernels.stream_of(idx))
     kernels.check(lib, err, what)
     ball_query_cuda.launches += 1
     return idx, valid

@@ -18,12 +18,25 @@ and the point-wise MLP's route through it on either side of 64 queries, the pseu
 beyond one register chunk, the k-NN kernel (k = 1 and above, k > Ns,
 ties, all-masked supports) and its routing, the grid subsampling on the
 card against the CPU, the autograd wiring, and the wrappers' refusals.
+The ball query is held to its plain version, to the bit, on Morton-sorted
+clouds at the ModelNet40 and S3DIS step sizes (FPS-ordered queries and
+supports, grid-subsampled queries padded at the origin), on grid clouds
+whose tile boxes touch the radius, and at its edge cases; each call runs
+its two device kernels once.
 """
+
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from closerlook3d_tpu_torch.data.spatial_host import morton_sort_batch
+from closerlook3d_tpu_torch.data.synthetic import (
+    SyntheticClassification, SyntheticSceneSegmentation)
 from closerlook3d_tpu_torch.models.aggregation import (
     _typical_spacing, kernel_point_layout)
 from closerlook3d_tpu_torch.ops import (
@@ -87,6 +100,161 @@ def test_ball_query_kernel_equals_plain(nq, ns, r, k, grid):
     ki, km = ball_query_cuda(q, s, r, k)
     pi, pm = ball_query_plain(q, s, r, k)
     assert torch.equal(ki, pi) and torch.equal(km, pm)
+
+
+def _bq_equal(q, s, r, k, qmask, smask):
+    """Kernel equal to the plain version (in query chunks of 512) in idx
+    and mask; returns the kernel's mask."""
+    ki, km = ball_query_cuda(q, s, r, k, qmask, smask)
+    pi, pm = ball_query_plain(q, s, r, k, qmask, smask, 512)
+    torch.cuda.synchronize()
+    bad = (ki != pi) | (km != pm)
+    assert not bad.any(), (int(bad.sum()), bad.nonzero()[:4].tolist())
+    return km
+
+
+def _sorted_clouds(make, b, n, shift=0.0, padded=()):
+    """Morton-sorted synthetic clouds (``make``: a dataset class of
+    ``data/synthetic.py``), on the card; clouds in ``padded`` keep 70%."""
+    ds = make(b, n, seed=11)
+    xyz = np.stack([ds[i]["xyz"] for i in range(b)]).astype(np.float32)
+    xyz[..., 0] += np.float32(shift)
+    mask = np.ones((b, n), bool)
+    for i in padded:
+        mask[i, n * 7 // 10:] = False
+    out = morton_sort_batch({"xyz": xyz, "mask": mask})
+    return (torch.from_numpy(out["xyz"]).cuda(),
+            torch.from_numpy(out["mask"]).cuda())
+
+
+@pytest.mark.parametrize("radius", [0.05, 0.1])
+def test_ball_query_kernel_on_sorted_shapes(radius):
+    """The ModelNet40 step's sizes: 32 Morton-sorted clouds of 5000 points,
+    queried by themselves and by 1250 FPS-ordered points of each."""
+    x, m = _sorted_clouds(SyntheticClassification, 32, 5000, padded=(3,))
+    _bq_equal(x, x, radius, 26, m, m)
+    fidx, fm = furthest_point_sample_cuda(x, 1250, m)
+    fq = torch.gather(x, 1, fidx.long()[..., None].expand(-1, -1, 3))
+    _bq_equal(fq, x, radius, 26, fm, m)
+    _bq_equal(fq, fq, radius * 2, 31, fm, fm)  # FPS-ordered supports
+
+
+@pytest.mark.parametrize("shift", [0.0, 6.0])
+def test_ball_query_kernel_on_subsampled_rooms(shift):
+    """The S3DIS step's sizes: 8 rooms of 15000 points, and their grid
+    subsampling to 4096 slots whose padding sits at the origin: on the
+    floor, or (rooms shifted by 6 m) far from every point, where a padded
+    row has no support in radius and takes the nearest one."""
+    x, m = _sorted_clouds(SyntheticSceneSegmentation, 8, 15000, shift,
+                          padded=(2,))
+    q, qm = grid_subsample(x, 0.16, 4096, m)
+    assert (q[~qm] == 0).all() and (~qm).sum() > 1000
+    _bq_equal(x, x, 0.1, 26, m, m)
+    _bq_equal(q, x, 0.2, 26, qm, m)
+    _bq_equal(q, q, 0.2, 31, qm, qm)
+    if shift:  # padded rows, unmasked: no support in radius
+        km = _bq_equal(q, x, 0.2, 26, torch.ones_like(qm), m)
+        assert not km[~qm].any()
+
+
+@pytest.mark.parametrize("radius,k", [(0.25, 16), (0.5, 16), (0.5, MAX_K),
+                                      (1.0, MAX_K)])
+def test_ball_query_kernel_at_the_box_boundary(radius, k):
+    """0.25-grid clouds, Morton-sorted: tiles whose box lies at exactly
+    the radius, duplicated points, exact ties; at r = 1 more than 128
+    supports are in radius, so the key buffer is cut to K as it fills."""
+    rng = np.random.default_rng(41)
+    xyz = rng.integers(-4, 5, size=(3, 600, 3)).astype(np.float32) * 0.25
+    xyz[:, 30:60] = xyz[:, :30]
+    mask = rng.random((3, 600)) >= 0.1
+    out = morton_sort_batch({"xyz": xyz, "mask": mask})
+    s = torch.from_numpy(out["xyz"]).cuda()
+    sm = torch.from_numpy(out["mask"]).cuda()
+    _bq_equal(s, s, radius, k, sm, sm)
+
+
+def _edge_case(name):
+    """(q, s, radius, k, qmask, smask) on the card."""
+    x, m = _sorted_clouds(SyntheticClassification, 3, 700)
+    if name == "all_masked":
+        m[1] = False
+        return x, x, 0.1, 16, torch.ones_like(m), m
+    if name == "masked_in_reach":
+        sm = m.clone()
+        near = ((x[0, :, None] - x[0, None, :50]) ** 2).sum(-1).amin(1)
+        sm[0] = near > 0.3 ** 2
+        return x, x, 0.1, 16, m, sm
+    if name == "far_valid":  # valid supports at d2 >= 1e10
+        s, sm = x.clone(), m.clone()
+        sm[:, :350] = False
+        s[:, 350:, 0] += 2e5
+        return x, s, 0.1, 16, m, sm
+    if name == "k_max":
+        return x, x, 0.3, MAX_K, m, m
+    if name == "k_gt_ns":
+        sm = m[:, :5].clone()
+        sm[0, 3] = False
+        return x, x[:, :5].contiguous(), 0.8, 12, m, sm
+    if name in ("huge_radius", "huge_radius_k_gt_ns"):
+        sm = m.clone()
+        sm[:, ::2] = False
+        if name == "huge_radius":
+            return x, x, 1e5, 40, m, sm
+        return (x, x[:, :9].contiguous(), 2e5, 12, m,
+                sm[:, :9].contiguous())
+    if name == "unsorted":
+        perm = torch.from_numpy(
+            np.random.default_rng(5).permutation(700)).cuda()
+        return (x[:, :300].contiguous(), x[:, perm].contiguous(), 0.2, 32,
+                m[:, :300].contiguous(), m[:, perm].contiguous())
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "all_masked", "masked_in_reach", "far_valid", "k_max", "k_gt_ns",
+    "huge_radius", "huge_radius_k_gt_ns", "unsorted"])
+def test_ball_query_kernel_edge_cases(name):
+    """An all-masked cloud; only masked supports in reach; valid supports
+    all at d2 >= 1e10 (a masked one is nearest); K = 64; K > Ns; r >= 1e5
+    (masked supports in radius, nothing pruned); unsorted supports, which
+    stay exact and only prune less."""
+    _bq_equal(*_edge_case(name))
+
+
+_ONE_CALL_OPS = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
+g = torch.Generator(device="cuda").manual_seed(0)
+x = torch.rand((4, 2000, 3), generator=g, device="cuda")
+m = torch.rand((4, 2000), generator=g, device="cuda") > 0.1
+ball_query_cuda(x, x, 0.1, 26, m, m)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for _ in range(4):
+        ball_query_cuda(x, x, 0.1, 26, m, m)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_ball_query_device_ops_run_once_a_call():
+    """Each call runs the preparation pass and the query kernel once, and
+    nothing else on the device. Profiled in a process of its own: after
+    one profiling session, a later one in the same process has missed
+    device events (the K13 test below then saw 1 of its 4 launches)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
+                           if p)
+    out = subprocess.run([sys.executable, "-c", _ONE_CALL_OPS], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=path),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(set(names)) == 2, names
+    assert all(names.count(n) == 4 for n in names), names
 
 
 @pytest.mark.parametrize("n,npoint", [
