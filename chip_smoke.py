@@ -399,7 +399,7 @@ def phase_device() -> dict:
 
 SOURCES = ("ball_query", "fps", "pospool_xyz", "neighborhood_max",
            "pospool_sincos", "moments", "gather_reduce", "pseudo_grid",
-           "knn")
+           "knn", "reverse_index")
 
 
 def phase_build() -> dict:
@@ -855,6 +855,35 @@ def _grads(fn, inputs, cots):
 PWMLP_SUM_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
+def _same_bits(what, got, ref) -> None:
+    """Raise unless each pair of tensors holds the same bits (zero signs
+    included)."""
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        bad = int((a.view(view) != b.to(a.device).view(view)).sum())
+        if a.shape != b.shape or a.dtype != b.dtype or bad:
+            raise AssertionError(f"{what} [{i}]: {bad} elements differ in "
+                                 f"their bits")
+
+
+def _reverse_index_parity(what, idx, nmask, ns) -> None:
+    """The reverse index kernel (``csrc/reverse_index.cu``) equal to its
+    plain version: offsets, and each cloud's valid entries."""
+    from closerlook3d_tpu_torch.ops.reverse_index import (
+        reverse_index_cuda, reverse_index_plain)
+
+    off, slots = reverse_index_cuda(idx, nmask, ns)
+    poff, pslots = reverse_index_plain(idx, nmask, ns)
+    torch.cuda.synchronize()
+    n = off[:, -1:]
+    used = torch.arange(slots.shape[1], device=slots.device)[None] < n
+    if not (torch.equal(off, poff)
+            and torch.equal(torch.where(used, slots, -1), pslots)):
+        raise AssertionError(f"reverse index {what}: differs from its plain "
+                             f"version")
+
+
 def _pwmlp_bwd_tol(dtype):
     """Backward kernel vs its twin and vs autograd of the plain forward:
     the same f32 terms (equal shares of each cotangent) scattered in
@@ -868,7 +897,10 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
     """The point-wise MLP's kernels (K6, K7) forward and backward vs their
     plain versions at every aggregation call shape of the train step, f32
     and bf16, on grid values with ties and on distinct values; {kernel:
-    max abs err}. Max and min must be equal."""
+    max abs err}. Max and min must be equal; K6's backward must give the
+    same bits on a second run and, with ties, equal its twin run on CPU
+    copies to the bit; the reverse index (its first launch's, launched
+    alone) must equal its plain version at each call."""
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
 
     errs = dict.fromkeys(("pwmlp_stats", "pwmlp_stats_bwd",
@@ -892,6 +924,7 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
 
     f32 = torch.float32
     for name, (q, s, idx, nmask, _), c, _ in pp:
+        _reverse_index_parity(name, idx, nmask, s.shape[1])
         for dtype in (f32, torch.bfloat16):
             tol = _pwmlp_bwd_tol(dtype)
             for values, make in (("ties", _grid_features),
@@ -912,8 +945,17 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
                      list(zip(outs[:2], ref[:2])), None)
                 e_s = note("pwmlp_stats", k + " sums",
                            list(zip(outs[2:], ref[2:])), PWMLP_SUM_TOL)
-                got = gr.pwmlp_minmax_stats_bwd_cuda(g, idx, nmask, outs[0],
-                                                     outs[1], *cot)
+                args = (g, idx, nmask, outs[0], outs[1], *cot)
+                got = gr.pwmlp_minmax_stats_bwd_cuda(*args)
+                # the same bits on a second run, and (grid values: ties)
+                # those of its twin on CPU copies, which adds in the
+                # kernel's (q, t) order
+                _same_bits(k + " bwd, two runs", got,
+                           gr.pwmlp_minmax_stats_bwd_cuda(*args))
+                if values == "ties":
+                    _same_bits(k + " bwd vs twin on the CPU", got,
+                               gr.pwmlp_minmax_stats_bwd_plain(
+                                   *(a.cpu() for a in args)))
                 e_t = note("pwmlp_stats_bwd", k + " bwd vs twin", zip(
                     got, gr.pwmlp_minmax_stats_bwd_plain(
                         g, idx, nmask, outs[0], outs[1], *cot)), tol)
@@ -967,7 +1009,8 @@ def _pgrid_parity(tcfg, pp, gen, phase) -> dict:
     """The pseudo-grid kernels (K10) forward and backward vs their plain
     versions, the backward also vs autograd of the plain forward, at every
     aggregation call shape of the train step, f32 and bf16, for all three
-    influence modes (the config trains with the linear one)."""
+    influence modes (the config trains with the linear one); the backward
+    must give the same bits on a second run."""
     from closerlook3d_tpu_torch.ops import pseudo_grid as pg
 
     kp, extent = pgrid_geometry(tcfg, DEVICE)
@@ -990,11 +1033,12 @@ def _pgrid_parity(tcfg, pp, gen, phase) -> dict:
                            pg.pseudo_grid_cuda(q, s, f, idx, nmask, *args),
                            pg.pseudo_grid_plain(q, s, f, idx, nmask, *args),
                            tol)
-                got = pg.pseudo_grid_bwd_cuda(q, s, idx, nmask, kp, dy, r,
-                                              extent, mode)
+                bargs = (q, s, idx, nmask, kp, dy, r, extent, mode)
+                got = pg.pseudo_grid_bwd_cuda(*bargs)
+                _same_bits(what + " bwd, two runs", [got],
+                           [pg.pseudo_grid_bwd_cuda(*bargs)])
                 e_t = note("pseudo_grid_bwd", what + " bwd vs twin", got,
-                           pg.pseudo_grid_bwd_plain(q, s, idx, nmask, kp, dy,
-                                                    r, extent, mode), tol)
+                           pg.pseudo_grid_bwd_plain(*bargs), tol)
                 _, ref = _vjp(lambda x: pg.pseudo_grid_plain(
                     q, s, x, idx, nmask, *args), f, dy)
                 e_a = note("pseudo_grid_bwd", what + " bwd vs autograd",
@@ -1294,12 +1338,13 @@ def _is_device_op(e) -> bool:
 def _device_time(fn, inputs, reps: int, per_op=None):
     """(ms, device ops) per call on the device, from torch.profiler over
     ``reps`` calls cycling through ``inputs``: the mean duration of each
-    distinct device kernel, memset or copy, summed over them, and their
-    number. Each must run once a call (raises otherwise); the mean, not
-    the sum over ``reps``, because a profile can miss some of a window's
-    events. Unlike ``_time`` it leaves out the host's launch path and the
-    gaps between launches. A dict given as ``per_op`` receives each op's
-    mean ms by name."""
+    distinct device kernel, memset or copy, times the number of times a
+    call runs it (its events over ``reps``, rounded, at least 1), summed
+    over them, and the number of ops a call. The mean, not the sum over
+    ``reps``, because a profile can miss some of a window's events; raises
+    if an op ran more often than that. Unlike ``_time`` it leaves out the
+    host's launch path and the gaps between launches. A dict given as
+    ``per_op`` receives each op's ms a call by name."""
     from torch.profiler import ProfilerActivity, profile
 
     for a in inputs:  # warm-up
@@ -1318,13 +1363,15 @@ def _device_time(fn, inputs, reps: int, per_op=None):
                     e.time_range.end - e.time_range.start)
         if spans:
             break
-    if not spans or any(len(d) > reps for d in spans.values()):
+    times = {n: max(1, round(len(d) / reps)) for n, d in spans.items()}
+    if not spans or any(len(d) > times[n] * reps for n, d in spans.items()):
         raise AssertionError(
             f"{getattr(fn, '__name__', fn)}: device ops recorded over {reps} "
             f"calls: { {n: len(d) for n, d in spans.items()} }")
+    ms = {n: times[n] * sum(d) / len(d) / 1e3 for n, d in spans.items()}
     if per_op is not None:
-        per_op.update({n: sum(d) / len(d) / 1e3 for n, d in spans.items()})
-    return sum(sum(d) / len(d) for d in spans.values()) / 1e3, len(spans)
+        per_op.update(ms)
+    return sum(ms.values()), sum(times.values())
 
 
 def _device_pair(fn_a, ins_a, fn_b, ins_b, reps: int):
@@ -1725,30 +1772,86 @@ def _step_timing(cfg, training, phase) -> dict:
             "split": split}
 
 
-def phase_train_timing(tcfg, training, kind: str) -> dict:
-    """Each kernel per train step of the config (bf16) against its plain
-    version and its bound; the step's median time and device split."""
+def _timing_calls(tcfg) -> list:
+    """``path_calls`` of three seeded batches (distinct inputs per
+    launch), the kernel inputs the timing phases take."""
     dev = torch.device(DEVICE)
     calls = []
-    for r in range(3):  # distinct inputs per launch
+    for r in range(3):
         b = make_batch(SEED + 600 + r, batch=tcfg.batch_size,
                        points=tcfg.num_points)
         calls.append(path_calls(tcfg, torch.from_numpy(b["xyz"]).to(dev),
                                 torch.from_numpy(b["mask"]).to(dev)))
+    return calls
+
+
+def phase_device_timing() -> dict:
+    """Every kernel row of every train config (``_kernel_cases``, the
+    inputs of ``phase_train_timing``) by device time (``_device_time``),
+    per call and per step, and the device ops a call, and the k-NN per
+    upsample call of each segmentation request (the inputs of
+    ``phase_seg_timing``); run right after the build, as
+    ``phase_k13_timing``."""
+    out = {}
+    for kind in TRAIN_KINDS:
+        tcfg = train_config(kind)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+        out[kind] = {}
+        for kernel, rows in _kernel_cases(tcfg, _timing_calls(tcfg), gen,
+                                          kind).items():
+            calls = []
+            for name, count, fn, _, ins, _ in rows:
+                ms, ops = _device_time(fn, ins, 20)
+                calls.append({"call": name, "per_step": count,
+                              "device_ms": ms, "device_ops_per_call": ops})
+            t = out[kind][kernel] = {
+                "calls": calls,
+                "device_ms": sum(r["device_ms"] * r["per_step"]
+                                 for r in calls),
+                "device_ops_per_call": max(r["device_ops_per_call"]
+                                           for r in calls)}
+            log("device-timing", f"{kind} {kernel}: {t['device_ms']:.5f} ms "
+                f"a step, {t['device_ops_per_call']} device ops a call ("
+                + ", ".join(f"{r['call']} {r['device_ms']:.5f}"
+                            for r in calls) + ")")
+        torch.cuda.empty_cache()
+    for name in SEG_NAMES:  # the k-NN, per upsample call of a request
+        ups = _knn_calls(seg_config(name))
+        out[f"knn:{name}"] = [
+            _device_time(_knn_route(*a), [u[i][1] for u in ups], 20)[0]
+            for i, (_, a) in enumerate(ups[0])]
+        log("device-timing", f"knn {name}: "
+            + ", ".join(f"{ms:.5f}" for ms in out[f"knn:{name}"])
+            + " ms a call")
+    return out
+
+
+def phase_train_timing(tcfg, training, kind: str, device: dict) -> dict:
+    """Each kernel per train step of the config (bf16) against its plain
+    version and its bound, with its device time from ``device`` (the
+    config's entry of ``phase_device_timing``); the step's median time and
+    device split."""
+    dev = torch.device(DEVICE)
+    calls = _timing_calls(tcfg)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     per_kernel = {}
     phase = f"train-timing:{kind}"
     for kernel, rows in _kernel_cases(tcfg, calls, gen, kind).items():
         out = []
-        for name, count, fn, plain, ins, (nbytes, flops) in rows:
+        for i, (name, count, fn, plain, ins, (nbytes, flops)) in enumerate(
+                rows):
             ms, plain_ms = _time(fn, ins, 20), _time(plain, ins, 3)
+            dev = device[kernel]["calls"][i]
+            device_ms, ops = dev["device_ms"], dev["device_ops_per_call"]
             bound_ms, bound_by = _bound(nbytes, flops)
             out.append({"call": name, "per_step": count, "ms": ms,
+                        "device_ms": device_ms, "device_ops_per_call": ops,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": nbytes,
                         "flops": flops})
             log(phase, f"{kernel} {name} x{count}: kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{ms:.4f} ms (device {device_ms:.5f} ms in {ops} ops), "
+                f"plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}; {nbytes / 1e6:.1f} MB, "
                 f"{flops / 1e9:.3f} GFLOP)")
         bound_time = {}
@@ -1758,13 +1861,16 @@ def phase_train_timing(tcfg, training, kind: str) -> dict:
         per_kernel[kernel] = {
             "calls": out,
             "ms": sum(r["ms"] * r["per_step"] for r in out),
+            "device_ms": sum(r["device_ms"] * r["per_step"] for r in out),
+            "device_ops_per_call": max(r["device_ops_per_call"]
+                                       for r in out),
             "plain_ms": sum(r["plain_ms"] * r["per_step"] for r in out),
             "bound_ms": sum(bound_time.values()),
             "bound_by": max(bound_time, key=bound_time.get)}
         t = per_kernel[kernel]
-        log(phase, f"{kernel} per step: kernel {t['ms']:.4f} ms, "
-            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']})")
+        log(phase, f"{kernel} per step: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.5f} ms), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
 
     out = _step_timing(tcfg, training, phase)
     predictor, rmed = training["predictor"], training["request_ms_median"]
@@ -2049,12 +2155,10 @@ def knn_library(q, s, k, smask):
     return torch.topk(d2, k, dim=-1, largest=False, sorted=True)
 
 
-def phase_seg_timing(cfg, name: str) -> dict:
-    """The k-NN kernel per request (its 4 upsample calls) against its
-    plain version, PyTorch's cdist + topk and its bound; inputs from three
-    requests' geometry."""
+def _knn_calls(cfg) -> list:
+    """The upsample k-NN calls of three requests' geometry: [[(call,
+    (q, s, k, support mask)), ...] per request]."""
     from closerlook3d_tpu_torch.models.backbone import compute_geometry
-    from closerlook3d_tpu_torch.ops.neighbors import knn_plain
 
     dev = torch.device(DEVICE)
     ups = []
@@ -2065,11 +2169,23 @@ def phase_seg_timing(cfg, name: str) -> dict:
                                  torch.from_numpy(b["mask"]).to(dev),
                                  need_up=True)
         ups.append(seg_calls(cfg, g)[2])
+    return ups
+
+
+def phase_seg_timing(cfg, name: str, device: list) -> dict:
+    """The k-NN kernel per request (its 4 upsample calls) against its
+    plain version, PyTorch's cdist + topk and its bound, with its device
+    time per call from ``device`` (``phase_device_timing``); inputs from
+    three requests' geometry."""
+    from closerlook3d_tpu_torch.ops.neighbors import knn_plain
+
+    ups = _knn_calls(cfg)
     rows = []
     for i, (call, (q, s, k, sm)) in enumerate(ups[0]):
         ins = [u[i][1] for u in ups]
         fn = _knn_route(q, s, k, sm)
         ms, plain_ms = _time(fn, ins, 20), _time(knn_plain, ins, 3)
+        device_ms = device[i]
         lib_ms = _time(knn_library, ins, 3)
         # 9 f32 operations per (query, valid support) pair: 3
         # subtractions, 3 multiplies, 2 adds and the compare
@@ -2077,28 +2193,33 @@ def phase_seg_timing(cfg, name: str) -> dict:
         nbytes = _nbytes(q, s, sm) + q.shape[0] * q.shape[1] * k * 8
         bound_ms, bound_by = _bound(nbytes, 9 * pairs)
         rows.append({"call": call, "route": fn.__name__, "ms": ms,
+                     "device_ms": device_ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "flops": 9 * pairs})
         log(f"seg-timing:{name}", f"knn {call} ({fn.__name__}) "
-            f"q{tuple(q.shape)} s{tuple(s.shape)}: kernel {ms:.4f} ms, plain "
+            f"q{tuple(q.shape)} s{tuple(s.shape)}: kernel {ms:.4f} ms "
+            f"(device {device_ms:.5f}), plain "
             f"{plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
     tot = {key: sum(r[key] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
     by = {}
     for r in rows:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
     tot["bound_by"] = max(by, key=by.get)
-    log(f"seg-timing:{name}", f"knn per request: kernel {tot['ms']:.4f} ms, "
+    log(f"seg-timing:{name}", f"knn per request: kernel {tot['ms']:.4f} ms "
+        f"(device {tot['device_ms']:.5f}), "
         f"plain {tot['plain_ms']:.4f} ms, cdist+topk "
         f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
         f"({tot['bound_by']})")
     return {"calls": rows, **tot}
 
 
-def run_segmentation(name: str, wrappers) -> dict:
-    """Every segmentation phase of one config."""
+def run_segmentation(name: str, wrappers, device: list) -> dict:
+    """Every segmentation phase of one config (``device``: the k-NN's
+    device times from ``phase_device_timing``)."""
     cfg = seg_config(name)
     run = {"parity": phase_seg_kernel_parity(cfg, name)}
     weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 20))
@@ -2109,7 +2230,7 @@ def run_segmentation(name: str, wrappers) -> dict:
     run["forward_parity"] = phase_seg_forward_parity(
         cfg, name, weights, serving["batches"][1],
         clouds=2 if name == "s3dis" else 4)
-    run["timing"] = phase_seg_timing(cfg, name)
+    run["timing"] = phase_seg_timing(cfg, name, device)
     return run
 
 
@@ -2838,7 +2959,8 @@ def knn_row(record) -> dict:
     t = seg["s3dis"]["timing"]
     return {"launches": launches["knn1"] + launches["knn"],
             "max_abs_err": max(run["parity"]["knn"] for run in seg.values()),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # two calls, cdist then topk, plus the square and the bias
             "library_ms": t["library_ms"],
@@ -2903,6 +3025,7 @@ def main() -> int:
     wrappers = kernel_wrappers()
     record["k13_timing"] = phase_k13_timing()
     record["bq_timing"] = phase_bq_timing()
+    record["device_timing"] = phase_device_timing()
 
     cfg = flagship_config()
     record["parity"] = phase_kernel_parity(cfg)
@@ -2928,7 +3051,8 @@ def main() -> int:
         run["training"] = {k: v for k, v in training.items()
                            if k not in ("state", "step", "batch",
                                         "predictor")}
-        run["timing"] = phase_train_timing(tcfg, training, kind)
+        run["timing"] = phase_train_timing(tcfg, training, kind,
+                                           record["device_timing"][kind])
         # launches on the config's main-path runs: the bf16 train steps,
         # the eval step, the checked Predictor request and, where it ran,
         # the eval-mode gradient
@@ -2939,7 +3063,8 @@ def main() -> int:
         run["launches"] = {k: sum(r[k] for r in runs) for k in wrappers}
         record["train"][kind] = run
         del training
-    record["seg"] = {name: run_segmentation(name, wrappers)
+    record["seg"] = {name: run_segmentation(
+                         name, wrappers, record["device_timing"][f"knn:{name}"])
                      for name in SEG_NAMES}
     record["seg_train"] = {name: run_seg_training(name, wrappers)
                            for name in SEG_TRAIN_NAMES}
@@ -2974,6 +3099,10 @@ def main() -> int:
                # no single PyTorch call computes these masked, padded
                # neighborhood functions
                "library_ms": None,
+               # ms: CUDA events over eager launches (the host's launch
+               # path in); device_ms: the profiler's device time, per step
+               "device_ms": t["device_ms"],
+               "device_ops_per_call": t["device_ops_per_call"],
                "config": kind,
                "launches_per_step": launches_per(kind, "train")[name],
                "launches_per_forward": launches_per(kind, "forward")[name],

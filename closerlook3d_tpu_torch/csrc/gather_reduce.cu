@@ -34,9 +34,15 @@
 // as the plain version does, so the two agree whatever their summation
 // order: the masked BN variance formed from them, E[h^2] - mean^2,
 // cancels, and f32 summation noise would move a train step's gradients
-// by percents. dmax / n is an f32 division; the K6 and K7 scatters sum in
-// f32 with atomics (order varies run to run) into zeroed f32 scratch that
-// the wrapper casts once to g's dtype, as the plain twins do.
+// by percents. dmax / n is an f32 division. K6's backward forms each valid
+// slot's term ds1 + (dmax / n [g == gmax] + dmin / m [g == gmin]) in f32,
+// as its twin groups it, and adds the terms of a support row in (q, t)
+// order from +0, rounding once to g's dtype: the twin's index_add_ order
+// on CPU tensors, so the two are equal to the bit (the twin's masked
+// slots add +-0, which never changes a sum started at +0 under
+// round-to-nearest), and every run gives the same bits. K7's backward
+// still scatters in f32 with atomics (order varies run to run) into zeroed
+// f32 scratch that the wrapper casts once to g's dtype.
 // K13 sums in f32 and rounds once to f's dtype: forward slot by slot in
 // slot order, as the TPU kernel writes it (its caller, the
 // pwmlp_minmax_stats route for at most 64 folded queries, takes the
@@ -48,16 +54,23 @@
 // each query tile's partial to the output dtype; at the caller's shapes
 // there is one tile, so it too rounds once.
 //
-// Layout. K6 and K7 (query_blocks.cuh): one block per kQPB consecutive
-// queries of one cloud stages the K slot rows in shared memory; threads
-// stride over the C channels, so a warp's loads (and atomics) of one
-// support row are coalesced. K13 has its own, below: forward a warp per
+// Layout. K6's forward and K7 (query_blocks.cuh): one block per kQPB
+// consecutive queries of one cloud stages the K slot rows in shared
+// memory; threads stride over the C channels, so a warp's loads (and
+// atomics) of one support row are coalesced. K6's backward: two launches
+// over a reverse neighbor index (reverse_index.cuh, row_gather.cuh); see
+// pwstats_terms_kernel. K13 has its own, below: forward a warp per
 // (query, 256-channel bf16 slice; 128 in f32), a block per 8 queries of
 // one cloud; backward a warp per 1-4 support rows and slice.
 //
 // Bound on the H100: bytes. The forward does a few f32 (and two f64)
 // operations per gathered value and writes f32 outputs (K6 four, K7 two),
 // which dominate the bytes; the K-fold re-reads of support rows hit L2.
+// K6's backward reads its six f32 [B, Nq, C] inputs once and writes dg and
+// dgsq once, but also writes and reads back an f32 term per valid slot and
+// channel (on ModelNet40's synthetic clouds 3-10 valid slots of 26-41 a
+// query) and re-reads ds2 once a slot; its launches are latency-bound (a
+// query or row costs two to three dependent round trips to memory).
 // K13 does one f32 add per gathered value and writes one row in f's dtype
 // per query (per support row backward). At its one caller's shapes (8
 // clouds of 8 queries, f = [g, g^2] of 2304 bf16 channels, Ns 32 or 8,
@@ -76,6 +89,7 @@
 // fix the sum.
 
 #include "query_blocks.cuh"
+#include "reverse_index.cuh"
 
 namespace {
 
@@ -146,63 +160,6 @@ __global__ void pwstats_fwd_kernel(const T* __restrict__ g,
 // twins clamp.
 __device__ __forceinline__ float share(float dy, int n) {
   return __fdiv_rn(dy, static_cast<float>(max(n, 1)));
-}
-
-template <typename T>
-__global__ void pwstats_bwd_kernel(const T* __restrict__ g,
-                                   const int32_t* __restrict__ idx,
-                                   const bool* __restrict__ mask,
-                                   const float* __restrict__ gmax,
-                                   const float* __restrict__ gmin,
-                                   const float* __restrict__ dmax,
-                                   const float* __restrict__ dmin,
-                                   const float* __restrict__ ds1,
-                                   const float* __restrict__ ds2, int nq,
-                                   int ns, int c, int k,
-                                   float* __restrict__ dg,
-                                   float* __restrict__ dgsq) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  const T* gb = g + static_cast<size_t>(b) * ns * c;
-  float* dgb = dg + static_cast<size_t>(b) * ns * c;
-  float* dqb = dgsq + static_cast<size_t>(b) * ns * c;
-
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    if (staged_count(s_idx, k) == 0) continue;  // uniform: no gradient
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const size_t o = row * c + ch;
-      const float hi = gmax[o], lo = gmin[o];
-      int n_hi = 0, n_lo = 0;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const float v = to_f32(gb[static_cast<size_t>(j) * c + ch]);
-          n_hi += v == hi;
-          n_lo += v == lo;
-        }
-      }
-      const float sh_hi = share(dmax[o], n_hi), sh_lo = share(dmin[o], n_lo);
-      const float d1 = ds1[o], d2 = ds2[o];
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const size_t off = static_cast<size_t>(j) * c + ch;
-          const float v = to_f32(gb[off]);
-          float sh = 0.f;
-          if (v == hi) sh += sh_hi;
-          if (v == lo) sh += sh_lo;
-          atomicAdd(dgb + off, d1 + sh);
-          atomicAdd(dqb + off, d2);
-        }
-      }
-    }
-  }
 }
 
 template <typename T>
@@ -297,7 +254,6 @@ __global__ void mm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ d,
 
 // ---- K13: own launch geometry (not query_blocks.cuh's) ----------------------
 
-constexpr unsigned kFull = 0xffffffffu;
 // forward: queries (one a warp) a block; support rows staged in shared
 // memory (up to kStageRows; more are read from global memory); rows a
 // lane loads at once in full batches
@@ -315,70 +271,6 @@ constexpr int kChunkQueries = 16;
 constexpr int kWalkUnroll = 8;
 // a walk's last, partial batch loads this many rows at once
 constexpr int kTailUnroll = 8;
-
-// The channels one lane of a warp covers in a slice of 32 x kW channels,
-// kW = 16 bytes of T, as one 16-byte Raw. Vectorized (kVec): kW
-// consecutive channels, one 16-byte load and store; needs C % kW == 0 and
-// 16-byte aligned rows. Scalar: channels lane, lane + 32, ..., coalesced
-// across the warp, any C and any alignment. Shared memory holds a row's
-// slice as 32 Raws (uint4s), lane by lane.
-template <typename T, bool kVec>
-struct LaneChannels {
-  static constexpr int kW = 16 / sizeof(T);
-  static constexpr int kSlice = 32 * kW;
-  struct alignas(16) Raw {
-    T v[kW];
-  };
-  __device__ __forceinline__ static uint4 bits(const Raw& r) {
-    return *reinterpret_cast<const uint4*>(&r);
-  }
-  __device__ __forceinline__ static Raw raw(const uint4& u) {
-    Raw r;
-    *reinterpret_cast<uint4*>(&r) = u;
-    return r;
-  }
-  int first, c;
-
-  __device__ LaneChannels(int slice, int lane, int c_)
-      : first(slice * kSlice + (kVec ? lane * kW : lane)), c(c_) {}
-  __device__ __forceinline__ int ch(int i) const {
-    return first + (kVec ? i : 32 * i);
-  }
-  __device__ __forceinline__ Raw load(const T* __restrict__ row) const {
-    Raw r;
-    if (kVec) {
-      if (first < c) r = raw(*reinterpret_cast<const uint4*>(row + first));
-    } else {
-#pragma unroll
-      for (int i = 0; i < kW; ++i)
-        r.v[i] = ch(i) < c ? row[ch(i)] : from_f32<T>(0.f);
-    }
-    return r;
-  }
-  __device__ __forceinline__ static void to_floats(const Raw& r,
-                                                   float (&x)[kW]) {
-#pragma unroll
-    for (int i = 0; i < kW; ++i) x[i] = to_f32(r.v[i]);
-  }
-  __device__ __forceinline__ static void add(float (&acc)[kW],
-                                             const Raw& r) {
-#pragma unroll
-    for (int i = 0; i < kW; ++i) acc[i] += to_f32(r.v[i]);
-  }
-  __device__ __forceinline__ void store(T* __restrict__ row,
-                                        const float (&acc)[kW]) const {
-    Raw r;
-#pragma unroll
-    for (int i = 0; i < kW; ++i) r.v[i] = from_f32<T>(acc[i]);
-    if (kVec) {
-      if (first < c) *reinterpret_cast<uint4*>(row + first) = bits(r);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kW; ++i)
-        if (ch(i) < c) row[ch(i)] = r.v[i];
-    }
-  }
-};
 
 // Adds the rows of list[t0], ..., list[min(t0 + U, n) - 1] to acc in that
 // order, their U loads (row(list entry) -> Raw) all started first. Past n it
@@ -421,7 +313,7 @@ __global__ void __launch_bounds__(kSumThreads)
     nsum_fwd_kernel(const T* __restrict__ f, const int32_t* __restrict__ idx,
                     const bool* __restrict__ mask, int nq, int ns, int c,
                     int k, int slices, T* __restrict__ out) {
-  using Lanes = LaneChannels<T, kVec>;
+  using Lanes = GroupChannels<T, kVec>;  // a whole warp a row slice
   using Raw = typename Lanes::Raw;
   __shared__ uint4 s_rows[kStaged ? kStageRows : 1][32];
   __shared__ int s_j[kSumWarps][kMaxK];  // each warp's valid slots' rows
@@ -496,7 +388,7 @@ __global__ void __launch_bounds__(kRowThreads)
                     const bool* __restrict__ mask, const T* __restrict__ dy,
                     int nq, int ns, int c, int k, int slices, int qchunk,
                     T* __restrict__ df) {
-  using Lanes = LaneChannels<T, kVec>;
+  using Lanes = GroupChannels<T, kVec>;  // a whole warp a row slice
   using Raw = typename Lanes::Raw;
   constexpr int kW = Lanes::kW;
   constexpr int kTile = kRowWarps * kRows;
@@ -606,19 +498,130 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
-// Whether the K13 kernels may take 16-byte vectors: C a multiple of the
-// vector width and every row pointer 16-byte aligned.
-template <typename T>
-bool vec_ok(int c, const void* a, const void* b) {
-  return c % (16 / sizeof(T)) == 0 &&
-         reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(b) % 16 == 0;
-}
+// ---- K6 backward: per-slot terms by query, then a gather per support row ---
 
-template <typename T>
-int slices_of(int c) {
-  constexpr int width = LaneChannels<T, true>::kSlice;
-  return (c + width - 1) / width;
+constexpr int kPrepThreads = 1024;
+constexpr int kTermUnroll = 8;  // slot rows a lane loads at once
+
+// K6 backward, launch 1. Blocks [0, B) build cloud b's reverse index
+// (reverse_index.cuh). The others, query-major, a group of kG lanes per
+// query and channel slice, write the f32 term that the twin adds at each
+// valid slot's support row:
+//   terms[q, t, c] = ds1[q, c] + (sh_hi[q, c] * [g == gmax[q, c]]
+//                                 + sh_lo[q, c] * [g == gmin[q, c]]),
+// g = g[idx[q, t], c], sh_hi = dmax / n_hi and sh_lo = dmin / n_lo
+// (share()), n_hi (n_lo) the valid slots whose g equals gmax (gmin); each
+// product and sum rounded to f32 in that grouping (the intrinsics keep nvcc
+// from contracting them). Masked slots are not written. Lanes take 8 bytes
+// of channels (kPrepBytes), so a query's five f32 rows load with its slots
+// and its first 8 slot rows right after: two round trips to memory; the
+// slot rows are read again from L1 for the terms. A group takes about
+// kPrepItems queries in turn (prep_blocks), so a block lives long enough
+// that its last queries' latency does not idle the SM for long.
+template <typename T, bool kVec, int kG, bool kSharedIndex>
+__global__ void __launch_bounds__(kPrepThreads, 1)
+    pwstats_terms_kernel(const T* __restrict__ g,
+                         const int32_t* __restrict__ idx,
+                         const bool* __restrict__ mask,
+                         const float* __restrict__ gmax,
+                         const float* __restrict__ gmin,
+                         const float* __restrict__ dmax,
+                         const float* __restrict__ dmin,
+                         const float* __restrict__ ds1, int clouds, int nq,
+                         int ns, int c, int k, int slices,
+                         int32_t* __restrict__ offsets,
+                         int32_t* __restrict__ slots,
+                         int32_t* __restrict__ raw, int* __restrict__ counters,
+                         float* __restrict__ terms) {
+  extern __shared__ int s_cnt[];
+  if (blockIdx.x < clouds) {
+    build_reverse_index<kPrepThreads, kSharedIndex>(
+        idx, mask, nq, ns, k, blockIdx.x, s_cnt, offsets, slots, raw,
+        counters);
+    return;
+  }
+  using Lanes = GroupChannels<T, kVec, kG, kPrepBytes>;
+  using Raw = typename Lanes::Raw;
+  constexpr int kW = Lanes::kW;
+  constexpr int kGroups = kPrepThreads / kG;  // queries a block at once
+  __shared__ int s_j[kGroups][kMaxK];  // valid slots' support rows
+  __shared__ int s_t[kGroups][kMaxK];  // and their slot numbers
+  const int grp = threadIdx.x / kG;
+  const long long queries = static_cast<long long>(clouds) * nq;
+  const long long total = queries * slices;  // (slice, cloud, query) items
+  const long long stride = static_cast<long long>(gridDim.x - clouds) * kGroups;
+  // block-uniform trip count: every warp takes part in each round's staging
+  for (long long item0 = static_cast<long long>(blockIdx.x - clouds) * kGroups;
+       item0 < total; item0 += stride) {
+    const long long item = item0 + grp;
+    const bool live = item < total;  // group-uniform
+    const int slice = static_cast<int>(item / queries);
+    const long long bq = item % queries;  // b * nq + q
+    const Lanes lc(slice, threadIdx.x % kG, c);
+    const T* gb = g + bq / nq * ns * c;
+    const size_t slot0 = static_cast<size_t>(bq) * k;
+    const size_t o = static_cast<size_t>(bq) * c;
+    float hi[kW], lo[kW], sh_hi[kW], sh_lo[kW], d1[kW];
+    if (live) {
+      lc.load_f32(gmax + o, hi);
+      lc.load_f32(gmin + o, lo);
+      lc.load_f32(dmax + o, sh_hi);
+      lc.load_f32(dmin + o, sh_lo);
+      lc.load_f32(ds1 + o, d1);
+    }
+    __syncwarp();  // the last round's staging is read
+    const int n = stage_group_slots<kG>(
+        idx + slot0, mask + slot0, k, live, [&](int at, int t, int j) {
+          s_j[grp][at] = j;
+          s_t[grp][at] = t;
+        });
+    __syncwarp();
+    if (!live || n == 0) continue;
+    int cnt[kW] = {};  // valid slots at the max, plus 256 x those at the min
+    for (int t0 = 0; t0 < n; t0 += kTermUnroll) {
+      Raw r[kTermUnroll];
+#pragma unroll
+      for (int u = 0; u < kTermUnroll; ++u)
+        r[u] = lc.load(gb + static_cast<size_t>(s_j[grp][min(t0 + u, n - 1)]) *
+                                c);
+#pragma unroll
+      for (int u = 0; u < kTermUnroll; ++u) {
+        if (t0 + u < n) {
+          float x[kW];
+          Lanes::to_floats(r[u], x);
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            cnt[i] += (x[i] == hi[i]) + ((x[i] == lo[i]) << 8);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      sh_hi[i] = share(sh_hi[i], cnt[i] & 255);
+      sh_lo[i] = share(sh_lo[i], cnt[i] >> 8);
+    }
+    for (int t0 = 0; t0 < n; t0 += kTermUnroll) {
+      Raw r[kTermUnroll];
+#pragma unroll
+      for (int u = 0; u < kTermUnroll; ++u)
+        r[u] = lc.load(gb + static_cast<size_t>(s_j[grp][min(t0 + u, n - 1)]) *
+                                c);
+#pragma unroll
+      for (int u = 0; u < kTermUnroll; ++u) {
+        if (t0 + u < n) {
+          float x[kW];
+          Lanes::to_floats(r[u], x);
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            const float th = __fmul_rn(sh_hi[i], x[i] == hi[i] ? 1.f : 0.f);
+            const float tl = __fmul_rn(sh_lo[i], x[i] == lo[i] ? 1.f : 0.f);
+            x[i] = __fadd_rn(d1[i], __fadd_rn(th, tl));
+          }
+          lc.store_f32(terms + (slot0 + s_t[grp][t0 + u]) * c, x);
+        }
+      }
+    }
+  }
 }
 
 template <typename T, bool kVec>
@@ -691,6 +694,78 @@ void launch_nsum_bwd(const int32_t* idx, const bool* mask, const void* dy,
     launch_nsum_bwd_as<T, false>(idx, mask, dp, b, nq, ns, c, k, op, stream);
 }
 
+// K6's backward in two launches: the index and the per-slot terms, then
+// the gather (dg from the terms, dgsq from ds2).
+template <typename T, bool kVec, int kG>
+void launch_pwstats_bwd_lanes(const T* g, const int32_t* idx,
+                              const bool* mask, const float* gmax,
+                              const float* gmin, const float* dmax,
+                              const float* dmin, const float* ds1,
+                              const float* ds2, int b, int nq, int ns, int c,
+                              int k, int32_t* offsets, int32_t* slots,
+                              int32_t* raw, int* counters, float* terms,
+                              T* dg, T* dgsq, cudaStream_t stream) {
+  static const int room =
+      dynamic_smem_room(pwstats_terms_kernel<T, kVec, kG, true>);
+  const int slices = slices_of<T, kG, kPrepBytes>(c);
+  const int blocks = b + prep_blocks(kPrepThreads / kG,
+                                      static_cast<long long>(b) * nq * slices);
+  const int smem = (ns + 1) * static_cast<int>(sizeof(int));
+  if (smem <= room)
+    pwstats_terms_kernel<T, kVec, kG, true>
+        <<<blocks, kPrepThreads, smem, stream>>>(
+            g, idx, mask, gmax, gmin, dmax, dmin, ds1, b, nq, ns, c, k,
+            slices, offsets, slots, raw, counters, terms);
+  else
+    pwstats_terms_kernel<T, kVec, kG, false>
+        <<<blocks, kPrepThreads, 0, stream>>>(
+            g, idx, mask, gmax, gmin, dmax, dmin, ds1, b, nq, ns, c, k,
+            slices, offsets, slots, raw, counters, terms);
+  launch_csr_gather<T, kVec, true>(offsets, slots, terms, ds2, b, nq, ns, c,
+                                   k, dg, dgsq, stream);
+}
+
+template <typename T, bool kVec>
+void launch_pwstats_bwd_as(const T* g, const int32_t* idx, const bool* mask,
+                           const float* gmax, const float* gmin,
+                           const float* dmax, const float* dmin,
+                           const float* ds1, const float* ds2, int b, int nq,
+                           int ns, int c, int k, int32_t* offsets,
+                           int32_t* slots, int32_t* raw, int* counters,
+                           float* terms, T* dg, T* dgsq,
+                           cudaStream_t stream) {
+  if (prep_lanes<T, kPrepBytes>(c) == 16)
+    launch_pwstats_bwd_lanes<T, kVec, 16>(
+        g, idx, mask, gmax, gmin, dmax, dmin, ds1, ds2, b, nq, ns, c, k,
+        offsets, slots, raw, counters, terms, dg, dgsq, stream);
+  else
+    launch_pwstats_bwd_lanes<T, kVec, 32>(
+        g, idx, mask, gmax, gmin, dmax, dmin, ds1, ds2, b, nq, ns, c, k,
+        offsets, slots, raw, counters, terms, dg, dgsq, stream);
+}
+
+template <typename T>
+void launch_pwstats_bwd(const void* g, const int32_t* idx, const bool* mask,
+                        const float* gmax, const float* gmin,
+                        const float* dmax, const float* dmin,
+                        const float* ds1, const float* ds2, int b, int nq,
+                        int ns, int c, int k, int32_t* offsets,
+                        int32_t* slots, int32_t* raw, int* counters,
+                        float* terms, void* dg, void* dgsq,
+                        cudaStream_t stream) {
+  const T* gp = static_cast<const T*>(g);
+  T* dgp = static_cast<T*>(dg);
+  T* dqp = static_cast<T*>(dgsq);
+  if (vec_ok<T>(c, g, gmax, gmin, dmax, dmin, ds1, ds2, terms, dg, dgsq))
+    launch_pwstats_bwd_as<T, true>(gp, idx, mask, gmax, gmin, dmax, dmin,
+                                   ds1, ds2, b, nq, ns, c, k, offsets, slots,
+                                   raw, counters, terms, dgp, dqp, stream);
+  else
+    launch_pwstats_bwd_as<T, false>(gp, idx, mask, gmax, gmin, dmax, dmin,
+                                    ds1, ds2, b, nq, ns, c, k, offsets, slots,
+                                    raw, counters, terms, dgp, dqp, stream);
+}
+
 bool bad_args(int b, int ns, int c, int k) {
   return b < 1 || b > 65535 || ns < 1 || c < 1 || k < 1 || k > kMaxK;
 }
@@ -720,27 +795,30 @@ extern "C" int cl3d_pwmlp_stats(const void* g, const void* gsq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dg32 and dgsq32 must be zeroed [B, Ns, C] float32; gmax/gmin are this
-// op's forward outputs for g, and the cotangents are f32 [B, Nq, C].
-extern "C" int cl3d_pwmlp_stats_bwd(const void* g, const int32_t* idx,
-                                    const bool* mask, const float* gmax,
-                                    const float* gmin, const float* dmax,
-                                    const float* dmin, const float* ds1,
-                                    const float* ds2, int b, int nq, int ns,
-                                    int c, int k, int is_bf16, float* dg32,
-                                    float* dgsq32, cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+// Outputs: dg, dgsq [B, Ns, C] in g's dtype, written in full (no zeroing
+// needed). gmax/gmin are this op's forward outputs for g, the cotangents
+// f32 [B, Nq, C]. Scratch, none zeroed: offsets [B, Ns + 1], slots and raw
+// [B, Nq * K] (the reverse index; offsets/slots hold it afterwards),
+// counters [B, Ns + 1] (used where Ns outgrows shared memory), terms
+// [B, Nq * K, C] float32. Two launches.
+extern "C" int cl3d_pwmlp_stats_bwd(
+    const void* g, const int32_t* idx, const bool* mask, const float* gmax,
+    const float* gmin, const float* dmax, const float* dmin, const float* ds1,
+    const float* ds2, int b, int nq, int ns, int c, int k, int is_bf16,
+    int32_t* offsets, int32_t* slots, int32_t* raw, int* counters,
+    float* terms, void* dg, void* dgsq, cudaStream_t stream) {
+  if (bad_args(b, ns, c, k) || static_cast<long long>(nq) * k > INT_MAX - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    pwstats_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(g), idx, mask, gmax, gmin, dmax,
-            dmin, ds1, ds2, nq, ns, c, k, dg32, dgsq32);
-  } else {
-    pwstats_bwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(g), idx, mask, gmax, gmin, dmax, dmin, ds1,
-        ds2, nq, ns, c, k, dg32, dgsq32);
-  }
+  if (is_bf16)
+    launch_pwstats_bwd<__nv_bfloat16>(g, idx, mask, gmax, gmin, dmax, dmin,
+                                      ds1, ds2, b, nq, ns, c, k, offsets,
+                                      slots, raw, counters, terms, dg, dgsq,
+                                      stream);
+  else
+    launch_pwstats_bwd<float>(g, idx, mask, gmax, gmin, dmax, dmin, ds1, ds2,
+                              b, nq, ns, c, k, offsets, slots, raw, counters,
+                              terms, dg, dgsq, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

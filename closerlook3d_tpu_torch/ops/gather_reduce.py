@@ -56,6 +56,7 @@ from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     group_features, masked_max, masked_min, masked_sum, scatter_to_support)
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
+from closerlook3d_tpu_torch.ops.reverse_index import index_buffers
 
 SOURCE = "gather_reduce"
 # pwmlp_minmax_stats takes the K13 + K7 route up to this many queries in
@@ -223,21 +224,27 @@ pwmlp_minmax_stats_cuda.launches = 0
 def pwmlp_minmax_stats_bwd_cuda(g, idx, mask, gmax, gmin, dmax, dmin, ds1,
                                 ds2):
     """Launch the backward of K6: (dg, dgsq), [B, Ns, C] in g's dtype, from
-    the forward's gmax/gmin for ``g`` and the four f32 cotangents. Raises on
-    anything it does not take."""
+    the forward's gmax/gmin for ``g`` and the four f32 cotangents. Two
+    device kernels: the reverse index of idx/mask (``ops/reverse_index.py``)
+    beside the per-slot terms by query, then a gather per support row that
+    writes each row once; equal to ``pwmlp_minmax_stats_bwd_plain`` on CPU
+    copies to the bit. Raises on anything it does not take."""
     what = "pwmlp_minmax_stats_bwd_cuda"
     f32 = torch.float32
     b, nq, ns, c, k = _check_call(
         what, g, idx, mask,
         query=[(t, f32) for t in (gmax, gmin, dmax, dmin, ds1, ds2)])
-    dg, dgsq = (torch.zeros((b, ns, c), dtype=f32, device=g.device)
-                for _ in range(2))
-    if b * nq > 0:
-        _launch("cl3d_pwmlp_stats_bwd", what,
-                (g, idx, mask, gmax, gmin, dmax, dmin, ds1, ds2),
-                (b, nq, ns, c, k), g.dtype == torch.bfloat16, (dg, dgsq), g)
-        pwmlp_minmax_stats_bwd_cuda.launches += 1
-    return dg.to(g.dtype), dgsq.to(g.dtype)
+    if b * nq == 0:
+        return g.new_zeros(g.shape), g.new_zeros(g.shape)
+    index = index_buffers(b, nq, ns, k, g.device)
+    terms = torch.empty((b, nq, k, c), dtype=f32, device=g.device)
+    dg, dgsq = torch.empty_like(g), torch.empty_like(g)
+    _launch("cl3d_pwmlp_stats_bwd", what,
+            (g, idx, mask, gmax, gmin, dmax, dmin, ds1, ds2),
+            (b, nq, ns, c, k), g.dtype == torch.bfloat16,
+            (*index, terms, dg, dgsq), g)
+    pwmlp_minmax_stats_bwd_cuda.launches += 1
+    return dg, dgsq
 
 
 pwmlp_minmax_stats_bwd_cuda.launches = 0

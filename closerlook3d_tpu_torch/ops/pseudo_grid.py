@@ -35,6 +35,7 @@ from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     group_features, group_xyz, scatter_to_support)
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
+from closerlook3d_tpu_torch.ops.reverse_index import index_buffers
 
 INFLUENCE_MODES = ("linear", "constant", "gaussian")  # kernel's enum order
 MAX_KERNEL_POINTS = 64  # csrc/pseudo_grid.cu kMaxKp
@@ -99,8 +100,9 @@ def pseudo_grid_bwd_plain(query_xyz, support_xyz, idx, mask, kp, dy,
     """Plain twin of the backward kernel: d out / d features, [B, Ns, C].
 
     Each valid slot k adds Σ_p w[k, p] dy[p*C + c] to its support row; the
-    products and the scatter (``index_add_``) are f32, rounded once to
-    dy's dtype, as the kernel does.
+    products and the scatter (``index_add_``, in (q, k) order) are f32,
+    rounded once to dy's dtype, as the kernel's gather does (which sums
+    over p in another order than the matmul).
     """
     kpn = kp.shape[0]
     b, nq, _ = dy.shape
@@ -183,7 +185,10 @@ pseudo_grid_cuda.launches = 0
 def pseudo_grid_bwd_cuda(query_xyz, support_xyz, idx, mask, kp, dy,
                          radius: float, extent: float, mode: str):
     """Launch the backward of ``csrc/pseudo_grid.cu``: d out / d features
-    [B, Ns, C] in dy's dtype. Raises on anything it does not take."""
+    [B, Ns, C] in dy's dtype. Two device kernels: the reverse index of
+    idx/mask (``ops/reverse_index.py``) beside each valid slot's sum over
+    the kernel points by query, then a gather per support row that writes
+    the row once. Raises on anything it does not take."""
     what = "pseudo_grid_bwd_cuda"
     b, nq, ns, k, kpn = _check(what, query_xyz, support_xyz, dy, idx, mask,
                                kp, mode)
@@ -191,23 +196,26 @@ def pseudo_grid_bwd_cuda(query_xyz, support_xyz, idx, mask, kp, dy,
                     and dy.shape[2] % kpn == 0,
                     f"{what}: dy must be [B, Nq, Kp*C]")
     c = dy.shape[2] // kpn
-    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
     if b * nq == 0:
-        return df.to(dy.dtype)
+        return torch.zeros((b, ns, c), dtype=dy.dtype, device=dy.device)
+    index = index_buffers(b, nq, ns, k, dy.device)
+    sums = torch.empty((b, nq, k, c), dtype=torch.float32, device=dy.device)
+    df = torch.empty((b, ns, c), dtype=dy.dtype, device=dy.device)
     lib, fn = kernels.entry(
         "pseudo_grid", "cl3d_pseudo_grid_bwd",
         [kernels.P] * 6 + [kernels.I] * 6 + [kernels.F] * 2
-        + [kernels.I] * 2 + [kernels.P] * 2)
+        + [kernels.I] * 2 + [kernels.P] * 7)
     with torch.cuda.device(dy.device):
         err = fn(query_xyz.data_ptr(), support_xyz.data_ptr(),
                  idx.data_ptr(), mask.data_ptr(), kp.data_ptr(),
                  dy.data_ptr(), b, nq, ns, c, k, kpn, _inv_r(radius),
                  influence_coef(extent, mode), INFLUENCE_MODES.index(mode),
-                 int(dy.dtype == torch.bfloat16), df.data_ptr(),
-                 kernels.stream_of(df))
+                 int(dy.dtype == torch.bfloat16),
+                 *[t.data_ptr() for t in index], sums.data_ptr(),
+                 df.data_ptr(), kernels.stream_of(df))
     kernels.check(lib, err, what)
     pseudo_grid_bwd_cuda.launches += 1
-    return df.to(dy.dtype)
+    return df
 
 
 pseudo_grid_bwd_cuda.launches = 0

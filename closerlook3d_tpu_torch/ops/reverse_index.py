@@ -1,0 +1,97 @@
+"""Reverse (CSR) neighbor index: from support rows to the slots naming them.
+
+For idx, mask [B, Nq, K] (slot t of query q names support row idx[q, t]
+where mask[q, t]) and Ns support rows, the index holds per cloud b
+
+    offsets [B, Ns + 1] int32: row s holds entries offsets[b, s] ..
+                               offsets[b, s + 1] - 1;
+    slots   [B, Nq * K] int32: slots[b, e] = q * K + t of those entries,
+                               each row's in ascending (q, t) order;
+                               entries from offsets[b, Ns] on are unused.
+
+Masked slots, and valid ones whose index lies outside [0, Ns), are left
+out. The backward kernels of the point-wise MLP's statistics (K6,
+``ops/gather_reduce.py``) and of the pseudo-grid (K10,
+``ops/pseudo_grid.py``) build it in the first of their two launches
+(``csrc/reverse_index.cuh``, in buffers from ``index_buffers``), so that
+a group of lanes owning a support row reads that row's terms in (q, t)
+order, the order of their plain twins' ``index_add_``. No TPU kernel
+corresponds to it (the Pallas backwards scatter by one-hot matmuls).
+``reverse_index_cuda`` launches it alone (``csrc/reverse_index.cu``),
+which the card tests and ``chip_smoke.py`` hold to
+``reverse_index_plain``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from closerlook3d_tpu_torch.ops import kernels
+
+
+def reverse_index_plain(idx, mask, ns: int):
+    """(offsets [B, Ns + 1], slots [B, Nq * K]) int32, as the module says;
+    unused entries of ``slots`` are -1."""
+    b, nq, k = idx.shape
+    flat = idx.reshape(b, nq * k).long()
+    valid = mask.reshape(b, nq * k) & (flat >= 0) & (flat < ns)
+    cloud, slot = torch.nonzero(valid, as_tuple=True)  # (b, q, t) order
+    key = cloud * ns + flat[cloud, slot]
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=b * ns).reshape(b, ns)
+    offsets = torch.zeros((b, ns + 1), dtype=torch.int64, device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts, dim=1)
+    first = torch.cumsum(offsets[:, -1], 0) - offsets[:, -1]  # per cloud
+    cloud = cloud[order]
+    place = torch.arange(len(order), device=idx.device) - first[cloud]
+    slots = torch.full((b, nq * k), -1, dtype=torch.int32, device=idx.device)
+    slots[cloud, place] = slot[order].to(torch.int32)
+    return offsets.to(torch.int32), slots
+
+
+def index_buffers(b: int, nq: int, ns: int, k: int, device):
+    """Uninitialized int32 buffers of a reverse index, one allocation:
+    (offsets [B, Ns + 1], slots [B, Nq * K], and the kernel's scratch: the
+    unsorted slots [B * Nq * K] and the global counters [B * (Ns + 1)],
+    used where Ns outgrows shared memory)."""
+    rows, n = ns + 1, nq * k
+    buf = torch.empty(b * (2 * rows + 2 * n), dtype=torch.int32,
+                      device=device)
+    return (buf[:b * rows].view(b, rows),
+            buf[b * rows:b * (rows + n)].view(b, n),
+            buf[b * (rows + n):b * (rows + 2 * n)],
+            buf[b * (rows + 2 * n):])
+
+
+def reverse_index_cuda(idx, mask, ns: int):
+    """Launch ``csrc/reverse_index.cu``: (offsets, slots) as the module
+    says; unused entries of ``slots`` are left unwritten. The counters live
+    in shared memory where Ns allows (every config of the repo: at most
+    15000 rows, 60 KB), else in a global scratch. Raises on anything the
+    kernel does not take."""
+    what = "reverse_index_cuda"
+    b, nq, k = idx.shape
+    kernels.require_cuda(what, idx=idx, mask=mask)
+    kernels.require(idx.dtype == torch.int32 and mask.dtype == torch.bool,
+                    f"{what}: idx must be int32 and mask bool")
+    kernels.require(mask.shape == idx.shape,
+                    f"{what}: idx and mask must both be [B, Nq, K]")
+    kernels.require(1 <= b <= 65535 and ns >= 1 and k >= 1
+                    and nq * k < 2 ** 31 - 1,
+                    f"{what}: need 1 <= B <= 65535, Ns >= 1, K >= 1 and "
+                    f"Nq * K < 2^31 - 1")
+    offsets, slots, raw, counters = index_buffers(b, nq, ns, k, idx.device)
+    lib, fn = kernels.entry(
+        "reverse_index", "cl3d_reverse_index",
+        [kernels.P] * 2 + [kernels.I] * 4 + [kernels.P] * 5)
+    with torch.cuda.device(idx.device):
+        err = fn(idx.data_ptr(), mask.data_ptr(), b, nq, ns, k,
+                 offsets.data_ptr(), slots.data_ptr(),
+                 raw.data_ptr(), counters.data_ptr(), kernels.stream_of(idx))
+    kernels.check(lib, err, what)
+    reverse_index_cuda.launches += 1
+    return offsets, slots
+
+
+reverse_index_cuda.launches = 0
+

@@ -57,6 +57,8 @@ from closerlook3d_tpu_torch.ops.neighbors import (
 from closerlook3d_tpu_torch.ops.pseudo_grid import (
     pseudo_grid_bwd_cuda, pseudo_grid_bwd_plain, pseudo_grid_cuda,
     pseudo_grid_plain)
+from closerlook3d_tpu_torch.ops.reverse_index import (
+    reverse_index_cuda, reverse_index_plain)
 from closerlook3d_tpu_torch.ops.sampling import (
     furthest_point_sample_cuda, furthest_point_sample_plain, grid_subsample)
 
@@ -899,6 +901,199 @@ def test_pseudo_grid_wrappers_refuse():
         pseudo_grid_bwd_cuda(q, s, idx, nmask, kp,
                              torch.randn((3, 20, 16), device="cuda"), 0.4,
                              extent, "linear")
+
+
+# ---- the reverse neighbor index; the backward gathers of K6 and K10 ----------
+
+def _gather_case(name, seed=60):
+    """(q, s, idx, nmask) of a named neighborhood case, 3 clouds (the last
+    all-masked): "ball" (ball-query neighborhoods, Nq = Ns), "ties" (grid
+    clouds: duplicated points, exact ties), "strided" (60 queries over 500
+    supports), "masked_queries" (cloud 0's even queries all masked),
+    "unreached" (20 queries over 1000 supports: most rows unnamed) and
+    "one_row" (every valid slot names support row 3: a row of hundreds)."""
+    nq, ns, k = {"ball": (257, 257, 26), "ties": (200, 200, 20),
+                 "strided": (60, 500, 32), "masked_queries": (120, 120, 16),
+                 "unreached": (20, 1000, 16), "one_row": (40, 50, 24)}[name]
+    grid = name == "ties"
+    s, smask = _cloud(seed, 3, ns, masked_frac=0.2, grid=grid)
+    q, qmask = (s, smask) if nq == ns else _cloud(seed + 1, 3, nq,
+                                                  masked_frac=0.1, grid=grid)
+    idx, nmask = ball_query_cuda(q, s, 0.5 if grid else 0.4, k, qmask, smask)
+    if name == "masked_queries":
+        nmask[0, ::2] = False
+    if name == "one_row":
+        idx = torch.full_like(idx, 3)
+    return q, s, idx, nmask
+
+
+GATHER_CASES = ["ball", "ties", "strided", "masked_queries", "unreached",
+                "one_row"]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _index_equal(idx, nmask, ns):
+    """The reverse index kernel equal to its plain version: offsets, and
+    each cloud's valid entries (the kernel sorts each row; the rest of
+    slots is unused)."""
+    off, slots = reverse_index_cuda(idx, nmask, ns)
+    poff, pslots = reverse_index_plain(idx, nmask, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(off, poff)
+    for b in range(idx.shape[0]):
+        n = int(off[b, -1])
+        assert n == int(nmask[b].sum())
+        assert torch.equal(slots[b, :n], pslots[b, :n])
+
+
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_reverse_index_kernel_equals_plain(name):
+    _, s, idx, nmask = _gather_case(name)
+    _index_equal(idx, nmask, s.shape[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 7, 72, 300, 1152])
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_pwmlp_stats_bwd_gather_equals_twin_to_the_bit(name, c, dtype):
+    """K6b (reverse index, tie shares, a gather per support row) equal to
+    ``pwmlp_minmax_stats_bwd_plain`` run on CPU copies, bit for bit with
+    zero signs (both add in (q, t) order in f32 from +0 and round once;
+    the twin's masked slots add +-0, which changes no such sum), and the
+    same bits on a second launch. Grid values give ties."""
+    _, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    g32 = torch.round(2 * torch.randn((3, s.shape[1], c), generator=gen,
+                                      device="cuda")) / 2
+    g, gsq = g32.to(dtype), (g32 * g32).to(dtype)
+    cot = [torch.randn((3, idx.shape[1], c), generator=gen, device="cuda")
+           for _ in range(4)]
+    gmax, gmin, _, _ = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx,
+                                                             nmask)
+    args = (g, idx, nmask, gmax, gmin, *cot)
+    got = gather_reduce.pwmlp_minmax_stats_bwd_cuda(*args)
+    again = gather_reduce.pwmlp_minmax_stats_bwd_cuda(*args)
+    twin = gather_reduce.pwmlp_minmax_stats_bwd_plain(
+        *(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    for o, o2, r in zip(got, again, twin):
+        assert o.dtype == dtype and o.shape == g.shape
+        assert torch.equal(_bits(o.cpu()), _bits(r))
+        assert torch.equal(_bits(o), _bits(o2))
+        assert (o[-1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["linear", "gaussian"])
+@pytest.mark.parametrize("c,kpn", [(1, 15), (7, 15), (72, 15), (300, 20),
+                                   (1152, 15)])
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_pseudo_grid_bwd_gather_matches_twin(name, c, kpn, mode, dtype):
+    """K10b (reverse index, a gather per support row) within the
+    tolerance of ``pseudo_grid_bwd_plain`` (the same f32 slot terms; the
+    sum over kernel points in fma order against a matmul's) and of
+    autograd of the plain forward, and the same bits on a second
+    launch."""
+    q, s, idx, nmask = _gather_case(name)
+    kp, extent = _kernel_points(kpn)
+    gen = torch.Generator(device="cuda").manual_seed(62)
+    dy = torch.randn((3, idx.shape[1], kpn * c), generator=gen,
+                     device="cuda").to(dtype)
+    args = (q, s, idx, nmask, kp, dy, 0.4, extent, mode)
+    got = pseudo_grid_bwd_cuda(*args)
+    again = pseudo_grid_bwd_cuda(*args)
+    twin = pseudo_grid_bwd_plain(*args)
+    assert got.dtype == dtype and got.shape == (3, s.shape[1], c)
+    torch.testing.assert_close(got.float(), twin.float(), **_pgrid_tol(dtype))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()
+    f = torch.zeros((3, s.shape[1], c), device="cuda", requires_grad=True)
+    (auto,) = torch.autograd.grad(pseudo_grid_plain(
+        q, s, f, idx, nmask, kp, 0.4, extent, mode), f, dy.float())
+    torch.testing.assert_close(got.float(), auto, **_pgrid_tol(dtype))
+
+
+_BWD_OPS = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from closerlook3d_tpu_torch.ops import gather_reduce, pseudo_grid
+from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
+g = torch.Generator(device="cuda").manual_seed(0)
+x = torch.rand((4, 2000, 3), generator=g, device="cuda")
+m = torch.rand((4, 2000), generator=g, device="cuda") > 0.1
+idx, nmask = ball_query_cuda(x, x, 0.1, 26, m, m)
+f = torch.randn((4, 2000, 72), generator=g, device="cuda").bfloat16()
+gmax, gmin, _, _ = gather_reduce.pwmlp_minmax_stats_cuda(f, f, idx, nmask)
+cot = [torch.randn((4, 2000, 72), generator=g, device="cuda")
+       for _ in range(4)]
+kp = torch.rand((15, 3), generator=g, device="cuda")
+dy = torch.randn((4, 2000, 15 * 72), generator=g, device="cuda").bfloat16()
+calls = {"pwmlp_stats_bwd": lambda: gather_reduce.pwmlp_minmax_stats_bwd_cuda(
+             f, idx, nmask, gmax, gmin, *cot),
+         "pseudo_grid_bwd": lambda: pseudo_grid.pseudo_grid_bwd_cuda(
+             x, x, idx, nmask, kp, dy, 0.1, 0.4, "linear")}
+fn = calls[__import__("sys").argv[1]]
+fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for _ in range(4):
+        fn()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+@pytest.mark.parametrize("kernel", ["pwmlp_stats_bwd", "pseudo_grid_bwd"])
+def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
+    """K6b and K10b each run two device kernels once a call (the reverse
+    index beside the per-slot terms, then the gather) and nothing else on
+    the device: no fill, no cast. Profiled in a process of its own (see
+    ``test_ball_query_device_ops_run_once_a_call``)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
+                           if p)
+    out = subprocess.run([sys.executable, "-c", _BWD_OPS, kernel], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=path),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(set(names)) == 2, names
+    assert all(names.count(n) == 4 for n in names), names
+
+
+def test_backward_gathers_count_in_global_memory_past_shared_memory():
+    """Ns = 60000 outgrows the shared memory of the index's block, whose
+    counters then live in global memory: the index alone still equals its
+    plain version, K6b its twin on CPU copies to the bit, K10b its twin
+    within tolerance."""
+    s, smask = _cloud(63, 2, 60000)
+    q, qmask = _cloud(64, 2, 64)
+    idx, nmask = ball_query_cuda(q, s, 0.2, 16, qmask, smask)
+    _index_equal(idx, nmask, 60000)
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    g = torch.round(2 * torch.randn((2, 60000, 8), generator=gen,
+                                    device="cuda")) / 2
+    cot = [torch.randn((2, 64, 8), generator=gen, device="cuda")
+           for _ in range(4)]
+    gmax, gmin, _, _ = gather_reduce.pwmlp_minmax_stats_cuda(g, g * g, idx,
+                                                             nmask)
+    args = (g, idx, nmask, gmax, gmin, *cot)
+    got = gather_reduce.pwmlp_minmax_stats_bwd_cuda(*args)
+    twin = gather_reduce.pwmlp_minmax_stats_bwd_plain(
+        *(a.cpu() for a in args))
+    for o, r in zip(got, twin):
+        assert torch.equal(_bits(o.cpu()), _bits(r))
+    kp, extent = _kernel_points(15)
+    dy = torch.randn((2, 64, 15 * 8), generator=gen, device="cuda")
+    pargs = (q, s, idx, nmask, kp, dy, 0.2, extent, "linear")
+    torch.testing.assert_close(pseudo_grid_bwd_cuda(*pargs),
+                               pseudo_grid_bwd_plain(*pargs),
+                               **_pgrid_tol(torch.float32))
 
 
 @pytest.mark.parametrize("nq,ns,k,grid", [

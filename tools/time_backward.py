@@ -1,0 +1,222 @@
+"""The backward kernels of the point-wise MLP's statistics (K6b,
+``pwmlp_minmax_stats_bwd_cuda``) and of the pseudo-grid (K10b,
+``pseudo_grid_bwd_cuda``): device time per call and per train step, and
+each train config's device busy time a step, on the card; optionally
+against the same readings of another checkout, taken in turns.
+
+    python3 tools/time_backward.py [--parent DIR] [--reps 20]
+
+Needs a CUDA card and ``nvcc``. Each reading runs in a process of its
+own that imports ``closerlook3d_tpu_torch`` from one checkout (this one,
+or ``DIR``) and builds that checkout's kernels from its own sources, so
+every C entry is called by its own wrapper; the helpers come from this
+checkout's ``chip_smoke.py`` and ``tools/time_ball_query.py``. A reading
+holds:
+
+* K6b at every call of the ModelNet40 point-wise MLP train step and at
+  the K6 calls of ``seg-train:shapenetpart_pwmlp`` (8 clouds; its last
+  stage takes the K13 + K7 route), K10b at every call of the ModelNet40
+  pseudo-grid train step: bf16, inputs from three seeded batches as
+  ``chip_smoke.py`` makes them, each call first held to its plain twin
+  run on the card, then timed by ``chip_smoke._device_time`` (the
+  profiler's mean per device op, summed over the call's ops: the reverse
+  index, fills, casts and kernels) and by CUDA events over eager
+  launches, beside its bound;
+* each train config of ``chip_smoke.py`` (the five ModelNet40 configs
+  and the two segmentation ones): 4 bf16 steps on one batch, then 3
+  under torch.profiler; device busy ms a step (union of device op
+  intervals, user annotations out) and each device op's ms a step.
+
+Without ``--parent`` one reading of this checkout is taken. With it the
+readings go parent, this, this, parent, and the summary gives each
+checkout's mean of two: per call, per step, and per config the busy time
+beside the backward kernels' saving (per-call device times times calls a
+step). The card's name and power limit are printed first; everything
+goes to ``chiprun_out/time_backward.json``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import chip_smoke  # noqa: E402  (imports no part of the port at load)
+import time_ball_query  # noqa: E402
+
+# (step, kernel) pairs timed call by call; the step names a config of
+# chip_smoke.py and the kernel its kernels line's name
+TIMED = (("pwmlp", "pwmlp_stats_bwd"), ("pgrid", "pseudo_grid_bwd"),
+         ("shapenetpart_pwmlp", "pwmlp_stats_bwd"))
+
+
+def _cases(step: str, kernel: str, gen) -> list:
+    """``chip_smoke._kernel_cases`` rows of ``kernel`` at the calls of
+    ``step``: (call, per step, kernel fn, plain fn, inputs per set,
+    (bytes, flops))."""
+    import torch
+
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+
+    dev = torch.device(chip_smoke.DEVICE)
+    calls = []
+    if step in chip_smoke.TRAIN_KINDS:
+        tcfg = chip_smoke.train_config(step)
+        for r in range(3):
+            b = chip_smoke.make_batch(chip_smoke.SEED + 600 + r,
+                                      batch=tcfg.batch_size,
+                                      points=tcfg.num_points)
+            calls.append(chip_smoke.path_calls(
+                tcfg, torch.from_numpy(b["xyz"]).to(dev),
+                torch.from_numpy(b["mask"]).to(dev)))
+        kind = step
+    else:  # the K6 calls of a segmentation step (not on the K13 route)
+        tcfg = chip_smoke.seg_train_config(step)
+        for r in range(3):
+            b = chip_smoke.seg_batch(tcfg, chip_smoke.SEED + 1400 + r)
+            with torch.no_grad():
+                g = compute_geometry(tcfg, torch.from_numpy(b["xyz"]).to(dev),
+                                     torch.from_numpy(b["mask"]).to(dev))
+            pp = chip_smoke.seg_calls(tcfg, g)[1]
+            k13 = {c[0] for c in chip_smoke._k13_calls(pp)}
+            calls.append((None, None, [c for c in pp if c[0] not in k13]))
+        kind = chip_smoke.seg_train_kind(step)
+    return chip_smoke._kernel_cases(tcfg, calls, gen, kind)[kernel]
+
+
+def _tol(kernel: str, dtype):
+    return (chip_smoke._pgrid_tol(dtype) if kernel == "pseudo_grid_bwd"
+            else chip_smoke._pwmlp_bwd_tol(dtype))
+
+
+def time_calls(step: str, kernel: str, reps: int) -> dict:
+    """Each call of ``kernel`` in ``step``: held to its twin on the card,
+    then its device time (and ops) and events time; per-step sums."""
+    import torch
+
+    gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(
+        chip_smoke.SEED + 4)
+    rows = []
+    for name, count, fn, plain, ins, (nbytes, flops) in _cases(step, kernel,
+                                                               gen):
+        got, ref = fn(*ins[0]), plain(*ins[0])
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       **_tol(kernel, a.dtype))
+        per_op = {}
+        ms, ops = chip_smoke._device_time(fn, ins, reps, per_op)
+        bound_ms, bound_by = chip_smoke._bound(nbytes, flops)
+        rows.append({"call": name, "per_step": count, "device_ms": ms,
+                     "device_ops_per_call": ops, "device_ms_by_op": per_op,
+                     "stream_ms": chip_smoke._time(fn, ins, reps),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "flops": flops})
+        chip_smoke.log("backward-timing", f"{step} {kernel} {name} x{count}: "
+                       f"device {ms:.5f} ms in {ops} ops ("
+                       + ", ".join(f"{chip_smoke._op_name(n)} {v:.5f}"
+                                   for n, v in per_op.items())
+                       + f"); events {rows[-1]['stream_ms']:.4f} ms; bound "
+                       f"{bound_ms:.5f} ms ({bound_by})")
+    tot = {k: sum(r[k] * r["per_step"] for r in rows)
+           for k in ("device_ms", "stream_ms", "bound_ms")}
+    chip_smoke.log("backward-timing", f"{step} {kernel} per step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in tot.items()))
+    return {"calls": rows, **tot}
+
+
+def reading(tree: str, reps: int) -> dict:
+    """One reading of checkout ``tree`` (see the module's docstring)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    import closerlook3d_tpu_torch
+    from closerlook3d_tpu_torch.ops import kernels
+
+    pkg = os.path.dirname(os.path.abspath(closerlook3d_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(tree):
+        raise AssertionError(f"imported the port from {pkg}, not {tree}")
+    kernels.build_all(n[:-3] for n in os.listdir(kernels.CSRC)
+                      if n.endswith(".cu"))
+    out = {"tree": tree, "calls": {}, "steps": {}}
+    for step, kernel in TIMED:
+        out["calls"][f"{step}:{kernel}"] = time_calls(step, kernel, reps)
+        torch.cuda.empty_cache()
+    for name in chip_smoke.TRAIN_KINDS + chip_smoke.SEG_TRAIN_NAMES:
+        out["steps"][name] = time_ball_query.step_profile(name, set())
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mean(xs):
+    return sum(xs) / len(xs)
+
+
+def compare(parent: list, this: list) -> dict:
+    """Each checkout's mean of its readings, and what changed."""
+    out = {"calls": {}, "steps": {}}
+    saving = {}  # config -> device ms a step the backward kernels saved
+    for key, t in this[0]["calls"].items():
+        rows = []
+        for i, row in enumerate(t["calls"]):
+            r = {"call": row["call"], "per_step": row["per_step"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+            for k in ("device_ms", "stream_ms", "device_ops_per_call"):
+                r["parent_" + k] = _mean([p["calls"][key]["calls"][i][k]
+                                          for p in parent])
+                r[k] = _mean([p["calls"][key]["calls"][i][k] for p in this])
+            rows.append(r)
+            chip_smoke.log("compare", f"{key} {r['call']}: device "
+                           f"{r['device_ms']:.5f} ms in "
+                           f"{r['device_ops_per_call']:g} ops, parent "
+                           f"{r['parent_device_ms']:.5f} ms in "
+                           f"{r['parent_device_ops_per_call']:g}; bound "
+                           f"{r['bound_ms']:.5f}")
+        tot = {k: sum(r[k] * r["per_step"] for r in rows)
+               for k in ("device_ms", "parent_device_ms", "stream_ms",
+                         "parent_stream_ms", "bound_ms")}
+        out["calls"][key] = {"calls": rows, **tot}
+        step = key.split(":")[0]
+        saving[step] = (saving.get(step, 0.0) + tot["parent_device_ms"]
+                        - tot["device_ms"])
+        chip_smoke.log("compare", f"{key} per step: device "
+                       f"{tot['device_ms']:.5f} ms, parent "
+                       f"{tot['parent_device_ms']:.5f} ms, bound "
+                       f"{tot['bound_ms']:.5f} ms")
+    for name in this[0]["steps"]:
+        row = {"parent_busy_ms": _mean([r["steps"][name]["busy_ms"]
+                                        for r in parent]),
+               "busy_ms": _mean([r["steps"][name]["busy_ms"] for r in this]),
+               "saving_ms": saving.get(name, 0.0)}
+        row["fall_ms"] = row["parent_busy_ms"] - row["busy_ms"]
+        row["fall_less_saving_ms"] = row["fall_ms"] - row["saving_ms"]
+        names = set()
+        for r in parent + this:
+            names |= set(r["steps"][name]["ops_ms"])
+        delta = {op: _mean([r["steps"][name]["ops_ms"].get(op, 0.0)
+                            for r in this])
+                 - _mean([r["steps"][name]["ops_ms"].get(op, 0.0)
+                          for r in parent]) for op in names}
+        order = sorted(delta, key=delta.get)
+        row["fell_most"] = [(op[:90], delta[op]) for op in order[:4]]
+        row["rose_most"] = [(op[:90], delta[op]) for op in order[::-1][:4]]
+        out["steps"][name] = row
+        chip_smoke.log(
+            "compare", f"{name}: busy {row['busy_ms']:.3f} ms a step, parent "
+            f"{row['parent_busy_ms']:.3f}, fall {row['fall_ms']:+.4f}, "
+            f"backward saving {row['saving_ms']:.4f}; rose most "
+            + "; ".join(f"{op} {d:+.4f}" for op, d in row["rose_most"]))
+    return out
+
+
+def main() -> int:
+    return time_ball_query.tool_main(__file__, __doc__, reading, compare,
+                                     "time_backward")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

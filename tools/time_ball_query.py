@@ -43,7 +43,6 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402  (imports no part of the port at load)
 
-OUT = os.path.join(REPO, "chiprun_out", "time_ball_query")
 
 
 def _setup(name: str):
@@ -197,43 +196,61 @@ def _bq_op_names(readings) -> set:
             for op in c["device_ms_by_op"]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def readings_in_turns(script: str, parent, reps: int, out_dir: str):
+    """The readings of a ``--parent`` timing tool (``script``, run as
+    ``script --reading tree:path`` in a process each): this checkout
+    once, or with ``parent`` the order parent, this, this, parent.
+    Returns {"parent": [...], "this": [...]} of the readings' records."""
+    os.makedirs(out_dir, exist_ok=True)
+    order = [("this", REPO)]
+    if parent:
+        parent = os.path.abspath(parent)
+        order = [("parent", parent), ("this", REPO), ("this", REPO),
+                 ("parent", parent)]
+    readings = {"parent": [], "this": []}
+    for i, (label, tree) in enumerate(order):
+        path = os.path.join(out_dir, f"{i}-{label}.json")
+        chip_smoke.log("reading", f"{i}: {label} ({tree})")
+        subprocess.run([sys.executable, os.path.abspath(script),
+                        "--reps", str(reps), "--reading",
+                        f"{tree}{os.pathsep}{path}"], check=True)
+        with open(path) as f:
+            readings[label].append(json.load(f))
+    return readings
+
+
+def tool_main(script: str, doc: str, reading_fn, compare_fn,
+              name: str) -> int:
+    """The command line of a ``--parent`` timing tool: one reading in
+    this process (``--reading``), or the readings in turns, compared,
+    into ``chiprun_out/<name>.json``."""
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--parent", default=None,
                     help="another checkout, read in turns with this one")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--reading", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    os.makedirs(OUT, exist_ok=True)
     if args.reading:  # one reading, in this process
         tree, path = args.reading.split(os.pathsep)
         with open(path, "w") as f:
-            json.dump(reading(tree, args.reps), f, default=str)
+            json.dump(reading_fn(tree, args.reps), f, default=str)
         return 0
 
     print(chip_smoke.gpu_line(), flush=True)
     record = {"device": chip_smoke.phase_device()}
-    order = [("this", REPO)]
+    record["readings"] = readings_in_turns(
+        script, args.parent, args.reps,
+        os.path.join(REPO, "chiprun_out", name))
     if args.parent:
-        parent = os.path.abspath(args.parent)
-        order = [("parent", parent), ("this", REPO), ("this", REPO),
-                 ("parent", parent)]
-    readings = {"parent": [], "this": []}
-    for i, (label, tree) in enumerate(order):
-        path = os.path.join(OUT, f"{i}-{label}.json")
-        chip_smoke.log("reading", f"{i}: {label} ({tree})")
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--reps", str(args.reps), "--reading",
-                        f"{tree}{os.pathsep}{path}"], check=True)
-        with open(path) as f:
-            readings[label].append(json.load(f))
-    record["readings"] = readings
-    if args.parent:
-        record["compare"] = compare(readings["parent"], readings["this"])
-    with open(os.path.join(REPO, "chiprun_out", "time_ball_query.json"),
-              "w") as f:
+        record["compare"] = compare_fn(record["readings"]["parent"],
+                                       record["readings"]["this"])
+    with open(os.path.join(REPO, "chiprun_out", f"{name}.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
     return 0
+
+
+def main() -> int:
+    return tool_main(__file__, __doc__, reading, compare, "time_ball_query")
 
 
 if __name__ == "__main__":
