@@ -738,8 +738,11 @@ def phase_train_kernel_parity(tcfg, kind: str) -> dict:
     if kind == "pwmlp":
         return _pwmlp_parity(pp, gen, phase)
     if kind == "pgrid":
-        return _pgrid_parity(tcfg, pp, gen, phase)
+        errs = _pgrid_parity(tcfg, pp, gen, phase)
+        return _query_group_edges(kind, gen, phase, errs)
     errs = _agg_parity(kind, pp, gen, phase)
+    if kind == "sincos":
+        _query_group_edges(kind, gen, phase, errs)
     if kind == "xyz":
         errs.update(_geometry_parity(bq, fps))
         errs.update(_max_parity(tcfg, pp, gen, phase))
@@ -1046,6 +1049,61 @@ def _pgrid_parity(tcfg, pp, gen, phase) -> dict:
                 log(phase, f"{what}: max abs err fwd {e_f:.3g}, bwd vs twin "
                     f"{e_t:.3g}, vs autograd {e_a:.3g} (tol {tol}); "
                     f"{int(nmask.sum())} valid slots")
+    return errs
+
+
+def _query_group_edges(kind, gen, phase, errs) -> dict:
+    """The edges of the forward kernels' query-group layout (K10f for
+    "pgrid", K5f for "sincos") beyond the train step's calls, whose stage
+    4 already splits its channels across groups: C off the 16-byte vector
+    (78, or 30), K = 64 (and Kp = 64 for K10f), Nq = 37 (off the groups a
+    block), an all-masked cloud, and the features as a view at an odd
+    element offset (the scalar path), which must give the bits of its
+    aligned copy. Each held to its plain version at the config's
+    tolerance, f32 and bf16; the max abs errors join ``errs``."""
+    from closerlook3d_tpu_torch.models.aggregation import (
+        _typical_spacing, kernel_point_layout)
+    from closerlook3d_tpu_torch.ops import aggregation as ag
+    from closerlook3d_tpu_torch.ops import pseudo_grid as pg
+    from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
+
+    dev = torch.device(DEVICE)
+    s = torch.rand((3, 400, 3), generator=gen, device=dev) * 2 - 1
+    q = s[:, :37].contiguous()
+    smask = torch.ones((3, 400), dtype=torch.bool, device=dev)
+    qmask = torch.ones((3, 37), dtype=torch.bool, device=dev)
+    qmask[-1] = False
+    for k, c, kpn in ((26, 78, 15), (64, 30, 64)):
+        idx, nmask = ball_query_cuda(q, s, 0.5, k, qmask, smask)
+        kp = kernel_point_layout(kpn, "center")
+        kp_t = torch.from_numpy(kp).to(dev)
+        extent = 1.2 * _typical_spacing(kp)
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.randn(3 * 400 * c + 1, generator=gen,
+                               device=dev).to(dtype)
+            view = flat[1:].view(3, 400, c)  # 2 or 4 bytes off 16
+            f = view.clone()
+            if kind == "pgrid":
+                name, tol = "pseudo_grid", _pgrid_tol(dtype)
+                args = (kp_t, 0.5, extent, "linear")
+                fwd, plain = pg.pseudo_grid_cuda, pg.pseudo_grid_plain
+            else:
+                name, tol = "pospool_sincos", _pospool_fwd_tol(
+                    dtype, "sum", "sincos")
+                args = (0.5, "sum")
+                fwd, plain = ag.pospool_sincos_cuda, ag.pospool_sincos_plain
+            what = (f"{name} edge K={k} C={c}"
+                    + (f" Kp={kpn}" if kind == "pgrid" else "")
+                    + f" {str(dtype)[6:]}")
+            got = fwd(q, s, f, idx, nmask, *args)
+            _same_bits(what + " unaligned view", [fwd(q, s, view, idx, nmask,
+                                                      *args)], [got])
+            err = _note_close(errs, name, what, got,
+                              plain(q, s, f, idx, nmask, *args), tol)
+            if not (got[-1] == 0).all():
+                raise AssertionError(f"{what}: all-masked cloud not zero")
+            log(phase, f"{what}: max abs err {err:.3g} (tol {tol}); the "
+                f"unaligned view gives the same bits")
     return errs
 
 

@@ -30,37 +30,43 @@
 // version's bit for bit, up to exp's last ulp), and the sums over slots
 // are f32, rounded once to the features' dtype.
 //
-// Forward layout (query_blocks.cuh): one block per kQPB consecutive
-// queries of one cloud. For each query the block stages the K slots'
-// indices and u, then the K x Kp influences, in shared memory, once; then
-// threads stride over the C channels. A thread keeps up to kPChunk
-// kernel-point sums in registers, so each gathered f[idx[k], c] is read
-// once per chunk of kernel points (once at Kp = 15), and writes them at
-// the end; a warp's loads and stores touch neighbouring channels of one
-// row. The backward takes two launches over a reverse neighbor index
-// (reverse_index.cuh, row_gather.cuh): each valid slot's f32 sum over the
+// Forward layout (query_groups.cuh): a group of 8-32 lanes per query (and
+// slice of its output where queries are few), several groups a block and
+// no block-wide barrier. The group compacts its query's valid slots in
+// slot order, stages their u and Kp influences in its own shared memory,
+// then its lanes take units of 16 bytes of channels (kW) by kSums / kW
+// kernel points, whose kSums (16, or 32 where C is wide) sums stay in
+// registers; a row's 16-byte vectors are read and the output's 16-byte
+// vectors written by neighbouring lanes. The backward takes two launches
+// over a reverse neighbor index (reverse_index.cuh, row_gather.cuh): each
+// valid slot's f32 sum over the
 // kernel points by query (pseudo_grid_sums_kernel), then a gather per
 // support row that adds its slots' sums in (q, t) order and writes the row
 // once in the features' dtype: no float atomics, no zeroed scratch, no
 // cast, and the same bits on every run.
 //
 // Bound on the H100: bytes. The output is Kp = 15 times as wide as the
-// features, so writing it dominates (B*Nq*Kp*C values); the gathered
-// feature rows are L2-resident, as for the PosPool kernels. The backward
-// reads dy once and writes df once, but also writes and reads back an f32
+// features, so writing it dominates (B*Nq*Kp*C values, ~90% of the bytes);
+// the gathered feature rows are L2-resident, as for the PosPool kernels.
+// Yet the forward's pace is set by chains of dependent loads a query (idx
+// and mask, positions, rows) and by instructions, not bytes: hence no
+// block barrier, valid slots only, 16 bytes a lane. It runs at 2-5x the
+// bound: per (unit, slot) ~45 instructions, a third of them converting
+// bf16 to f32 and forming addresses, at 30-40% of the issue rate, so
+// wider units (fewer conversions an FMA) pay where the rows are wide and
+// fewer registers pay nowhere (the sums spill). The backward reads dy
+// once and writes df once, but also writes and reads back an f32
 // sum per valid slot and channel: at the strided calls (9.5 valid slots a
 // query on ModelNet40's synthetic clouds) that is more than dy itself.
 // Its launches are latency-bound (two to three dependent round trips to
 // memory a query or row).
 
-#include "query_blocks.cuh"
+#include "query_groups.cuh"
 #include "reverse_index.cuh"
 
 namespace {
 
-constexpr int kMaxKp = 64;   // kernel points
-constexpr int kPChunk = 16;  // kernel-point sums a thread keeps in registers
-constexpr int kWStride = kMaxKp;  // row stride of the staged influences
+constexpr int kMaxKp = 64;  // kernel points
 
 enum Influence { kLinear = 0, kConstant = 1, kGaussian = 2 };
 
@@ -72,104 +78,247 @@ __device__ __forceinline__ float influence(float d2, int mode, float coef) {
   return expf(-__fmul_rn(d2, coef));
 }
 
-// Stage query `row`'s slots: s_idx[t] = support row or -1 (masked), and
-// s_w[t * kWStride + p] = w[t, p] for p < kpn, zero up to the next
-// multiple of kPChunk. s_kp holds the kernel points.
-__device__ __forceinline__ void stage_influences(
-    const float* __restrict__ q, const float* __restrict__ sb,
-    const int32_t* __restrict__ idx, const bool* __restrict__ mask,
-    size_t row, int k, int kpn, float inv_r, float coef, int mode,
-    const float* s_kp, int* s_idx, float* s_u, float* s_w) {
-  if (threadIdx.x < k) {
-    const int t = threadIdx.x;
-    const bool v = mask[row * k + t];
-    const int j = idx[row * k + t];
-    s_idx[t] = v ? j : -1;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      s_u[t * 3 + d] =
-          v ? __fmul_rn(__fsub_rn(sb[static_cast<size_t>(j) * 3 + d],
-                                  q[row * 3 + d]),
-                        inv_r)
-            : 0.f;
-    }
-  }
-  __syncthreads();
-  const int kpp = (kpn + kPChunk - 1) / kPChunk * kPChunk;
-  for (int e = threadIdx.x; e < k * kpp; e += blockDim.x) {
-    const int t = e / kpp;
-    const int p = e - t * kpp;
-    float w = 0.f;
-    if (p < kpn && s_idx[t] >= 0) {
-      const float d0 = __fsub_rn(s_u[t * 3 + 0], s_kp[p * 3 + 0]);
-      const float d1 = __fsub_rn(s_u[t * 3 + 1], s_kp[p * 3 + 1]);
-      const float d2 = __fsub_rn(s_u[t * 3 + 2], s_kp[p * 3 + 2]);
-      float dd = __fmul_rn(d0, d0);
-      dd = __fadd_rn(dd, __fmul_rn(d1, d1));
-      dd = __fadd_rn(dd, __fmul_rn(d2, d2));
-      w = influence(dd, mode, coef);
-    }
-    s_w[t * kWStride + p] = w;
-  }
+// The influence of kernel point p (kp [Kp, 3]) on a slot at u.
+__device__ __forceinline__ float slot_influence(const float* u,
+                                                const float* __restrict__ kp,
+                                                int p, int mode, float coef) {
+  const float d0 = __fsub_rn(u[0], __ldg(kp + p * 3 + 0));
+  const float d1 = __fsub_rn(u[1], __ldg(kp + p * 3 + 1));
+  const float d2 = __fsub_rn(u[2], __ldg(kp + p * 3 + 2));
+  float dd = __fmul_rn(d0, d0);
+  dd = __fadd_rn(dd, __fmul_rn(d1, d1));
+  dd = __fadd_rn(dd, __fmul_rn(d2, d2));
+  return influence(dd, mode, coef);
 }
 
-__device__ __forceinline__ void load_kernel_points(const float* __restrict__ kp,
-                                                   int kpn, float* s_kp) {
-  for (int e = threadIdx.x; e < kpn * 3; e += blockDim.x) s_kp[e] = kp[e];
+// A forward unit: kW consecutive channels (16 bytes of T) of kPC kernel
+// points, kSums = kPC * kW f32 sums in registers. Vectorized (kVec): one
+// 16-byte load of a row and one 16-byte store per kernel point; needs
+// C % kW == 0 and 16-byte aligned features. Scalar: element by element,
+// any C and any alignment.
+template <typename T, bool kVec, int kSums>
+struct FwdUnit {
+  static constexpr int kW = 16 / sizeof(T);
+  static constexpr int kPC = kSums / kW;
+  struct alignas(16) Raw {
+    T v[kW];
+  };
+  // the unit's channels at p, `left` of them in the row
+  __device__ __forceinline__ static Raw load(const T* __restrict__ p,
+                                             int left) {
+    Raw r;
+    if (kVec) {
+      *reinterpret_cast<uint4*>(&r) =
+          __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        r.v[i] = i < left ? p[i] : from_f32<T>(0.f);
+    }
+    return r;
+  }
+  __device__ __forceinline__ static void store(T* __restrict__ p, int left,
+                                               const float (&x)[kW]) {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) r.v[i] = from_f32<T>(x[i]);
+    if (kVec) {
+      __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&r));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        if (i < left) p[i] = r.v[i];
+    }
+  }
+  // the units of a query: channel vectors x kernel-point chunks
+  static int units(int c, int kpn) {
+    return (c + kW - 1) / kW * ((kpn + kPC - 1) / kPC);
+  }
+};
+
+// Floats of a forward group's shared memory: its GroupSlots, then the
+// influences w[at * kpw + p] of its valid slots (kpw: Kp rounded up to the
+// unit's kPC), a multiple of 4 so that every group's slice is 16-byte
+// aligned.
+__host__ __device__ inline int fwd_group_floats(int k, int kpw) {
+  const int n = static_cast<int>(sizeof(GroupSlots) / sizeof(float)) +
+                k * kpw;
+  return (n + 3) / 4 * 4;
 }
 
-template <typename T>
-__global__ void pseudo_grid_kernel(const float* __restrict__ q,
-                                   const float* __restrict__ s,
-                                   const T* __restrict__ f,
-                                   const int32_t* __restrict__ idx,
-                                   const bool* __restrict__ mask,
-                                   const float* __restrict__ kp, int nq,
-                                   int ns, int c, int k, int kpn,
-                                   float inv_r, float coef, int mode,
-                                   T* __restrict__ out) {
-  __shared__ int s_idx[kMaxK];
-  __shared__ float s_u[kMaxK * 3];
-  __shared__ float s_kp[kMaxKp * 3];
-  __shared__ float s_w[kMaxK * kWStride];
-  const int b = blockIdx.y;
-  const T* fb = f + static_cast<size_t>(b) * ns * c;
-  const float* sb = s + static_cast<size_t>(b) * ns * 3;
-  load_kernel_points(kp, kpn, s_kp);
+// K10 forward in query groups (query_groups.cuh): a group of kG lanes per
+// item, a query and a slice of its passes. The group stages its valid
+// slots and u, then their influences (a lane per (valid slot, kernel
+// point)), in its slice of dynamic shared memory behind __syncwarp only.
+// Unit e * kG + lg of pass e belongs to lane lg: kernel-point chunk
+// pc = unit / CV and channel vector unit % CV (CV = C / kW), so a pass's
+// lanes read neighbouring vectors of a row and write neighbouring vectors
+// of one output row per kernel point (16-byte stores with the streaming
+// hint: the output is written once). Each sum runs over the valid slots
+// in slot order, fma(w, f, acc) from +0, rounded once; a lane starts the
+// row loads of kSlotBatch slots at once.
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;  // uniform across the block
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();  // previous query's slots fully consumed
-    stage_influences(q, sb, idx, mask, row, k, kpn, inv_r, coef, mode, s_kp,
-                     s_idx, s_u, s_w);
-    __syncthreads();
-    T* ob = out + row * static_cast<size_t>(kpn) * c;
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      for (int p0 = 0; p0 < kpn; p0 += kPChunk) {
-        float acc[kPChunk];
+template <typename T, bool kVec, int kSums, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    pseudo_grid_kernel(const float* __restrict__ q,
+                       const float* __restrict__ s,
+                       const T* __restrict__ f,
+                       const int32_t* __restrict__ idx,
+                       const bool* __restrict__ mask,
+                       const float* __restrict__ kp, int nq, int ns, int c,
+                       int k, int kpn, float inv_r, float coef, int mode,
+                       long long items, int slices, int per,
+                       T* __restrict__ out) {
+  using U = FwdUnit<T, kVec, kSums>;
+  constexpr int kW = U::kW, kPC = U::kPC;
+  // slots whose rows a lane loads at once: more where the units are wide
+  constexpr int kSlotBatch = kSums == 32 ? 4 : 2;
+  extern __shared__ float4 s_fwd[];
+  const int kpw = (kpn + kPC - 1) / kPC * kPC;
+  float* mine = reinterpret_cast<float*>(s_fwd) +
+                static_cast<size_t>(threadIdx.x / kG) *
+                    fwd_group_floats(k, kpw);
+  GroupSlots& st = *reinterpret_cast<GroupSlots*>(mine);
+  float* sw = mine + sizeof(GroupSlots) / sizeof(float);
+  const int lg = threadIdx.x % kG;
+  const GroupItem it = group_item<kG>(items, slices);
+  const size_t b = it.row / nq;
+  float qp[3] = {};
+  if (it.live) {
 #pragma unroll
-        for (int pp = 0; pp < kPChunk; ++pp) acc[pp] = 0.f;
-        for (int t = 0; t < k; ++t) {
-          const int j = s_idx[t];
-          if (j < 0) continue;  // uniform across the block
-          const float fv = to_f32(fb[static_cast<size_t>(j) * c + ch]);
-          const float* w = s_w + t * kWStride + p0;
+    for (int d = 0; d < 3; ++d) qp[d] = q[it.row * 3 + d];
+  }
+  const int n = stage_valid_slots<kG>(
+      idx + it.row * k, mask + it.row * k, k, it.live, s + b * ns * 3, qp,
+      [inv_r](float sv, float qv) {
+        return __fmul_rn(__fsub_rn(sv, qv), inv_r);
+      },
+      st);
+  __syncwarp();
+  for (int e = lg; e < n * kpw; e += kG) {
+    const int i = e / kpw, p = e - i * kpw;
+    sw[e] = p < kpn ? slot_influence(st.x[i], kp, p, mode, coef) : 0.f;
+  }
+  __syncwarp();
+  if (!it.live) return;
+  const int cvs = (c + kW - 1) / kW;
+  const int u_end = min(cvs * (kpw / kPC), (it.slice + 1) * per * kG);
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  for (int unit = it.slice * per * kG + lg; unit < u_end; unit += kG) {
+    const int pc = unit / cvs;
+    const int ch0 = (unit - pc * cvs) * kW;
+    const T* f0 = f + b * ns * c + ch0;  // the unit's channels of row 0
+    float acc[kPC][kW] = {};
+    for (int i0 = 0; i0 < n; i0 += kSlotBatch) {
+      typename U::Raw r[kSlotBatch];
 #pragma unroll
-          for (int pp = 0; pp < kPChunk; ++pp) {
-            acc[pp] = __fmaf_rn(w[pp], fv, acc[pp]);
-          }
-        }
+      for (int v = 0; v < kSlotBatch; ++v)
+        r[v] = U::load(row_at(f0, st.j[min(i0 + v, n - 1)], row_bytes),
+                       c - ch0);
 #pragma unroll
-        for (int pp = 0; pp < kPChunk; ++pp) {
-          if (p0 + pp < kpn) {
-            ob[static_cast<size_t>(p0 + pp) * c + ch] = from_f32<T>(acc[pp]);
+      for (int v = 0; v < kSlotBatch; ++v) {
+        if (i0 + v < n) {
+          const float* w = sw + (i0 + v) * kpw + pc * kPC;
+#pragma unroll
+          for (int pp = 0; pp < kPC; ++pp) {
+            const float wv = w[pp];
+#pragma unroll
+            for (int ii = 0; ii < kW; ++ii)
+              acc[pp][ii] = __fmaf_rn(wv, to_f32(r[v].v[ii]), acc[pp][ii]);
           }
         }
       }
     }
+    T* o = out + (it.row * kpn + pc * kPC) * c + ch0;
+#pragma unroll
+    for (int pp = 0; pp < kPC; ++pp)
+      if (pc * kPC + pp < kpn) U::store(o + pp * c, c - ch0, acc[pp]);
   }
+}
+
+template <typename T, bool kVec, int kSums, int kG>
+int launch_fwd_lanes(const float* q, const float* s, const T* f,
+                     const int32_t* idx, const bool* mask, const float* kp,
+                     int b, int nq, int ns, int c, int k, int kpn,
+                     float inv_r, float coef, int mode, T* out,
+                     cudaStream_t stream) {
+  using U = FwdUnit<T, kVec, kSums>;
+  // the influences of 64 slots x 64 kernel points outgrow 48 KB a block
+  static const int room =
+      dynamic_smem_room(pseudo_grid_kernel<T, kVec, kSums, kG>);
+  const int kpw = (kpn + U::kPC - 1) / U::kPC * U::kPC;
+  const long long queries = static_cast<long long>(b) * nq;
+  const PassSplit sp =
+      split_passes(queries, (U::units(c, kpn) + kG - 1) / kG, kG);
+  const int group_bytes =
+      fwd_group_floats(k, kpw) * static_cast<int>(sizeof(float));
+  // whole warps of groups, as many as fit
+  constexpr int kWarpGroups = 32 / kG;
+  const int groups = std::min(kGroupThreads / kG,
+                              room / group_bytes / kWarpGroups * kWarpGroups);
+  const long long items = queries * sp.slices;
+  const long long blocks = (items + groups - 1) / groups;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  pseudo_grid_kernel<T, kVec, kSums, kG>
+      <<<static_cast<unsigned>(blocks), groups * kG, groups * group_bytes,
+         stream>>>(q, s, f, idx, mask, kp, nq, ns, c, k, kpn, inv_r, coef,
+                   mode, items, sp.slices, sp.per, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward at the group width that keeps most lanes busy over its units
+// (group_lanes_for).
+template <typename T, bool kVec, int kSums>
+int launch_fwd_sums(const float* q, const float* s, const T* f,
+                    const int32_t* idx, const bool* mask, const float* kp,
+                    int b, int nq, int ns, int c, int k, int kpn, float inv_r,
+                    float coef, int mode, T* out, cudaStream_t stream) {
+  switch (group_lanes_for(FwdUnit<T, kVec, kSums>::units(c, kpn))) {
+    case 8:
+      return launch_fwd_lanes<T, kVec, kSums, 8>(
+          q, s, f, idx, mask, kp, b, nq, ns, c, k, kpn, inv_r, coef, mode,
+          out, stream);
+    case 16:
+      return launch_fwd_lanes<T, kVec, kSums, 16>(
+          q, s, f, idx, mask, kp, b, nq, ns, c, k, kpn, inv_r, coef, mode,
+          out, stream);
+    default:
+      return launch_fwd_lanes<T, kVec, kSums, 32>(
+          q, s, f, idx, mask, kp, b, nq, ns, c, k, kpn, inv_r, coef, mode,
+          out, stream);
+  }
+}
+
+// 32 sums a lane (16 bytes of channels x 4 kernel points in bf16) where
+// Kp fills a chunk and the units still make two passes of 32 lanes (bf16:
+// C >= 144 at Kp = 15); else 16, so that narrow rows keep groups busy.
+template <typename T, bool kVec>
+int launch_fwd_as(const float* q, const float* s, const T* f,
+                  const int32_t* idx, const bool* mask, const float* kp,
+                  int b, int nq, int ns, int c, int k, int kpn, float inv_r,
+                  float coef, int mode, T* out, cudaStream_t stream) {
+  using Wide = FwdUnit<T, kVec, 32>;
+  if (kpn >= Wide::kPC && Wide::units(c, kpn) >= 64)
+    return launch_fwd_sums<T, kVec, 32>(q, s, f, idx, mask, kp, b, nq, ns, c,
+                                        k, kpn, inv_r, coef, mode, out,
+                                        stream);
+  return launch_fwd_sums<T, kVec, 16>(q, s, f, idx, mask, kp, b, nq, ns, c,
+                                      k, kpn, inv_r, coef, mode, out,
+                                      stream);
+}
+
+template <typename T>
+int launch_fwd(const float* q, const float* s, const void* f,
+               const int32_t* idx, const bool* mask, const float* kp, int b,
+               int nq, int ns, int c, int k, int kpn, float inv_r,
+               float coef, int mode, void* out, cudaStream_t stream) {
+  const T* fp = static_cast<const T*>(f);
+  T* op = static_cast<T*>(out);
+  if (vec_ok<T>(c, f, out))
+    return launch_fwd_as<T, true>(q, s, fp, idx, mask, kp, b, nq, ns, c, k,
+                                  kpn, inv_r, coef, mode, op, stream);
+  return launch_fwd_as<T, false>(q, s, fp, idx, mask, kp, b, nq, ns, c, k,
+                                 kpn, inv_r, coef, mode, op, stream);
 }
 
 constexpr int kPrepThreads = 512;
@@ -263,16 +412,7 @@ __global__ void __launch_bounds__(kPrepThreads)
       for (int e = lg; e < kSlotChunk * kpn; e += kG) {
         const int i = e / kpn, p = e - i * kpn;
         float w = 0.f;
-        if (i0 + i < n) {
-          const float* u = st.u[i0 + i];
-          const float d0 = __fsub_rn(u[0], __ldg(kp + p * 3 + 0));
-          const float d1 = __fsub_rn(u[1], __ldg(kp + p * 3 + 1));
-          const float d2 = __fsub_rn(u[2], __ldg(kp + p * 3 + 2));
-          float dd = __fmul_rn(d0, d0);
-          dd = __fadd_rn(dd, __fmul_rn(d1, d1));
-          dd = __fadd_rn(dd, __fmul_rn(d2, d2));
-          w = influence(dd, mode, coef);
-        }
+        if (i0 + i < n) w = slot_influence(st.u[i0 + i], kp, p, mode, coef);
         st.w[i][p] = w;
       }
       __syncwarp(Lanes::group_mask());
@@ -393,22 +533,16 @@ extern "C" int cl3d_pseudo_grid(const float* q, const float* s, const void* f,
                                 int k, int kpn, float inv_r, float coef,
                                 int mode, int is_bf16, void* out,
                                 cudaStream_t stream) {
-  if (bad_args(b, ns, c, k, kpn, mode)) {
+  if (bad_args(b, ns, c, k, kpn, mode) ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    pseudo_grid_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            q, s, static_cast<const __nv_bfloat16*>(f), idx, mask, kp, nq,
-            ns, c, k, kpn, inv_r, coef, mode,
-            static_cast<__nv_bfloat16*>(out));
-  } else {
-    pseudo_grid_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        q, s, static_cast<const float*>(f), idx, mask, kp, nq, ns, c, k, kpn,
-        inv_r, coef, mode, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(q, s, f, idx, mask, kp, b, nq,
+                                             ns, c, k, kpn, inv_r, coef,
+                                             mode, out, stream)
+                 : launch_fwd<float>(q, s, f, idx, mask, kp, b, nq, ns, c, k,
+                                     kpn, inv_r, coef, mode, out, stream);
 }
 
 // df [B, Ns, C] in the features' dtype, written in full (no zeroing

@@ -203,22 +203,27 @@ int prep_lanes(int c) {
   return std::max(16, group_lanes<T, kBytes>(c));
 }
 
-// Blocks of the query-major part of those launches, whose `groups` query
-// groups take the `items` (query, slice) pairs in turn: about kPrepItems
-// each where there are many, one each where that leaves the SMs short of
-// blocks.
-constexpr int kPrepItems = 8;
-inline int prep_blocks(int groups, long long items) {
+// The device's SMs, read once.
+inline int sm_count() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  return sms;
+}
+
+// Blocks of the query-major part of those launches, whose `groups` query
+// groups take the `items` (query, slice) pairs in turn: about kPrepItems
+// each where there are many, one each where that leaves the SMs short of
+// blocks.
+constexpr int kPrepItems = 8;
+inline int prep_blocks(int groups, long long items) {
   const long long one_each = (items + groups - 1) / groups;
   const long long looped = (one_each + kPrepItems - 1) / kPrepItems;
   return static_cast<int>(
-      std::max(looped, std::min(one_each, 4LL * sms)));
+      std::max(looped, std::min(one_each, 4LL * sm_count())));
 }
 
 template <typename T, int kG = 32, int kBytes = 16>

@@ -903,6 +903,75 @@ def test_pseudo_grid_wrappers_refuse():
                              extent, "linear")
 
 
+# ---- the forward kernels' query-group layout (K10f, K5f) ---------------------
+
+def _sincos_fwd_tol(dtype, reduction):
+    """As test_sincos_and_moments_kernels_match_plain holds the sin/cos
+    forward: the same f32 terms summed in slot order; in bf16 the plain
+    version rounds each product."""
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-6 if reduction == "avg" else 1e-5)
+    return dict(rtol=2e-2, atol=2e-2 if reduction == "avg" else 6e-2)
+
+
+# name: (B, Nq, Ns, K, C, Kp)
+GROUP_CASES = {
+    "c_off_vector": (3, 37, 120, 16, 78, 15),  # Nq off the groups a block
+    "stage4_split": (32, 19, 78, 39, 1152, 15),  # channels across groups
+    "k64_kp64": (3, 20, 90, MAX_K, 24, 64),
+}
+
+
+def _group_forward(op, name, dtype, seed=70):
+    """(kernel fn, plain fn, inputs but features, features, tol) of one
+    group case; the last cloud all masked."""
+    b, nq, ns, k, c, kpn = GROUP_CASES[name]
+    s, smask = _cloud(seed, b, ns, masked_frac=0.2)
+    q, qmask = _cloud(seed + 1, b, nq, masked_frac=0.1)
+    idx, nmask = ball_query_cuda(q, s, 0.4, k, qmask, smask)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    f = torch.randn((b, ns, c), generator=gen, device="cuda").to(dtype)
+    if op == "pseudo_grid":
+        kp, extent = _kernel_points(kpn)
+        return (pseudo_grid_cuda, pseudo_grid_plain,
+                (q, s, idx, nmask, (kp, 0.4, extent, "linear")), f,
+                _pgrid_tol(dtype))
+    return (pospool_sincos_cuda, pospool_sincos_plain,
+            (q, s, idx, nmask, (0.4, "sum")), f,
+            _sincos_fwd_tol(dtype, "sum"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GROUP_CASES))
+@pytest.mark.parametrize("op", ["pseudo_grid", "sincos"])
+def test_forward_query_groups_match_plain(op, name, dtype):
+    fwd, plain, (q, s, idx, nmask, rest), f, tol = _group_forward(
+        op, name, dtype)
+    got = fwd(q, s, f, idx, nmask, *rest)
+    ref = plain(q, s, f, idx, nmask, *rest)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert (got[-1] == 0).all()  # the all-masked cloud
+    assert torch.equal(_bits(fwd(q, s, f, idx, nmask, *rest)), _bits(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["pseudo_grid", "sincos"])
+def test_forward_query_groups_take_unaligned_views(op, dtype):
+    """Features as a view one element into a buffer (off 16 bytes: the
+    scalar path) give the bits of their aligned copy."""
+    fwd, plain, (q, s, idx, nmask, rest), f, tol = _group_forward(
+        op, "c_off_vector", dtype, seed=73)
+    flat = torch.empty(f.numel() + 1, dtype=dtype, device="cuda")
+    view = flat[1:].view(f.shape)
+    view.copy_(f)
+    assert view.data_ptr() % 16 != 0
+    got = fwd(q, s, view, idx, nmask, *rest)
+    assert torch.equal(_bits(got), _bits(fwd(q, s, f, idx, nmask, *rest)))
+    torch.testing.assert_close(got.float(),
+                               plain(q, s, f, idx, nmask, *rest).float(),
+                               **tol)
+
+
 # ---- the reverse neighbor index; the backward gathers of K6 and K10 ----------
 
 def _gather_case(name, seed=60):

@@ -1,0 +1,435 @@
+"""The query-group layout of the forward kernels K10f and K5f
+(``csrc/query_groups.cuh``, ``csrc/pseudo_grid.cu``,
+``csrc/pospool_sincos.cu``), emulated in PyTorch on the CPU.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` hold them to their plain versions there). Here the
+layout and each output element's order of operations are mirrored:
+
+* the ballot compaction (``stage_valid_slots``): lane by lane and round
+  by round, the valid slots (mask set, idx >= 0) come out in ascending
+  slot order at every group width, so the sums run in the order of the
+  parent kernels' loops over all K slots that skip the masked ones;
+* the host's choices (``group_lanes_for``, ``split_passes``) and the
+  unit, pair and slice mapping: every output element written exactly
+  once, by the item of its own query (K10f's unit of kW channels by kPC
+  kernel points, K5f's sin/cos pair), Nq off the groups a block;
+* each element's arithmetic: K10f ``fma(w, f, acc)`` over the compacted
+  slots from +0, rounded once (the fma emulated in f64: the product is
+  exact there, the sum rounds twice, which can differ from the card's
+  one rounding in the last bit); K5f ``acc + f * round_T(sin/cos)`` in
+  f32, then avg. The emulation is held to the plain versions
+  (``pseudo_grid_plain``, ``pospool_sincos_plain``) at the tolerances of
+  ``chip_smoke.py``, and to the JAX package: ``pseudo_grid_fused`` and
+  the sin/cos ``pospool_fused`` run interpreted, as
+  ``tests/test_torch_pseudo_grid.py`` and ``tests/test_torch_operators.py``
+  run them.
+
+Edge cases: an all-masked query, K = 64, Kp = 1 and 64, C off the vector
+width, duplicated valid indices.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import conftest
+from closerlook3d_tpu.ops.pallas import pseudo_grid as jpseudo_grid
+from closerlook3d_tpu.ops.pallas.aggregation import (
+    pospool_fused as jpospool_fused)
+from closerlook3d_tpu_torch.models import aggregation as agg
+from closerlook3d_tpu_torch.ops import aggregation, pseudo_grid
+from closerlook3d_tpu_torch.ops.grouping import neighbor_offsets
+from closerlook3d_tpu_torch.ops.neighbors import MAX_K, ball_query
+
+GROUP_THREADS = 256  # kGroupThreads
+FILL_THREADS = 4096  # kFillThreads
+H100_SMS = 132
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_aten_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# ---- the host's choices (query_groups.cuh) ---------------------------------
+
+def group_lanes_for(units: int) -> int:
+    """The largest of 32, 16, 8 lanes whose passes keep >= 85% busy, else
+    the busiest."""
+    best, best_busy = 32, 0.0
+    for g in (32, 16, 8):
+        busy = units / (math.ceil(units / g) * g)
+        if busy >= 0.85:
+            return g
+        if busy > best_busy:
+            best, best_busy = g, busy
+    return best
+
+
+def split_passes(queries: int, passes: int, lanes: int, sms: int = H100_SMS):
+    """(slices, passes a slice) of each query's passes."""
+    want = sms * FILL_THREADS // lanes
+    slices = min(passes, max(1, -(-want // queries)))
+    per = -(-passes // slices)
+    return -(-passes // per), per
+
+
+def pgrid_layout(c: int, kpn: int, elem_bytes: int, queries: int):
+    """K10f's launch: units of kW channels (16 bytes) x kPC kernel points,
+    32 sums a lane where Kp fills a chunk and the units make two passes
+    of 32 lanes, else 16."""
+    kw = 16 // elem_bytes
+    cvs = -(-c // kw)
+    sums = 32 if kpn >= 32 // kw and cvs * -(-kpn // (32 // kw)) >= 64 else 16
+    kpc = sums // kw
+    kpw = -(-kpn // kpc) * kpc
+    units = cvs * (kpw // kpc)
+    lanes = group_lanes_for(units)
+    slices, per = split_passes(queries, -(-units // lanes), lanes)
+    return dict(kw=kw, kpc=kpc, kpw=kpw, cvs=cvs, units=units, lanes=lanes,
+                slices=slices, per=per, sums=sums)
+
+
+def sincos_layout(c: int, queries: int):
+    """K5f's launch: a (coordinate, frequency) pair a lane and pass."""
+    pairs = c // 2
+    lanes = group_lanes_for(pairs)
+    slices, per = split_passes(queries, -(-pairs // lanes), lanes)
+    return dict(pairs=pairs, lanes=lanes, slices=slices, per=per)
+
+
+def items_of_block(block: int, lanes: int, items: int, slices: int):
+    """``group_item`` of each group of a block: (row, slice) or None."""
+    groups = GROUP_THREADS // lanes
+    out = []
+    for g in range(groups):
+        item = block * groups + g
+        out.append((item // slices, item % slices) if item < items else None)
+    return out
+
+
+# ---- ballot compaction (stage_valid_slots) -----------------------------------
+
+def ballot_order(idx: torch.Tensor, mask: torch.Tensor, lanes: int):
+    """Each query's valid slots as the group's ballots number them: lane lg
+    reads slots lg + lanes * h; in round h a valid slot takes place
+    n + (valid lanes below it), then n grows by the round's count.
+    Returns ([Q, MAX_K] slot numbers, -1 past n; [Q] n)."""
+    q, k = idx.shape
+    order = torch.full((q, MAX_K), -1, dtype=torch.long)
+    n = torch.zeros(q, dtype=torch.long)
+    for h in range(MAX_K // lanes):
+        t = torch.arange(lanes) + lanes * h
+        tt = t.clamp(max=k - 1)
+        v = (t < k) & mask[:, tt] & (idx[:, tt] >= 0)
+        at = n[:, None] + torch.cumsum(v.long(), 1) - v.long()
+        rows, lane = v.nonzero(as_tuple=True)
+        order[rows, at[rows, lane]] = t[lane]
+        n += v.sum(1)
+    return order, n
+
+
+# ---- emulations of the kernels ----------------------------------------------
+
+def _compacted(idx, mask, lanes):
+    b, nq, k = idx.shape
+    order, n = ballot_order(idx.reshape(-1, k), mask.reshape(-1, k), lanes)
+    return order, n, idx.reshape(-1, k).long()
+
+
+def pgrid_emulated(q, s, f, idx, mask, kp, radius, extent, mode, lanes):
+    """K10f, element by element: fma(w, f, acc) over the compacted valid
+    slots from +0 in f32 (the fma through f64), rounded once."""
+    b, nq, k = idx.shape
+    kpn, c = kp.shape[0], f.shape[-1]
+    order, n, flat = _compacted(idx, mask, lanes)
+    w_all = pseudo_grid.influence_weights(q, s, idx, mask, kp, radius,
+                                          extent, mode).reshape(-1, k, kpn)
+    rows = torch.arange(b * nq)
+    cloud = rows // nq
+    acc = torch.zeros((b * nq, kpn, c), dtype=torch.float32)
+    for i in range(int(n.max())):
+        t = order[:, i]
+        live = t >= 0
+        tt = t.clamp(min=0)
+        w = w_all[rows, tt].double()
+        fj = f.float()[cloud, flat[rows, tt]].double()
+        new = (w[:, :, None] * fj[:, None, :] + acc.double()).float()
+        acc = torch.where(live[:, None, None], new, acc)
+    return acc.reshape(b, nq, kpn * c).to(f.dtype)
+
+
+def sincos_emulated(q, s, f, idx, mask, radius, reduction, lanes):
+    """K5f, element by element: acc + f * round_T(sin/cos of
+    (100 * D) / freq) over the compacted valid slots, f32; avg divides by
+    max(n, 1)."""
+    b, nq, k = idx.shape
+    c = f.shape[-1]
+    nf = c // 6
+    order, n, flat = _compacted(idx, mask, lanes)
+    d_all = neighbor_offsets(q, s, idx, radius,
+                             torch.float32).reshape(-1, k, 3)
+    freq = aggregation.sincos_freq(c, "cpu")
+    p = torch.arange(c // 2)
+    dd, jj = p // nf, p % nf
+    c_sin = dd * 2 * nf + jj
+    c_cos = c_sin + nf
+    rows = torch.arange(b * nq)
+    cloud = rows // nq
+    acc = torch.zeros((b * nq, c), dtype=torch.float32)
+    for i in range(int(n.max())):
+        t = order[:, i]
+        live = t >= 0
+        tt = t.clamp(min=0)
+        ang = (aggregation.SINCOS_ALPHA * d_all[rows, tt][:, dd]) / freq[jj]
+        e = torch.empty((b * nq, c), dtype=torch.float32)
+        e[:, c_sin] = torch.sin(ang).to(f.dtype).float()
+        e[:, c_cos] = torch.cos(ang).to(f.dtype).float()
+        fj = f.float()[cloud, flat[rows, tt]]
+        acc = torch.where(live[:, None], acc + fj * e, acc)
+    if reduction == "avg":
+        acc = acc / n.clamp(min=1).float()[:, None]
+    return acc.reshape(b, nq, c).to(f.dtype)
+
+
+# ---- inputs -----------------------------------------------------------------
+
+def _case(name, seed=7):
+    """(q, s, idx, mask, radius) of a named case on 2 clouds: random slots
+    (40% valid) with one all-masked query; "k64" at K = 64; "dup" with
+    every query's first valid slots naming one support row; Nq = 37 (off
+    the groups a block)."""
+    rng = np.random.default_rng(seed)
+    k = MAX_K if name == "k64" else 13
+    nq, ns = 37, 50
+    s = rng.uniform(-1, 1, (2, ns, 3)).astype(np.float32)
+    q = rng.uniform(-1, 1, (2, nq, 3)).astype(np.float32)
+    idx = rng.integers(0, ns, (2, nq, k)).astype(np.int32)
+    mask = rng.random((2, nq, k)) < 0.4
+    mask[0, 3] = False  # an all-masked query
+    if name == "dup":
+        idx[..., 1:4] = idx[..., :1]
+        mask[:, 4:, :4] = True
+    return (torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(idx),
+            torch.from_numpy(mask), 1.5)
+
+
+def _kernel_points(kpn):
+    kp = agg.kernel_point_layout(kpn, "center" if kpn > 1 else "none")
+    return torch.from_numpy(kp), (1.2 * agg._typical_spacing(kp)
+                                  if kpn > 1 else 0.7)
+
+
+def _features(seed, shape, dtype):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(dtype)
+
+
+def _pgrid_tol(dtype):
+    """``chip_smoke._pgrid_tol``: the same f32 terms summed in another
+    order, rounded once; bf16 one ulp where the orders straddle a
+    rounding boundary."""
+    return (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=8e-3, atol=1e-5))
+
+
+def _sincos_tol(dtype, reduction):
+    """``chip_smoke._pospool_fwd_tol(dtype, reduction, "sincos")``."""
+    if dtype == torch.float32:
+        return (dict(rtol=1e-5, atol=1e-6) if reduction == "avg"
+                else dict(rtol=1e-5, atol=1e-5))
+    return (dict(rtol=2e-2, atol=6e-2) if reduction == "sum"
+            else dict(rtol=2e-2, atol=2e-2))
+
+
+# ---- tests: compaction and layout --------------------------------------------
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("k", [1, 26, MAX_K])
+def test_ballot_compaction_is_ascending_slot_order(lanes, k):
+    rng = np.random.default_rng(k + lanes)
+    idx = torch.from_numpy(rng.integers(-1, 9, (200, k)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((200, k)) < 0.5)
+    mask[0] = False
+    mask[1] = True
+    order, n = ballot_order(idx, mask, lanes)
+    valid = mask & (idx >= 0)
+    assert torch.equal(n, valid.sum(1))
+    for r in range(200):
+        want = valid[r].nonzero().flatten()
+        assert torch.equal(order[r, :len(want)], want)
+        assert (order[r, len(want):] == -1).all()
+    assert n[0] == 0
+
+
+def test_layout_at_the_modelnet40_calls():
+    """The choices at ModelNet40's bf16 step (32 clouds; C = 72 ... 1152,
+    Kp = 15) on the H100's 132 SMs."""
+    calls = [(5000, 72), (1250, 144), (312, 288), (78, 576), (19, 1152)]
+    got = [(pgrid_layout(c, 15, 2, 32 * nq), sincos_layout(c, 32 * nq))
+           for nq, c in calls]
+    # K10f: 16-byte units of 8 channels, 2 kernel points at C = 72 and 4
+    # (32 sums) from C = 144
+    assert [(g["units"], g["sums"], g["lanes"], g["slices"])
+            for g, _ in got] == [
+        (72, 16, 16, 1), (72, 32, 16, 1), (144, 32, 32, 2),
+        (288, 32, 32, 5), (576, 32, 32, 18)]
+    # K5f: a pair a lane; 8 lanes at C = 72 keep 36 of 40 busy
+    assert [(s["lanes"], s["slices"]) for _, s in got] == [
+        (8, 1), (16, 1), (32, 2), (32, 5), (32, 18)]
+    # where the queries alone leave SMs short of kFillThreads lanes, the
+    # slices make up for most of them (whole passes a slice)
+    for (nq, _), lays in zip(calls, got):
+        for lay in lays:
+            assert (32 * nq * lay["slices"] * lay["lanes"]
+                    >= 0.7 * H100_SMS * FILL_THREADS or lay["per"] == 1)
+
+
+@pytest.mark.parametrize("b,nq,c,kpn,elem", [
+    (2, 37, 72, 15, 2),      # ModelNet40's stage 0 width, Nq off a block
+    (2, 37, 72, 15, 4),      # f32: units of 4 channels x 4 kernel points
+    (2, 5, 300, 15, 2),      # C off the 16-byte vector
+    (2, 9, 13, 64, 4),       # Kp = 64, C off the vector
+    (3, 11, 6, 1, 2),        # Kp = 1, one partial unit
+    (32, 19, 1152, 15, 2)])  # stage 4: the passes split into slices
+def test_pgrid_units_write_every_output_element_once(b, nq, c, kpn, elem):
+    lay = pgrid_layout(c, kpn, elem, b * nq)
+    lanes, slices, per = lay["lanes"], lay["slices"], lay["per"]
+    kw, kpc, cvs = lay["kw"], lay["kpc"], lay["cvs"]
+    span = kpn * c
+    count = np.zeros(b * nq * span, np.int64)
+    items = b * nq * slices
+    blocks = -(-items // (GROUP_THREADS // lanes))
+    got = [it for blk in range(blocks)
+           for it in items_of_block(blk, lanes, items, slices) if it]
+    assert len(got) == items
+    rows = np.array(got)
+    for sl in range(slices):
+        # lane lg of pass e takes unit e * lanes + lg, as the kernel's loop
+        # from slice * per * lanes + lg, step lanes, to u_end
+        u_end = min(lay["units"], (sl + 1) * per * lanes)
+        units = np.concatenate([np.arange(sl * per * lanes + lg, u_end, lanes)
+                                for lg in range(lanes)])
+        pc, ch0 = units // cvs, (units % cvs) * kw
+        p = pc[:, None, None] * kpc + np.arange(kpc)[None, :, None]
+        ch = ch0[:, None, None] + np.arange(kw)[None, None, :]
+        keep = (p < kpn) & (ch < c)
+        off = (p * c + ch)[keep]
+        assert ((off >= 0) & (off < span)).all()  # the item's own query
+        mine = rows[rows[:, 1] == sl, 0]
+        np.add.at(count, (mine[:, None] * span + off[None, :]).ravel(), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("b,nq,c", [(2, 37, 72), (2, 37, 144), (3, 7, 6),
+                                    (2, 5, 288), (32, 19, 1152)])
+def test_sincos_pairs_write_every_output_channel_once(b, nq, c):
+    lay = sincos_layout(c, b * nq)
+    lanes, slices, per, pairs = (lay["lanes"], lay["slices"], lay["per"],
+                                 lay["pairs"])
+    nf = c // 6
+    count = np.zeros((b * nq, c), np.int64)
+    for row in range(b * nq):
+        for sl in range(slices):
+            p_end = min(pairs, (sl + 1) * per * lanes)
+            for lg in range(lanes):
+                for p in range(sl * per * lanes + lg, p_end, lanes):
+                    d, j = divmod(p, nf)
+                    count[row, d * 2 * nf + j] += 1
+                    count[row, d * 2 * nf + nf + j] += 1
+    assert (count == 1).all()
+
+
+# ---- tests: each element's arithmetic ----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+@pytest.mark.parametrize("case,c,kpn", [("plain", 13, 15), ("k64", 8, 64),
+                                        ("dup", 24, 1)])
+def test_pgrid_emulation_matches_plain(case, c, kpn, mode, dtype):
+    q, s, idx, mask, r = _case(case)
+    kp, extent = _kernel_points(kpn)
+    f = _features(11, (2, s.shape[1], c), dtype)
+    lanes = pgrid_layout(c, kpn, f.element_size(), idx.shape[0] *
+                         idx.shape[1])["lanes"]
+    got = pgrid_emulated(q, s, f, idx, mask, kp, r, extent, mode, lanes)
+    ref = pseudo_grid.pseudo_grid_plain(q, s, f, idx, mask, kp, r, extent,
+                                        mode)
+    assert got.dtype == dtype and got.shape == (2, 37, kpn * c)
+    assert (got[0, 3] == 0).all()  # the all-masked query
+    assert got.float().abs().max() > 0.1
+    torch.testing.assert_close(got.float(), ref.float(), **_pgrid_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("case,c", [("plain", 12), ("k64", 6), ("dup", 30)])
+def test_sincos_emulation_matches_plain(case, c, reduction, dtype):
+    q, s, idx, mask, r = _case(case)
+    f = _features(12, (2, s.shape[1], c), dtype)
+    lanes = sincos_layout(c, idx.shape[0] * idx.shape[1])["lanes"]
+    got = sincos_emulated(q, s, f, idx, mask, r, reduction, lanes)
+    ref = aggregation.pospool_sincos_plain(q, s, f, idx, mask, r, reduction)
+    assert got.dtype == dtype and got.shape == (2, 37, c)
+    assert (got[0, 3] == 0).all()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **_sincos_tol(dtype, reduction))
+
+
+@pytest.fixture(scope="module")
+def cloud():
+    """(q, s, idx, mask, radius): 24 queries into a 96-point support, one
+    cloud padded, one query masked, neighbors out to |dp| ~ 1."""
+    rng = np.random.default_rng(41)
+    xyz = rng.uniform(-1, 1, size=(2, 96, 3)).astype(np.float32)
+    m = np.ones((2, 96), bool)
+    m[1, 70:] = False
+    q, qm = xyz[:, :24].copy(), m[:, :24].copy()
+    qm[0, 5] = False
+    idx, nmask = ball_query(torch.from_numpy(q), torch.from_numpy(xyz), 0.45,
+                            12, query_mask=torch.from_numpy(qm),
+                            support_mask=torch.from_numpy(m))
+    return (torch.from_numpy(q), torch.from_numpy(xyz), idx, nmask, 0.45)
+
+
+def _j(*ts):
+    return [jnp.asarray(t.numpy()) for t in ts]
+
+
+@pytest.mark.parametrize("mode", ["linear", "constant", "gaussian"])
+def test_pgrid_emulation_matches_the_pallas_kernel(cloud, mode):
+    q, s, idx, mask, r = cloud
+    kp, extent = _kernel_points(15)
+    f = _features(13, (2, 96, 6), torch.float32)
+    got = pgrid_emulated(q, s, f, idx, mask, kp, r, extent, mode, 8)
+    with pytest.MonkeyPatch.context() as mp:
+        conftest.pallas_test_mode(mp)
+        ref = np.asarray(jpseudo_grid.pseudo_grid_fused(
+            *_j(q, s, f, idx, mask, kp), r, extent, mode))
+    assert np.abs(ref).max() > 1.0 and (ref[0, 5] == 0).all()
+    # f32; the same influence arithmetic (exp may differ in its last
+    # ulp), the slot sums associate differently
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+def test_sincos_emulation_matches_the_pallas_kernel(cloud, reduction):
+    q, s, idx, mask, r = cloud
+    f = _features(14, (2, 96, 12), torch.float32)
+    got = sincos_emulated(q, s, f, idx, mask, r, reduction, 8)
+    with pytest.MonkeyPatch.context() as mp:
+        conftest.pallas_test_mode(mp, ops_impl="jnp")
+        ref = np.asarray(jpospool_fused(*_j(q, s, f, idx, mask), r,
+                                        "sin_cos", reduction))
+    assert (ref[0, 5] == 0).all()
+    # the TPU kernel sums sin/cos of absolute angles and recombines them;
+    # the JAX package's own tolerance for it (sum: up to 12 slots)
+    atol = 2e-4 if reduction == "avg" else 1e-3
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=atol)

@@ -1,10 +1,13 @@
-"""The backward kernels of the point-wise MLP's statistics (K6b,
-``pwmlp_minmax_stats_bwd_cuda``) and of the pseudo-grid (K10b,
-``pseudo_grid_bwd_cuda``): device time per call and per train step, and
-each train config's device busy time a step, on the card; optionally
-against the same readings of another checkout, taken in turns.
+"""The redesigned neighborhood kernels, backward (K6b,
+``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``) and
+forward (K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``):
+device time per call and per train step, the bits of every call's
+output, and each train config's device busy time a step, on the card;
+optionally against the same readings of another checkout, taken in
+turns.
 
     python3 tools/time_backward.py [--parent DIR] [--reps 20]
+                                   [--kernels backward|forward|all]
 
 Needs a CUDA card and ``nvcc``. Each reading runs in a process of its
 own that imports ``closerlook3d_tpu_torch`` from one checkout (this one,
@@ -13,15 +16,19 @@ every C entry is called by its own wrapper; the helpers come from this
 checkout's ``chip_smoke.py`` and ``tools/time_ball_query.py``. A reading
 holds:
 
-* K6b at every call of the ModelNet40 point-wise MLP train step and at
-  the K6 calls of ``seg-train:shapenetpart_pwmlp`` (8 clouds; its last
-  stage takes the K13 + K7 route), K10b at every call of the ModelNet40
-  pseudo-grid train step: bf16, inputs from three seeded batches as
-  ``chip_smoke.py`` makes them, each call first held to its plain twin
-  run on the card, then timed by ``chip_smoke._device_time`` (the
-  profiler's mean per device op, summed over the call's ops: the reverse
-  index, fills, casts and kernels) and by CUDA events over eager
-  launches, beside its bound;
+* with ``--kernels backward`` or ``all`` (the default): K6b at every
+  call of the ModelNet40 point-wise MLP train step and at the K6 calls
+  of ``seg-train:shapenetpart_pwmlp`` (8 clouds; its last stage takes
+  the K13 + K7 route), K10b at every call of the ModelNet40 pseudo-grid
+  train step; with ``forward`` or ``all``: K10f at every call of the
+  pseudo-grid step and K5f at every call of the sin/cos step. bf16,
+  inputs from three seeded batches as ``chip_smoke.py`` makes them; each
+  call first held to its plain version or twin run on the card, the
+  SHA-256 of its output bytes taken on the first set in bf16 and again
+  with every bf16 input cast to f32, then timed by
+  ``chip_smoke._device_time`` (the profiler's mean per device op, summed
+  over the call's ops: the reverse index, fills, casts and kernels) and
+  by CUDA events over eager launches, beside its bound;
 * each train config of ``chip_smoke.py`` (the five ModelNet40 configs
   and the two segmentation ones): 4 bf16 steps on one batch, then 3
   under torch.profiler; device busy ms a step (union of device op
@@ -29,14 +36,17 @@ holds:
 
 Without ``--parent`` one reading of this checkout is taken. With it the
 readings go parent, this, this, parent, and the summary gives each
-checkout's mean of two: per call, per step, and per config the busy time
-beside the backward kernels' saving (per-call device times times calls a
-step). The card's name and power limit are printed first; everything
-goes to ``chiprun_out/time_backward.json``.
+checkout's mean of two: per call (device ms and ops, events ms, bound,
+the parent's device ms, and whether the output bits equal the parent's
+in bf16 and f32), per step, and per config the busy time beside the
+timed kernels' saving (per-call device times times calls a step). The
+card's name and power limit are printed first; everything goes to
+``chiprun_out/time_backward.json``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 
@@ -47,10 +57,14 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import chip_smoke  # noqa: E402  (imports no part of the port at load)
 import time_ball_query  # noqa: E402
 
-# (step, kernel) pairs timed call by call; the step names a config of
-# chip_smoke.py and the kernel its kernels line's name
-TIMED = (("pwmlp", "pwmlp_stats_bwd"), ("pgrid", "pseudo_grid_bwd"),
-         ("shapenetpart_pwmlp", "pwmlp_stats_bwd"))
+# (step, kernel) pairs timed call by call, by --kernels choice; the step
+# names a config of chip_smoke.py and the kernel its kernels line's name
+TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
+                      ("pgrid", "pseudo_grid_bwd"),
+                      ("shapenetpart_pwmlp", "pwmlp_stats_bwd")),
+         "forward": (("pgrid", "pseudo_grid"),
+                     ("sincos", "pospool_sincos"))}
+TIMED["all"] = TIMED["backward"] + TIMED["forward"]
 
 
 def _cases(step: str, kernel: str, gen) -> list:
@@ -88,8 +102,37 @@ def _cases(step: str, kernel: str, gen) -> list:
 
 
 def _tol(kernel: str, dtype):
-    return (chip_smoke._pgrid_tol(dtype) if kernel == "pseudo_grid_bwd"
-            else chip_smoke._pwmlp_bwd_tol(dtype))
+    """The tolerance ``chip_smoke.py`` holds the kernel to (the timing
+    inputs reduce by avg)."""
+    if kernel.startswith("pseudo_grid"):
+        return chip_smoke._pgrid_tol(dtype)
+    if kernel == "pospool_sincos":
+        return chip_smoke._pospool_fwd_tol(dtype, "avg", "sincos")
+    return chip_smoke._pwmlp_bwd_tol(dtype)
+
+
+def output_sha256(fn, inputs) -> dict:
+    """SHA-256 of the bytes of ``fn(*inputs)`` (every output in turn), and
+    again with every bf16 tensor of ``inputs`` cast to f32 (None where the
+    kernel refuses that mix)."""
+    import torch
+
+    def digest(ins):
+        got = fn(*ins)
+        h = hashlib.sha256()
+        for t in got if isinstance(got, tuple) else (got,):
+            h.update(str(t.dtype).encode())
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()
+
+    f32 = [a.float() if isinstance(a, torch.Tensor)
+           and a.dtype == torch.bfloat16 else a for a in inputs]
+    try:
+        wide = digest(f32)
+    except ValueError:
+        wide = None
+    return {"bf16": digest(inputs), "f32": wide}
 
 
 def time_calls(step: str, kernel: str, reps: int) -> dict:
@@ -109,13 +152,14 @@ def time_calls(step: str, kernel: str, reps: int) -> dict:
             torch.testing.assert_close(a.float(), b.float(),
                                        **_tol(kernel, a.dtype))
         per_op = {}
+        sha = output_sha256(fn, ins[0])
         ms, ops = chip_smoke._device_time(fn, ins, reps, per_op)
         bound_ms, bound_by = chip_smoke._bound(nbytes, flops)
         rows.append({"call": name, "per_step": count, "device_ms": ms,
                      "device_ops_per_call": ops, "device_ms_by_op": per_op,
                      "stream_ms": chip_smoke._time(fn, ins, reps),
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "flops": flops})
+                     "bytes": nbytes, "flops": flops, "sha256": sha})
         chip_smoke.log("backward-timing", f"{step} {kernel} {name} x{count}: "
                        f"device {ms:.5f} ms in {ops} ops ("
                        + ", ".join(f"{chip_smoke._op_name(n)} {v:.5f}"
@@ -129,21 +173,21 @@ def time_calls(step: str, kernel: str, reps: int) -> dict:
     return {"calls": rows, **tot}
 
 
-def reading(tree: str, reps: int) -> dict:
+def reading(tree: str, reps: int, kernels: str = "all") -> dict:
     """One reading of checkout ``tree`` (see the module's docstring)."""
     sys.path.insert(0, tree)
     import torch
 
     import closerlook3d_tpu_torch
-    from closerlook3d_tpu_torch.ops import kernels
+    from closerlook3d_tpu_torch.ops import kernels as build
 
     pkg = os.path.dirname(os.path.abspath(closerlook3d_tpu_torch.__file__))
     if os.path.dirname(pkg) != os.path.abspath(tree):
         raise AssertionError(f"imported the port from {pkg}, not {tree}")
-    kernels.build_all(n[:-3] for n in os.listdir(kernels.CSRC)
+    build.build_all(n[:-3] for n in os.listdir(build.CSRC)
                       if n.endswith(".cu"))
     out = {"tree": tree, "calls": {}, "steps": {}}
-    for step, kernel in TIMED:
+    for step, kernel in TIMED[kernels]:
         out["calls"][f"{step}:{kernel}"] = time_calls(step, kernel, reps)
         torch.cuda.empty_cache()
     for name in chip_smoke.TRAIN_KINDS + chip_smoke.SEG_TRAIN_NAMES:
@@ -159,12 +203,16 @@ def _mean(xs):
 def compare(parent: list, this: list) -> dict:
     """Each checkout's mean of its readings, and what changed."""
     out = {"calls": {}, "steps": {}}
-    saving = {}  # config -> device ms a step the backward kernels saved
+    saving = {}  # config -> device ms a step the timed kernels saved
     for key, t in this[0]["calls"].items():
         rows = []
         for i, row in enumerate(t["calls"]):
             r = {"call": row["call"], "per_step": row["per_step"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+            shas = [p["calls"][key]["calls"][i]["sha256"]
+                    for p in parent + this]
+            r["same_bits_as_parent"] = {
+                dt: len({h[dt] for h in shas}) == 1 for dt in shas[0]}
             for k in ("device_ms", "stream_ms", "device_ops_per_call"):
                 r["parent_" + k] = _mean([p["calls"][key]["calls"][i][k]
                                           for p in parent])
@@ -174,8 +222,10 @@ def compare(parent: list, this: list) -> dict:
                            f"{r['device_ms']:.5f} ms in "
                            f"{r['device_ops_per_call']:g} ops, parent "
                            f"{r['parent_device_ms']:.5f} ms in "
-                           f"{r['parent_device_ops_per_call']:g}; bound "
-                           f"{r['bound_ms']:.5f}")
+                           f"{r['parent_device_ops_per_call']:g}; events "
+                           f"{r['stream_ms']:.5f} ms; bound "
+                           f"{r['bound_ms']:.5f}; bits equal to the "
+                           f"parent's: {r['same_bits_as_parent']}")
         tot = {k: sum(r[k] * r["per_step"] for r in rows)
                for k in ("device_ms", "parent_device_ms", "stream_ms",
                          "parent_stream_ms", "bound_ms")}
@@ -208,14 +258,16 @@ def compare(parent: list, this: list) -> dict:
         chip_smoke.log(
             "compare", f"{name}: busy {row['busy_ms']:.3f} ms a step, parent "
             f"{row['parent_busy_ms']:.3f}, fall {row['fall_ms']:+.4f}, "
-            f"backward saving {row['saving_ms']:.4f}; rose most "
+            f"timed kernels' saving {row['saving_ms']:.4f}; rose most "
             + "; ".join(f"{op} {d:+.4f}" for op, d in row["rose_most"]))
     return out
 
 
 def main() -> int:
-    return time_ball_query.tool_main(__file__, __doc__, reading, compare,
-                                     "time_backward")
+    return time_ball_query.tool_main(
+        __file__, __doc__, reading, compare, "time_backward",
+        [("--kernels", dict(choices=sorted(TIMED), default="all",
+                            help="which kernels to time call by call"))])
 
 
 if __name__ == "__main__":

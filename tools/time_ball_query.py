@@ -196,10 +196,11 @@ def _bq_op_names(readings) -> set:
             for op in c["device_ms_by_op"]}
 
 
-def readings_in_turns(script: str, parent, reps: int, out_dir: str):
+def readings_in_turns(script: str, parent, reps: int, out_dir: str,
+                      argv=()):
     """The readings of a ``--parent`` timing tool (``script``, run as
-    ``script --reading tree:path`` in a process each): this checkout
-    once, or with ``parent`` the order parent, this, this, parent.
+    ``script --reading tree:path`` plus ``argv`` in a process each): this
+    checkout once, or with ``parent`` the order parent, this, this, parent.
     Returns {"parent": [...], "this": [...]} of the readings' records."""
     os.makedirs(out_dir, exist_ok=True)
     order = [("this", REPO)]
@@ -212,7 +213,7 @@ def readings_in_turns(script: str, parent, reps: int, out_dir: str):
         path = os.path.join(out_dir, f"{i}-{label}.json")
         chip_smoke.log("reading", f"{i}: {label} ({tree})")
         subprocess.run([sys.executable, os.path.abspath(script),
-                        "--reps", str(reps), "--reading",
+                        "--reps", str(reps), *argv, "--reading",
                         f"{tree}{os.pathsep}{path}"], check=True)
         with open(path) as f:
             readings[label].append(json.load(f))
@@ -220,27 +221,35 @@ def readings_in_turns(script: str, parent, reps: int, out_dir: str):
 
 
 def tool_main(script: str, doc: str, reading_fn, compare_fn,
-              name: str) -> int:
+              name: str, options=()) -> int:
     """The command line of a ``--parent`` timing tool: one reading in
     this process (``--reading``), or the readings in turns, compared,
-    into ``chiprun_out/<name>.json``."""
+    into ``chiprun_out/<name>.json``. ``options`` are the tool's own
+    (flag, argparse keywords) pairs; their values go to every reading
+    (``reading_fn(tree, reps, **values)``)."""
     ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--parent", default=None,
                     help="another checkout, read in turns with this one")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--reading", default=None, help=argparse.SUPPRESS)
+    for flag, kw in options:
+        ap.add_argument(flag, **kw)
     args = ap.parse_args()
+    values = {dest: getattr(args, dest) for dest in (
+        flag.lstrip("-").replace("-", "_") for flag, _ in options)}
     if args.reading:  # one reading, in this process
         tree, path = args.reading.split(os.pathsep)
         with open(path, "w") as f:
-            json.dump(reading_fn(tree, args.reps), f, default=str)
+            json.dump(reading_fn(tree, args.reps, **values), f, default=str)
         return 0
 
     print(chip_smoke.gpu_line(), flush=True)
-    record = {"device": chip_smoke.phase_device()}
+    record = {"device": chip_smoke.phase_device(), "options": values}
+    argv = [a for (flag, _), v in zip(options, values.values())
+            for a in (flag, str(v))]
     record["readings"] = readings_in_turns(
         script, args.parent, args.reps,
-        os.path.join(REPO, "chiprun_out", name))
+        os.path.join(REPO, "chiprun_out", name), argv)
     if args.parent:
         record["compare"] = compare_fn(record["readings"]["parent"],
                                        record["readings"]["this"])

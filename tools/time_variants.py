@@ -1,0 +1,152 @@
+"""Source variants of the forward kernels K10f (``csrc/pseudo_grid.cu``)
+and K5f (``csrc/pospool_sincos.cu``), timed against each other call by
+call in one process, on the card.
+
+    python3 tools/time_variants.py VARIANTS.json
+
+VARIANTS.json maps a variant's name to the edits that make it from this
+checkout's ``csrc/``: ``{"file under csrc/": [[old, new], ...]}`` (each
+``old`` must occur), or ``{"__dir__": "a csrc directory, relative to the
+repository"}`` for another design's sources; ``{}`` is this checkout as
+it stands. Needs a CUDA card and ``nvcc``. Each variant builds both
+sources into the git-ignored ``csrc/_build/variants/``, all at once, and
+prints each forward kernel's registers and spills. Then, at every call
+of the ModelNet40 pseudo-grid (K10f) and sin/cos (K5f) bf16 train steps,
+on the inputs ``tools/time_backward.py`` times, each variant's library
+takes the wrapper's place in turn (``kernels._LIBS``): its output's bits
+against the first variant's, and its device time
+(``chip_smoke._device_time``) read twice, in the variants' order and
+then reversed. Lines ``CALL`` give each call's mean per variant and its
+ratio to the first variant, ``STEP`` the sums a step; the records go to
+``chiprun_out/time_variants/<VARIANTS>.json``. A design's variants are
+edits of its own sources, so a spec applies to the tree it was written
+for.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import chip_smoke  # noqa: E402
+import time_backward  # noqa: E402
+
+SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos"}
+
+
+def build(name: str, spec: dict, src: str):
+    """Compile ``csrc/<src>.cu`` of variant ``name``; the .so path, or
+    None (and nvcc's error printed) if it does not build."""
+    from closerlook3d_tpu_torch.ops import kernels
+
+    spec = dict(spec)
+    origin = spec.pop("__dir__", None)
+    d = os.path.join(kernels.BUILD_DIR, "variants", f"{name}_{src}")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, origin) if origin else kernels.CSRC,
+                    d, ignore=shutil.ignore_patterns("_build"))
+    for fn, edits in spec.items():
+        path = os.path.join(d, fn)
+        with open(path) as f:
+            text = f.read()
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"{name}: {fn} has no {old[:60]!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+    lib = os.path.join(d, f"{src}.so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", lib,
+                           os.path.join(d, f"{src}.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        print(f"BUILD FAIL {name} {src}\n{proc.stderr[-3000:]}", flush=True)
+        return None
+    entry = None
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and f"{src}_kernel" in entry and (
+                "registers" in line
+                or ("spill" in line and " 0 bytes spill stores" not in line)):
+            print(f"PTXAS {name} {entry[-60:]}: {line.strip()}", flush=True)
+    return lib
+
+
+def load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    lib.cl3d_error_string.argtypes = [ctypes.c_int]
+    lib.cl3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def digest(t) -> str:
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def main() -> int:
+    import torch
+
+    from closerlook3d_tpu_torch.ops import kernels
+
+    spec_path = sys.argv[1]
+    with open(spec_path) as f:
+        variants = json.load(f)
+    print(chip_smoke.gpu_line(), flush=True)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        jobs = {(n, src): pool.submit(build, n, spec, src)
+                for n, spec in variants.items() for src in SOURCES}
+    libs = {k: load(job.result()) for k, job in jobs.items() if job.result()}
+    gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(
+        chip_smoke.SEED + 4)
+    record = {}
+    for step, kernel in time_backward.TIMED["forward"]:
+        src = SOURCES[kernel]
+        names = [n for n in variants if (n, src) in libs]
+        per_step = dict.fromkeys(names, 0.0)
+        for call, count, fn, _, ins, (nbytes, flops) in time_backward._cases(
+                step, kernel, gen):
+            ms = {n: [] for n in names}
+            bits = {}
+            for order in (names, names[::-1]):
+                for n in order:
+                    kernels._LIBS[src] = libs[(n, src)]
+                    if n not in bits:
+                        bits[n] = digest(fn(*ins[0]))
+                    ms[n].append(chip_smoke._device_time(fn, ins, 20)[0])
+            mean = {n: sum(v) / len(v) for n, v in ms.items()}
+            first = mean[names[0]]
+            print(f"CALL {kernel} {call} x{count} bound "
+                  f"{chip_smoke._bound(nbytes, flops)[0]:.5f}: " + " ".join(
+                      f"{n}={m:.5f}({m / first:.2f})"
+                      + ("" if bits[n] == bits[names[0]] else "!BITS")
+                      for n, m in mean.items()), flush=True)
+            for n in names:
+                per_step[n] += count * mean[n]
+            record[f"{kernel}:{call}"] = {"ms": ms, "sha256": bits}
+        first = per_step[names[0]]
+        print(f"STEP {kernel}: " + " ".join(
+            f"{n}={v:.5f}({v / first:.3f})" for n, v in per_step.items()),
+            flush=True)
+    out = os.path.join(REPO, "chiprun_out", "time_variants")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, os.path.basename(spec_path)), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
