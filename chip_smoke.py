@@ -682,9 +682,13 @@ def _vjp(fn, x, dy):
 def _bwd_tol(dtype, red, kind="xyz"):
     """Backward kernel vs its plain twin, elementwise."""
     if dtype == torch.float32:
-        # the same f32 terms summed in another order (atomics); sums of
-        # up to ~40 terms carry more rounding than averages, and a moments
-        # slot's term (g0 + sum_d g_d dp_d) is up to 4x a PosPool one
+        # the same f32 terms summed in other orders: the twin's index_add_
+        # on the card adds with atomics in an order that varies, as K1b's
+        # and K8b's scatters do, while K5b and K9b add each support row's
+        # terms in (q, t) order (and sin/cos: CUDA's sinf against
+        # sincosf); sums of up to ~40 terms carry more rounding than
+        # averages, and a moments slot's term (g0 + sum_d g_d dp_d) is up
+        # to 4x a PosPool one
         if red == "avg":
             return dict(rtol=1e-5, atol=1e-6)
         return dict(rtol=1e-5, atol=4e-5 if kind == "adaptive" else 1e-5)
@@ -1616,7 +1620,7 @@ def _agg_flops_per_slot(kind: str, c: int) -> int:
     backward alike) with C input channels: D (3 subtractions and 3
     divisions), then per channel a multiply-add (xyz, sin/cos), or one
     add and three multiply-adds (moments; the backward's three
-    multiply-adds and its atomic add). Sin/cos adds per (coordinate,
+    multiply-adds and its add). Sin/cos adds per (coordinate,
     frequency) pair the angle's multiply and divide and one operation
     each for sin and cos."""
     return {"xyz": 6 + 2 * c, "sincos": 6 + 2 * c + 4 * (c // 2),
@@ -2956,6 +2960,8 @@ REPLACES = {
     "pospool_sincos": ("closerlook3d_tpu_torch/csrc/pospool_sincos.cu",
                        "closerlook3d_tpu/ops/pallas/aggregation.py:458",
                        None),
+    # K5b and K9b: the reverse index, then a gather per support row that
+    # recomputes each slot's term (csrc/row_terms.cuh)
     "pospool_sincos_bwd": ("closerlook3d_tpu_torch/csrc/pospool_sincos.cu",
                            "closerlook3d_tpu/ops/pallas/aggregation.py:507",
                            None),

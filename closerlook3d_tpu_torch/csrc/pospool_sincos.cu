@@ -8,7 +8,7 @@
 //   E[k, d*2nf + nf + j] = cos(A[k, d, j]),    rounded to the features' type,
 // alpha = 100 and freq[j] = 1000 ** (j / nf), a table the wrapper passes in
 // (computed as the plain version computes it). R = sum, or avg = sum /
-// max(count of valid slots, 1). The backward scatters onto the support rows:
+// max(count of valid slots, 1). The backward gathers onto the support rows:
 //   df[s, c] = sum over (q, k) with idx[q, k] = s and mask[q, k] of
 //              g[q, c] * E[k, c],
 //   g = dy (sum), or dy / max(count_q, 1) rounded to the features' type
@@ -29,8 +29,9 @@
 // and cos are the accurate sincosf (never __sinf or fast math: angles reach
 // 100 rad). E is rounded to the features' type, as the gather path casts
 // the embedding; products and sums are f32 and each result is rounded
-// once. The forward sums over k in slot order, the backward in atomic
-// order into a zeroed f32 scratch that the wrapper casts once.
+// once. The forward sums over k in slot order; the backward sums a support
+// row's terms from +0 in (q, t) order, the order of the plain twin's
+// index_add_ on CPU tensors, and gives the same bits on every run.
 //
 // Forward layout (query_groups.cuh): a group of 8-32 lanes per query (and
 // slice of its pairs where queries are few), several groups a block and no
@@ -40,10 +41,12 @@
 // channels share one angle and one sincosf, neighbouring lanes on
 // neighbouring channels. Group widths follow the C / 2 pairs
 // (group_lanes_for), so that most lanes run a sincosf: 8 lanes at C = 72
-// (36 pairs, 5 passes). The backward keeps the older layout
-// (query_blocks.cuh): one block per kQPB queries, a query's slots and D
-// staged in shared memory, a thread per pair, so that the atomics
-// coalesce.
+// (36 pairs, 5 passes). The backward takes two launches over a reverse
+// neighbor index (row_terms.cuh): the index (and, for avg, g = dy /
+// max(count, 1) by query), then a gather in which 4 frequencies of one
+// coordinate of a support row take one lane (9 lanes a row at C = 72),
+// recomputing each entry's D and angles from the row's own position: no
+// float atomics, no zeroed scratch, no cast.
 //
 // Bound on the H100: bytes at these shapes by the count the smoke run uses
 // (inputs read once, outputs written once). The forward runs ~60
@@ -53,11 +56,17 @@
 // the division's and sincosf's slow-path branches, which split the loop
 // body. More warps in flight help (kSinCosBlocks); staging the terms in
 // shared memory to keep all 32 lanes on one query did not (fewer warps).
+// The backward runs the same sincosf a (valid slot, pair), so it too is
+// bound by instructions, not bytes: one division for D a (entry, lane)
+// and 4 frequencies a lane keep the rest small beside the sincosf. A lane
+// takes its entries one at a time: 2 to 8 at once cost registers (the
+// sincosf's slow path keeps a stack frame) and ran 7-28% slower, 2
+// frequencies a lane 4% slower.
 
 #include <climits>
 
-#include "query_blocks.cuh"
 #include "query_groups.cuh"
+#include "row_terms.cuh"
 
 namespace {
 
@@ -188,56 +197,106 @@ int launch_fwd(const float* q, const float* s, const void* f,
   }
 }
 
-template <typename T>
-__global__ void pospool_sincos_bwd_kernel(const float* __restrict__ q,
-                                          const float* __restrict__ s,
-                                          const float* __restrict__ freq,
-                                          const int32_t* __restrict__ idx,
-                                          const bool* __restrict__ mask,
-                                          const T* __restrict__ dy, int nq,
-                                          int ns, int c, int k, float radius,
-                                          int avg, float* __restrict__ df) {
-  __shared__ int s_idx[kMaxK];
-  __shared__ float s_d[kMaxK * 3];
-  const int b = blockIdx.y;
+// K5 backward, launch 2 (row_terms.cuh): the lane of unit `unit` of
+// support row s holds kU frequencies j0 .. j0 + kU - 1 of one coordinate
+// d, i.e. the sin channels c_sin = d * 2nf + j0 .. and the cos channels
+// c_sin + nf ..; for each entry (q, t) of the row, in (q, t) order,
+//   A = (alpha * D) / freq[j],  D = (s[s, d] - q[q, d]) / r   (f32),
+//   df[s, c_sin] += g[q, c_sin] * sin(A),  df[s, c_cos] += g[q, c_cos] *
+//   cos(A),
+// sin and cos rounded to T first, as the forward rounds the embedding; one
+// division for D and one sincosf a (entry, frequency); g in runs of kU
+// values (8 bytes at kU = 4 bf16). An entry holds its query
+// (row_terms.cuh).
+template <typename T, int kU>
+__global__ void __launch_bounds__(kRowThreads)
+    sincos_gather_kernel(const float* __restrict__ q,
+                         const float* __restrict__ s,
+                         const float* __restrict__ freq,
+                         const T* __restrict__ g,
+                         const int32_t* __restrict__ offsets,
+                         const int32_t* __restrict__ entries, int nq, int ns,
+                         int c, int k, int tiles, int per, float radius,
+                         int lanes, int slices, T* __restrict__ df) {
   const int nf = c / 6;
-  const int pairs = c / 2;
-  float* dfb = df + static_cast<size_t>(b) * ns * c;
-  const float* sb = s + static_cast<size_t>(b) * ns * 3;
-
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_slots<float>(q, sb, idx, mask, row, k, radius, s_idx, s_d);
-    __syncthreads();
-    const int cnt = staged_count(s_idx, k);
-    if (cnt == 0) continue;  // uniform: nothing to scatter
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int d = p / nf;
-      const int j = p - d * nf;
-      const int c_sin = d * 2 * nf + j;
-      const int c_cos = c_sin + nf;
-      const float fr = freq[j];
-      float g_s = to_f32(dy[row * c + c_sin]);
-      float g_c = to_f32(dy[row * c + c_cos]);
-      if (avg) {
-        g_s = to_f32(from_f32<T>(__fdiv_rn(g_s, static_cast<float>(cnt))));
-        g_c = to_f32(from_f32<T>(__fdiv_rn(g_c, static_cast<float>(cnt))));
-      }
-      for (int t = 0; t < k; ++t) {
-        const int sj = s_idx[t];
-        if (sj >= 0) {
-          float sn, cs;
-          sincosf(__fdiv_rn(__fmul_rn(kAlpha, s_d[t * 3 + d]), fr), &sn, &cs);
-          float* row_out = dfb + static_cast<size_t>(sj) * c;
-          atomicAdd(row_out + c_sin, __fmul_rn(g_s, to_f32(from_f32<T>(sn))));
-          atomicAdd(row_out + c_cos, __fmul_rn(g_c, to_f32(from_f32<T>(cs))));
+  const int per_coord = nf / kU;  // units a coordinate
+  const RowItem it = row_item(ns, 3 * per_coord, lanes, slices);
+  if (!it.live) return;
+  const int d = it.unit / per_coord;
+  const int j0 = (it.unit - d * per_coord) * kU;
+  const int c_sin = d * 2 * nf + j0;
+  const int c_cos = c_sin + nf;
+  float fr[kU];
+#pragma unroll
+  for (int i = 0; i < kU; ++i) fr[i] = freq[j0 + i];
+  const size_t b = blockIdx.y;
+  const float sd = s[(b * ns + it.row) * 3 + d];
+  const float* qb = q + b * nq * 3 + d;
+  const T* gb = g + b * nq * c;
+  float acc_s[kU] = {}, acc_c[kU] = {};
+  for_each_entry_tile(
+      offsets, entries, b, nq, ns, k, tiles, per, it.row,
+      [&](const int32_t* eb, int start, int end, int q0) {
+        for (int e = start; e < end; ++e) {
+          const int qi = q0 + eb[e];
+          const T* gq = gb + static_cast<size_t>(qi) * c;
+          T gs[kU], gc[kU];
+          load_run<T, kU>(gq + c_sin, gs);
+          load_run<T, kU>(gq + c_cos, gc);
+          const float ad =
+              __fmul_rn(kAlpha, __fdiv_rn(__fsub_rn(sd, qb[qi * 3]), radius));
+#pragma unroll
+          for (int i = 0; i < kU; ++i) {
+            float sn, cs;
+            sincosf(__fdiv_rn(ad, fr[i]), &sn, &cs);
+            acc_s[i] = __fadd_rn(
+                acc_s[i], __fmul_rn(to_f32(gs[i]), to_f32(from_f32<T>(sn))));
+            acc_c[i] = __fadd_rn(
+                acc_c[i], __fmul_rn(to_f32(gc[i]), to_f32(from_f32<T>(cs))));
+          }
         }
-      }
-    }
-  }
+      });
+  T* orow = df + (b * ns + it.row) * c;
+  store_run<T, kU>(orow + c_sin, acc_s);
+  store_run<T, kU>(orow + c_cos, acc_c);
+}
+
+template <typename T, int kU>
+void launch_gather_as(const float* q, const float* s, const float* freq,
+                      const T* g, const int32_t* offsets,
+                      const int32_t* entries, int b, int nq, int ns, int c,
+                      int k, int tiles, float radius, T* df,
+                      cudaStream_t stream) {
+  const RowSplit sp = row_split(c / 2 / kU);
+  sincos_gather_kernel<T, kU><<<row_grid(b, ns, sp), kRowThreads, 0,
+                                stream>>>(
+      q, s, freq, g, offsets, entries, nq, ns, c, k, tiles,
+      (nq + tiles - 1) / tiles, radius, sp.lanes, sp.slices, df);
+}
+
+// K5's backward in two launches: the index (and g for avg), then the
+// gather at the widest unit of frequencies that nf and the pointers allow.
+template <typename T>
+void launch_bwd(const float* q, const float* s, const float* freq,
+                const int32_t* idx, const bool* mask, const void* dy, int b,
+                int nq, int ns, int c, int k, int tiles, float radius,
+                int avg, int32_t* offsets, int32_t* entries, int32_t* raw,
+                int* counters, void* g, void* df, cudaStream_t stream) {
+  const T* dp = static_cast<const T*>(dy);
+  T* gp = static_cast<T*>(g);
+  T* fp = static_cast<T*>(df);
+  launch_index_scale<T>(idx, mask, dp, b, nq, ns, k, tiles, c, avg, offsets,
+                        entries, raw, counters, gp, stream);
+  const int nf = c / 6;
+  if (runs_ok<T, 4>(nf, g, df))
+    launch_gather_as<T, 4>(q, s, freq, gp, offsets, entries, b, nq, ns, c, k,
+                           tiles, radius, fp, stream);
+  else if (runs_ok<T, 2>(nf, g, df))
+    launch_gather_as<T, 2>(q, s, freq, gp, offsets, entries, b, nq, ns, c, k,
+                           tiles, radius, fp, stream);
+  else
+    launch_gather_as<T, 1>(q, s, freq, gp, offsets, entries, b, nq, ns, c, k,
+                           tiles, radius, fp, stream);
 }
 
 bool bad_args(int b, int ns, int c, int k) {
@@ -265,26 +324,31 @@ extern "C" int cl3d_pospool_sincos(const float* q, const float* s,
                                      k, radius, avg, out, stream);
 }
 
-// df32 must be zeroed [B, Ns, C] float32; dy is [B, Nq, C] in the
-// features' dtype.
-extern "C" int cl3d_pospool_sincos_bwd(const float* q, const float* s,
-                                       const float* freq, const int32_t* idx,
-                                       const bool* mask, const void* dy,
-                                       int b, int nq, int ns, int c, int k,
-                                       float radius, int avg, int is_bf16,
-                                       float* df32, cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+// df [B, Ns, C] in the features' dtype, written in full (no zeroing
+// needed); dy is [B, Nq, C] in that dtype. g: for avg a [B, Nq, C] buffer
+// in that dtype that launch 1 fills with dy / max(count, 1), for sum dy
+// itself. The index in `tiles` query tiles a cloud (1 .. kMaxTiles, at
+// most Nq). Scratch, none zeroed: offsets and counters [B * tiles, Ns + 1]
+// (counters used where Ns outgrows shared memory), entries (each tile's
+// queries, in the cloud's slot range of the tile) and raw [B, Nq * K].
+// Two launches.
+extern "C" int cl3d_pospool_sincos_bwd(
+    const float* q, const float* s, const float* freq, const int32_t* idx,
+    const bool* mask, const void* dy, int b, int nq, int ns, int c, int k,
+    int tiles, float radius, int avg, int is_bf16, int32_t* offsets,
+    int32_t* entries, int32_t* raw, int* counters, void* g, void* df,
+    cudaStream_t stream) {
+  if (bad_args(b, ns, c, k) || static_cast<long long>(nq) * k > INT_MAX - 1 ||
+      tiles < 1 || tiles > kMaxTiles || (nq > 0 && tiles > nq))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    pospool_sincos_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c / 2), 0, stream>>>(
-            q, s, freq, idx, mask, static_cast<const __nv_bfloat16*>(dy), nq,
-            ns, c, k, radius, avg, df32);
-  } else {
-    pospool_sincos_bwd_kernel<float>
-        <<<grid_for(b, nq), threads_for(c / 2), 0, stream>>>(
-            q, s, freq, idx, mask, static_cast<const float*>(dy), nq, ns, c,
-            k, radius, avg, df32);
-  }
+  if (is_bf16)
+    launch_bwd<__nv_bfloat16>(q, s, freq, idx, mask, dy, b, nq, ns, c, k,
+                              tiles, radius, avg, offsets, entries, raw,
+                              counters, g, df, stream);
+  else
+    launch_bwd<float>(q, s, freq, idx, mask, dy, b, nq, ns, c, k, tiles,
+                      radius, avg, offsets, entries, raw, counters, g, df,
+                      stream);
   return static_cast<int>(cudaGetLastError());
 }

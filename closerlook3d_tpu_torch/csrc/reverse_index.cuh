@@ -13,7 +13,9 @@
 // blocks [0, B) beside the query-major blocks, so that a group of lanes
 // owning a support row then reads that row's terms in (q, t) order and
 // writes the row once, with no float atomics, no zeroed scratch and no
-// cast. csrc/reverse_index.cu launches it alone; its plain version is
+// cast; those of K5 and K9 (csrc/row_terms.cuh) run it once a tile of
+// consecutive queries, each entry holding its query (kQueries).
+// csrc/reverse_index.cu launches it alone; its plain version is
 // ops/reverse_index.py::reverse_index_plain.
 //
 // The block:
@@ -106,22 +108,34 @@ __device__ __forceinline__ void sort_network(int (&v)[N]) {
       }
 }
 
+// What an index entry holds: its slot id q * K + t, or (kQueries) its
+// query q.
+template <bool kQueries>
+__device__ __forceinline__ int32_t entry_of(int slot, int k) {
+  if constexpr (kQueries)
+    return slot / k;
+  else
+    return slot;
+}
+
 // One thread: the n <= N slot ids raw[0..n) to out[0..n) in order.
-template <int N>
+template <int N, bool kQueries>
 __device__ __forceinline__ void sort_short_row(const int32_t* raw, int n,
-                                               int32_t* out) {
+                                               int k, int32_t* out) {
   int v[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) v[i] = i < n ? __ldcg(raw + i) : INT_MAX;
   sort_network<N>(v);
 #pragma unroll
   for (int i = 0; i < N; ++i)
-    if (i < n) out[i] = v[i];
+    if (i < n) out[i] = entry_of<kQueries>(v[i], k);
 }
 
 // One warp: the n slot ids raw[0..n) (distinct) to out[0..n) in order,
 // each written at its rank.
-__device__ void sort_long_row(const int32_t* raw, int n, int32_t* out) {
+template <bool kQueries>
+__device__ void sort_long_row(const int32_t* raw, int n, int k,
+                              int32_t* out) {
   const int lane = threadIdx.x & 31;
   for (int i0 = 0; i0 < n; i0 += 32) {
     const bool mine = i0 + lane < n;
@@ -132,7 +146,7 @@ __device__ void sort_long_row(const int32_t* raw, int n, int32_t* out) {
 #pragma unroll 8
       for (int j = 0; j < 32; ++j) rank += __shfl_sync(kFull, w, j) < v;
     }
-    if (mine) out[rank] = v;
+    if (mine) out[rank] = entry_of<kQueries>(v, k);
   }
 }
 
@@ -141,8 +155,9 @@ constexpr int kShortRow = 16;    // rows sorted by one thread
 
 // Cloud b's index (see the header), by the kThreads threads of one block.
 // cnt: Ns + 1 ints of shared memory (kShared), else counters + b (Ns + 1)
-// in global memory; raw: the cloud's Nq * K scratch ints.
-template <int kThreads, bool kShared>
+// in global memory; raw: the cloud's Nq * K scratch ints. With kQueries
+// each entry holds its query q in place of its slot id (the same order).
+template <int kThreads, bool kShared, bool kQueries = false>
 __device__ void build_reverse_index(const int32_t* __restrict__ idx,
                                     const bool* __restrict__ mask, int nq,
                                     int ns, int k, int b, int* s_cnt,
@@ -195,11 +210,12 @@ __device__ void build_reverse_index(const int32_t* __restrict__ idx,
     const int start = s > 0 ? load_count<kShared>(cnt + s - 1) : 0;
     const int len = load_count<kShared>(cnt + s) - start;
     if (len == 1)
-      sb[start] = __ldcg(rb + start);
+      sb[start] = entry_of<kQueries>(__ldcg(rb + start), k);
     else if (len > 1 && len <= kShortRow / 2)
-      sort_short_row<kShortRow / 2>(rb + start, len, sb + start);
+      sort_short_row<kShortRow / 2, kQueries>(rb + start, len, k,
+                                              sb + start);
     else if (len > kShortRow / 2 && len <= kShortRow)
-      sort_short_row<kShortRow>(rb + start, len, sb + start);
+      sort_short_row<kShortRow, kQueries>(rb + start, len, k, sb + start);
   }
   // rows longer than kShortRow: a warp each, found 32 rows at a time
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -214,9 +230,9 @@ __device__ void build_reverse_index(const int32_t* __restrict__ idx,
     while (long_rows) {
       const int l = __ffs(long_rows) - 1;
       long_rows &= long_rows - 1;
-      sort_long_row(rb + __shfl_sync(kFull, start, l),
-                    __shfl_sync(kFull, len, l),
-                    sb + __shfl_sync(kFull, start, l));
+      sort_long_row<kQueries>(rb + __shfl_sync(kFull, start, l),
+                              __shfl_sync(kFull, len, l), k,
+                              sb + __shfl_sync(kFull, start, l));
     }
   }
 }

@@ -30,6 +30,8 @@ from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets, reduction_grad,
     scatter_to_support)
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
+from closerlook3d_tpu_torch.ops.reverse_index import (
+    index_buffers, index_tiles)
 
 SINCOS_ALPHA = 100.0  # angle scale of the sin/cos embedding
 SINCOS_BETA = 1000.0  # frequency base ("temperature")
@@ -202,25 +204,33 @@ def _pospool_fwd(mode: str, what: str, query_xyz, support_xyz, features,
     return out
 
 
-def _pospool_bwd(mode: str, what: str, query_xyz, support_xyz, idx, mask, dy,
-                 radius: float, reduction: str):
-    b, nq, ns, c, k = check_neighborhood_call(
-        what, query_xyz, support_xyz, dy, idx, mask, reduction,
-        CHANNEL_MULTIPLE[mode])
-    kernels.require(dy.shape == (b, nq, c), f"{what}: dy must be [B, Nq, C]")
-    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
-    if b * nq == 0:
-        return df.to(dy.dtype)
-    if mode == "xyz":
-        source, inputs = "pospool_xyz", (query_xyz, support_xyz, idx, mask,
-                                         dy)
-    else:
-        source, inputs = "pospool_sincos", (
-            query_xyz, support_xyz, sincos_freq(c, dy.device), idx, mask, dy)
-    launch_neighborhood_kernel(source, f"cl3d_{source}_bwd", what, inputs,
-                               (b, nq, ns, c, k), radius, reduction,
-                               dy.dtype == torch.bfloat16, df)
-    return df.to(dy.dtype)
+def launch_backward_gather(source: str, what: str, inputs, shape, dy,
+                           radius: float, reduction: str) -> torch.Tensor:
+    """Call ``cl3d_<source>_bwd`` of ``csrc/<source>.cu``, a backward that
+    gathers per support row over a reverse neighbor index built in query
+    tiles (``csrc/row_terms.cuh``): ``inputs`` (the points and tables, then
+    idx, mask and dy), (B, Nq, Ns, C, K), the tiles a cloud
+    (``index_tiles``), radius, avg and is_bf16, then the index buffers
+    (``ops/reverse_index.py``), g (for avg a buffer that the first launch
+    fills with dy / max(count, 1); for sum dy itself), the output and the
+    stream. Returns d out / d features [B, Ns, C] in dy's dtype, every
+    element written by the gather; raises if the launch fails."""
+    b, nq, ns, c, k = shape
+    kernels.require(nq * k < 2 ** 31 - 1, f"{what}: need Nq * K < 2^31 - 1")
+    tiles = index_tiles(b, nq, k, dy.device)
+    index = index_buffers(b * tiles, -(-nq // tiles), ns, k, dy.device)
+    g = torch.empty_like(dy) if reduction == "avg" else dy
+    df = torch.empty((b, ns, c), dtype=dy.dtype, device=dy.device)
+    lib, fn = kernels.entry(
+        source, f"cl3d_{source}_bwd", [kernels.P] * len(inputs)
+        + [kernels.I] * 6 + [kernels.F] + [kernels.I] * 2 + [kernels.P] * 7)
+    with torch.cuda.device(dy.device):
+        err = fn(*[t.data_ptr() for t in inputs], *shape, tiles, radius,
+                 int(reduction == "avg"), int(dy.dtype == torch.bfloat16),
+                 *[t.data_ptr() for t in index], g.data_ptr(), df.data_ptr(),
+                 kernels.stream_of(df))
+    kernels.check(lib, err, what)
+    return df
 
 
 def pospool_xyz_cuda(query_xyz, support_xyz, features, idx, mask,
@@ -239,11 +249,21 @@ pospool_xyz_cuda.launches = 0
 def pospool_xyz_bwd_cuda(query_xyz, support_xyz, idx, mask, dy,
                          radius: float, reduction: str):
     """Launch the backward of ``csrc/pospool_xyz.cu``: d out / d features
-    [B, Ns, C] in dy's dtype. Raises on anything it does not take."""
-    df = _pospool_bwd("xyz", "pospool_xyz_bwd_cuda", query_xyz, support_xyz,
-                      idx, mask, dy, radius, reduction)
+    [B, Ns, C] in dy's dtype, scattered with f32 atomics into a zeroed f32
+    scratch that is cast once. Raises on anything it does not take."""
+    what = "pospool_xyz_bwd_cuda"
+    b, nq, ns, c, k = check_neighborhood_call(
+        what, query_xyz, support_xyz, dy, idx, mask, reduction, 3)
+    kernels.require(dy.shape == (b, nq, c), f"{what}: dy must be [B, Nq, C]")
+    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
+    if b * nq == 0:
+        return df.to(dy.dtype)
+    launch_neighborhood_kernel("pospool_xyz", "cl3d_pospool_xyz_bwd", what,
+                               (query_xyz, support_xyz, idx, mask, dy),
+                               (b, nq, ns, c, k), radius, reduction,
+                               dy.dtype == torch.bfloat16, df)
     pospool_xyz_bwd_cuda.launches += 1
-    return df
+    return df.to(dy.dtype)
 
 
 pospool_xyz_bwd_cuda.launches = 0
@@ -265,10 +285,21 @@ pospool_sincos_cuda.launches = 0
 def pospool_sincos_bwd_cuda(query_xyz, support_xyz, idx, mask, dy,
                             radius: float, reduction: str):
     """Launch the backward of ``csrc/pospool_sincos.cu``: d out / d
-    features [B, Ns, C] in dy's dtype. Raises on anything it does not
+    features [B, Ns, C] in dy's dtype. Two device kernels: the reverse
+    index of idx/mask (for avg beside dy / max(count, 1) by query), then a
+    gather per support row that recomputes each slot's term and writes the
+    row once (``launch_backward_gather``). Raises on anything it does not
     take."""
-    df = _pospool_bwd("sin_cos", "pospool_sincos_bwd_cuda", query_xyz,
-                      support_xyz, idx, mask, dy, radius, reduction)
+    what = "pospool_sincos_bwd_cuda"
+    b, nq, ns, c, k = check_neighborhood_call(
+        what, query_xyz, support_xyz, dy, idx, mask, reduction, 6)
+    kernels.require(dy.shape == (b, nq, c), f"{what}: dy must be [B, Nq, C]")
+    if b * nq == 0:
+        return torch.zeros((b, ns, c), dtype=dy.dtype, device=dy.device)
+    df = launch_backward_gather(
+        "pospool_sincos", what,
+        (query_xyz, support_xyz, sincos_freq(c, dy.device), idx, mask, dy),
+        (b, nq, ns, c, k), dy, radius, reduction)
     pospool_sincos_bwd_cuda.launches += 1
     return df
 

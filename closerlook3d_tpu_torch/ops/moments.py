@@ -20,7 +20,8 @@ import torch
 
 from closerlook3d_tpu_torch.ops import kernels
 from closerlook3d_tpu_torch.ops.aggregation import (
-    check_neighborhood_call, launch_neighborhood_kernel)
+    check_neighborhood_call, launch_backward_gather,
+    launch_neighborhood_kernel)
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets, reduction_grad,
@@ -86,23 +87,24 @@ neighborhood_moments_cuda.launches = 0
 def neighborhood_moments_bwd_cuda(query_xyz, support_xyz, idx, mask, dy,
                                   radius: float, reduction: str):
     """Launch the backward of ``csrc/moments.cu``: d out / d features
-    [B, Ns, C] from dy [B, Nq, 4C], in dy's dtype. Raises on anything it
-    does not take."""
+    [B, Ns, C] from dy [B, Nq, 4C], in dy's dtype. Two device kernels: the
+    reverse index of idx/mask (for avg beside dy / max(count, 1) by
+    query), then a gather per support row that recomputes each slot's term
+    and writes the row once (``launch_backward_gather``). Raises on
+    anything it does not take."""
     what = "neighborhood_moments_bwd_cuda"
     b, nq, ns, c4, k = check_neighborhood_call(
         what, query_xyz, support_xyz, dy, idx, mask, reduction, 4)
     kernels.require(dy.shape == (b, nq, c4),
                     f"{what}: dy must be [B, Nq, 4C]")
     c = c4 // 4
-    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
     if b * nq == 0:
-        return df.to(dy.dtype)
-    launch_neighborhood_kernel(
-        "moments", "cl3d_moments_bwd", what,
-        (query_xyz, support_xyz, idx, mask, dy), (b, nq, ns, c, k), radius,
-        reduction, dy.dtype == torch.bfloat16, df)
+        return torch.zeros((b, ns, c), dtype=dy.dtype, device=dy.device)
+    df = launch_backward_gather(
+        "moments", what, (query_xyz, support_xyz, idx, mask, dy),
+        (b, nq, ns, c, k), dy, radius, reduction)
     neighborhood_moments_bwd_cuda.launches += 1
-    return df.to(dy.dtype)
+    return df
 
 
 neighborhood_moments_bwd_cuda.launches = 0

@@ -1085,10 +1085,90 @@ def test_pseudo_grid_bwd_gather_matches_twin(name, c, kpn, mode, dtype):
     torch.testing.assert_close(got.float(), auto, **_pgrid_tol(dtype))
 
 
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 7, 72, 300, 1152])
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_moments_bwd_gather_equals_twin_to_the_bit(name, c, dtype,
+                                                   reduction):
+    """K9b (reverse index and, for avg, dy / max(count, 1) by query; then
+    a gather per support row that recomputes each entry's term from its
+    own position) equal to ``neighborhood_moments_bwd_plain`` run on CPU
+    copies, bit for bit with zero signs (both add the same f32 terms in
+    (q, t) order from +0 and round once), and the same bits on a second
+    launch."""
+    q, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    dy = torch.randn((3, idx.shape[1], 4 * c), generator=gen,
+                     device="cuda").to(dtype)
+    args = (q, s, idx, nmask, dy, 0.4, reduction)
+    got = neighborhood_moments_bwd_cuda(*args)
+    again = neighborhood_moments_bwd_cuda(*args)
+    twin = neighborhood_moments_bwd_plain(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (3, s.shape[1], c)
+    assert torch.equal(_bits(got.cpu()), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 18, 72, 300, 1152])
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_sincos_bwd_gather_matches_twin(name, c, dtype, reduction):
+    """K5b (as K9b, with each entry's angles and sincosf recomputed from
+    the row's own position; 4, 2 or 1 frequencies a lane as C / 6 allows:
+    72 and 1152, 300, 6 and 18) within ``chip_smoke._bwd_tol`` of
+    ``pospool_sincos_bwd_plain`` on the card (the same terms: CUDA's sinf
+    and cosf of the same f32 angles; its index_add_ adds them with
+    atomics), and the same bits on a second launch. The twin on CPU
+    copies takes torch's CPU sin and cos, an ulp from sincosf, which
+    flipped the bf16 rounding of one term of one element in 1.7 million
+    (1.3% of that element, whose terms cancel)."""
+    import chip_smoke
+
+    q, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    dy = torch.randn((3, idx.shape[1], c), generator=gen,
+                     device="cuda").to(dtype)
+    args = (q, s, idx, nmask, dy, 0.4, reduction)
+    got = pospool_sincos_bwd_cuda(*args)
+    again = pospool_sincos_bwd_cuda(*args)
+    twin = pospool_sincos_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (3, s.shape[1], c)
+    torch.testing.assert_close(got.float(), twin.float(),
+                               **chip_smoke._bwd_tol(dtype, reduction,
+                                                     "sincos"))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("op", ["sincos", "moments"])
+def test_recomputed_gathers_take_unaligned_views(op):
+    """dy a view at an odd element offset (sum: the gather reads dy
+    itself, one value at a time): the bits of its aligned copy."""
+    _, _, bwd, _, widen = NEW_OPS[op]
+    q, s, idx, nmask = _gather_case("ball")
+    c = 72
+    n = 3 * idx.shape[1] * c * widen
+    gen = torch.Generator(device="cuda").manual_seed(68)
+    base = torch.randn(n + 1, generator=gen, device="cuda").bfloat16()
+    dy = base[1:].view(3, idx.shape[1], c * widen)
+    assert dy.data_ptr() % 16 != 0
+    for reduction in ("sum", "avg"):
+        got = bwd(q, s, idx, nmask, dy, 0.4, reduction)
+        ref = bwd(q, s, idx, nmask, dy.clone(), 0.4, reduction)
+        assert torch.equal(_bits(got), _bits(ref))
+
+
 _BWD_OPS = """
 import json, torch
 from torch.profiler import ProfilerActivity, profile
-from closerlook3d_tpu_torch.ops import gather_reduce, pseudo_grid
+from closerlook3d_tpu_torch.ops import (
+    aggregation, gather_reduce, moments, pseudo_grid)
 from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
 g = torch.Generator(device="cuda").manual_seed(0)
 x = torch.rand((4, 2000, 3), generator=g, device="cuda")
@@ -1100,10 +1180,16 @@ cot = [torch.randn((4, 2000, 72), generator=g, device="cuda")
        for _ in range(4)]
 kp = torch.rand((15, 3), generator=g, device="cuda")
 dy = torch.randn((4, 2000, 15 * 72), generator=g, device="cuda").bfloat16()
+dy5, dy9 = (torch.randn((4, 2000, w), generator=g, device="cuda").bfloat16()
+            for w in (72, 4 * 72))
 calls = {"pwmlp_stats_bwd": lambda: gather_reduce.pwmlp_minmax_stats_bwd_cuda(
              f, idx, nmask, gmax, gmin, *cot),
          "pseudo_grid_bwd": lambda: pseudo_grid.pseudo_grid_bwd_cuda(
-             x, x, idx, nmask, kp, dy, 0.1, 0.4, "linear")}
+             x, x, idx, nmask, kp, dy, 0.1, 0.4, "linear"),
+         "pospool_sincos_bwd": lambda: aggregation.pospool_sincos_bwd_cuda(
+             x, x, idx, nmask, dy5, 0.1, "avg"),
+         "moments_bwd": lambda: moments.neighborhood_moments_bwd_cuda(
+             x, x, idx, nmask, dy9, 0.1, "avg")}
 fn = calls[__import__("sys").argv[1]]
 fn()
 torch.cuda.synchronize()
@@ -1117,11 +1203,13 @@ print(json.dumps([e.name for e in prof.events()
 """
 
 
-@pytest.mark.parametrize("kernel", ["pwmlp_stats_bwd", "pseudo_grid_bwd"])
+@pytest.mark.parametrize("kernel", ["pwmlp_stats_bwd", "pseudo_grid_bwd",
+                                    "pospool_sincos_bwd", "moments_bwd"])
 def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
-    """K6b and K10b each run two device kernels once a call (the reverse
-    index beside the per-slot terms, then the gather) and nothing else on
-    the device: no fill, no cast. Profiled in a process of its own (see
+    """K6b, K10b, K5b and K9b each run two device kernels once a call (the
+    reverse index beside the per-slot terms, or for K5b and K9b beside
+    avg's dy / max(count, 1); then the gather) and nothing else on the
+    device: no fill, no cast. Profiled in a process of its own (see
     ``test_ball_query_device_ops_run_once_a_call``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
@@ -1138,8 +1226,8 @@ def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
 def test_backward_gathers_count_in_global_memory_past_shared_memory():
     """Ns = 60000 outgrows the shared memory of the index's block, whose
     counters then live in global memory: the index alone still equals its
-    plain version, K6b its twin on CPU copies to the bit, K10b its twin
-    within tolerance."""
+    plain version, K6b and K9b their twins on CPU copies to the bit, K10b
+    and K5b their twins within tolerance."""
     s, smask = _cloud(63, 2, 60000)
     q, qmask = _cloud(64, 2, 64)
     idx, nmask = ball_query_cuda(q, s, 0.2, 16, qmask, smask)
@@ -1163,6 +1251,17 @@ def test_backward_gathers_count_in_global_memory_past_shared_memory():
     torch.testing.assert_close(pseudo_grid_bwd_cuda(*pargs),
                                pseudo_grid_bwd_plain(*pargs),
                                **_pgrid_tol(torch.float32))
+    for red in ("avg", "sum"):
+        margs = (q, s, idx, nmask, cot[0].repeat(1, 1, 4), 0.2, red)
+        assert torch.equal(
+            _bits(neighborhood_moments_bwd_cuda(*margs).cpu()),
+            _bits(neighborhood_moments_bwd_plain(
+                *(a.cpu() if isinstance(a, torch.Tensor) else a
+                  for a in margs))))
+        sargs = (q, s, idx, nmask, cot[1][..., :6].contiguous(), 0.2, red)
+        torch.testing.assert_close(pospool_sincos_bwd_cuda(*sargs),
+                                   pospool_sincos_bwd_plain(*sargs),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("nq,ns,k,grid", [

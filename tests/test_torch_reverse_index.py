@@ -6,7 +6,13 @@ The backward kernels of the point-wise MLP's statistics (K6b,
 builds the reverse (CSR) index of idx/mask, support row -> the slots
 (q, t) naming it in (q, t) order, beside a query-major pass that writes
 each valid slot's f32 term; a second adds each row's terms in that order
-from +0 and writes the row once. Here the plain index
+from +0 and writes the row once. The backward kernels of PosPool sin/cos
+(K5b, ``csrc/pospool_sincos.cu``) and of the neighborhood moments (K9b,
+``csrc/moments.cu``) write no terms: their first launch builds the index,
+one block a tile of consecutive queries (and, for avg, g = dy /
+max(count, 1) by query), and their gather recomputes each entry's term
+from g[q] and D, which it takes from the row's own position
+(``csrc/row_terms.cuh``). Here the plain index
 (``reverse_index_plain``) and a plain emulation of each gather (the same
 terms, one f32 add at a time in the index's order, one rounding) are held
 to the port's twins and to JAX:
@@ -19,11 +25,17 @@ to the port's twins and to JAX:
 * K10b's emulation is within the pseudo-grid tolerance of
   ``pseudo_grid_bwd_plain`` (which sums over kernel points by a matmul)
   and of the VJP of JAX's Pallas ``pseudo_grid_fused`` run interpreted;
+* the tiled index, read tile after tile, is the index;
+* K5b's and K9b's emulations equal ``pospool_sincos_bwd_plain`` and
+  ``neighborhood_moments_bwd_plain`` to the bit (bit patterns), f32 and
+  bf16, sum and avg, and are within the JAX package's tolerances of the
+  VJPs of its Pallas ``pospool_fused`` (sin/cos) and
+  ``neighborhood_moments`` run interpreted;
 
 on ties (duplicated points), all-masked queries, support rows no query
 reaches, one row named by every valid slot, strided shapes, and C = 1, 7
-and 72. The kernels themselves are held to the twins on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+and 72 (6 and 72 for K5b and K9b). The kernels themselves are held to the
+twins on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import jax
@@ -33,10 +45,14 @@ import pytest
 import torch
 
 import conftest
+from closerlook3d_tpu.ops.pallas import aggregation as jaggregation
+from closerlook3d_tpu.ops.pallas import moments as jmoments
 from closerlook3d_tpu.ops.pallas import pseudo_grid as jpseudo_grid
 from closerlook3d_tpu_torch.models import aggregation as agg
-from closerlook3d_tpu_torch.ops import gather_reduce, pseudo_grid
-from closerlook3d_tpu_torch.ops.grouping import group_features
+from closerlook3d_tpu_torch.ops import (
+    aggregation, gather_reduce, moments, pseudo_grid)
+from closerlook3d_tpu_torch.ops.grouping import (
+    group_features, reduction_grad)
 from closerlook3d_tpu_torch.ops.neighbors import ball_query
 from closerlook3d_tpu_torch.ops.reverse_index import reverse_index_plain
 
@@ -281,3 +297,154 @@ def test_pgrid_gather_matches_pallas_kernel(name, monkeypatch):
     assert np.abs(np.asarray(ref)).max() > 0.1
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+def recompute_rows(q, s, idx, mask, c: int, term):
+    """The arithmetic of K5b's and K9b's gathers: per support row, the f32
+    sum from +0 over the row's entries (q, t) in the reverse index's order
+    of term(qi, diff) [B, Ns, C], recomputed per entry from the entry's
+    query qi [B, Ns] and diff = s[row] - q[qi] [B, Ns, 3], the row's own
+    position (rows past their count take query 0 and are left as they
+    were), one add (one rounding) at a time: [B, Ns, C] f32."""
+    b, _, k = idx.shape
+    ns = s.shape[1]
+    offsets, slots = reverse_index_plain(idx, mask, ns)
+    counts = offsets[:, 1:] - offsets[:, :-1]
+    cloud = torch.arange(b)[:, None]
+    acc = torch.zeros((b, ns, c))
+    for pos in range(int(counts.max())):
+        has = counts > pos
+        at = torch.where(has, offsets[:, :-1] + pos, 0).long()
+        qi = torch.where(has, torch.gather(slots, 1, at), 0).long() // k
+        acc = torch.where(has[..., None], acc + term(qi, s - q[cloud, qi]),
+                          acc)
+    return acc
+
+
+def _dp(diff, radius, dtype):
+    """(s - q) / r in f32, rounded to ``dtype``, as ``neighbor_offsets``
+    forms it."""
+    return (diff / torch.full((), radius, dtype=torch.float32)).to(dtype)
+
+
+def sincos_bwd_gather(q, s, idx, mask, dy, radius, reduction):
+    """K5b's two launches emulated: g = dy, or dy / max(count, 1) rounded
+    to dy's dtype (avg); each entry's term g[q, c] * E(dp)[c], E the
+    embedding of f32 dp rounded to dy's dtype; gathered over the reverse
+    index; in dy's dtype."""
+    g = reduction_grad(dy, mask, reduction)
+    cloud = torch.arange(idx.shape[0])[:, None]
+    c = dy.shape[-1]
+
+    def term(qi, diff):
+        emb = aggregation.sinusoidal_embedding(
+            _dp(diff, radius, torch.float32), c).to(dy.dtype).float()
+        return g[cloud, qi] * emb
+
+    return recompute_rows(q, s, idx, mask, c, term).to(dy.dtype)
+
+
+def moments_bwd_gather(q, s, idx, mask, dy, radius, reduction):
+    """K9b's two launches emulated: g as for K5b, [B, Nq, 4C]; each
+    entry's term ((g0 + g1 dp_x) + g2 dp_y) + g3 dp_z, dp rounded to dy's
+    dtype, one rounding a step; gathered over the reverse index; in dy's
+    dtype."""
+    g = reduction_grad(dy, mask, reduction)
+    cloud = torch.arange(idx.shape[0])[:, None]
+    c = dy.shape[-1] // 4
+
+    def term(qi, diff):
+        dp = _dp(diff, radius, dy.dtype).float()
+        gq = g[cloud, qi]
+        v = gq[..., :c]
+        for d in range(3):
+            v = v + gq[..., (d + 1) * c:(d + 2) * c] * dp[..., d:d + 1]
+        return v
+
+    return recompute_rows(q, s, idx, mask, c, term).to(dy.dtype)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", CASES)
+def test_tiled_index_read_tile_after_tile_is_the_index(name, tiles):
+    """K5b's and K9b's index (``csrc/row_terms.cuh``): each of a cloud's
+    ``tiles`` tiles of ceil(Nq / tiles) consecutive queries indexed alone,
+    an entry holding its tile-local query; a row's entries, tile after
+    tile with the tile's first query added, are the queries of the row's
+    entries in the whole cloud's index, in its order."""
+    _, s, idx, mask, _ = _case(name)
+    ns, (b, nq, k) = s.shape[1], idx.shape
+    per = -(-nq // tiles)
+    offsets, slots = reverse_index_plain(idx, mask, ns)
+    parts = [reverse_index_plain(idx[:, q0:q0 + per], mask[:, q0:q0 + per],
+                                 ns) + (q0,)
+             for q0 in range(0, nq, per)]
+    for cloud in range(b):
+        for row in range(ns):
+            tiled = [int(sl[cloud, e]) // k + q0 for off, sl, q0 in parts
+                     for e in range(off[cloud, row], off[cloud, row + 1])]
+            whole = slots[cloud, offsets[cloud, row]:offsets[cloud, row + 1]]
+            assert tiled == (whole // k).tolist()
+
+
+# K5b and K9b: (emulation, twin, JAX's Pallas op, dy channels per input
+# channel, the JAX package's tolerance for its kernel's VJP; see
+# tests/test_pallas_aggregation.py and tests/test_pallas_moments.py)
+RECOMPUTED = {
+    "sincos": (sincos_bwd_gather, aggregation.pospool_sincos_bwd_plain,
+               lambda *a: jaggregation.pospool_fused(*a[:6], "sin_cos",
+                                                     a[6]),
+               1, dict(rtol=1e-3, atol=5e-4)),
+    "moments": (moments_bwd_gather, moments.neighborhood_moments_bwd_plain,
+                jmoments.neighborhood_moments, 4,
+                dict(rtol=1e-4, atol=1e-5)),
+}
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [6, 72])
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("op", sorted(RECOMPUTED))
+def test_recomputed_gather_equals_twin_to_the_bit(op, name, c, dtype,
+                                                  reduction):
+    """K5b's and K9b's gathers, which recompute each entry's term from
+    the row's own position, equal their twins (per-slot terms from the
+    gathered positions, scattered by ``index_add_`` in (q, t) order) bit
+    for bit, zero signs included."""
+    gather, twin, _, widen, _ = RECOMPUTED[op]
+    q, s, idx, mask, r = _case(name)
+    rng = np.random.default_rng(100 + c)
+    dy = torch.from_numpy(rng.normal(size=(2, idx.shape[1], c * widen))
+                          .astype(np.float32)).to(dtype)
+    args = (q, s, idx, mask, dy, r, reduction)
+    got, ref = gather(*args), twin(*args)
+    assert got.dtype == ref.dtype == dtype
+    assert got.shape == ref.shape == (2, s.shape[1], c)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert got.abs().max() > 0.1
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("op", sorted(RECOMPUTED))
+def test_recomputed_gather_matches_pallas_kernel(op, name, reduction,
+                                                 monkeypatch):
+    """Against the VJP of JAX's Pallas kernel (``_sc_bwd_kernel`` through
+    ``pospool_fused``, or ``neighborhood_moments``' ``_bwd_kernel``) run
+    interpreted, f32, C = 6, within the JAX package's tolerance for it."""
+    gather, _, jop, widen, tol = RECOMPUTED[op]
+    q, s, idx, mask, r = _case(name)
+    c = 6
+    rng = np.random.default_rng(110)
+    feats = rng.normal(size=(2, s.shape[1], c)).astype(np.float32)
+    dy = rng.normal(size=(2, idx.shape[1], c * widen)).astype(np.float32)
+    conftest.pallas_test_mode(monkeypatch)
+    _, vjp = jax.vjp(lambda f: jop(
+        jnp.asarray(q.numpy()), jnp.asarray(s.numpy()), f,
+        jnp.asarray(idx.numpy()), jnp.asarray(mask.numpy()), r, reduction),
+        jnp.asarray(feats))
+    (ref,) = vjp(jnp.asarray(dy))
+    got = gather(q, s, idx, mask, torch.from_numpy(dy), r, reduction)
+    assert np.abs(np.asarray(ref)).max() > 0.1
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **tol)

@@ -1,5 +1,6 @@
 """The redesigned neighborhood kernels, backward (K6b,
-``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``) and
+``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``; K5b,
+``pospool_sincos_bwd_cuda``; K9b, ``neighborhood_moments_bwd_cuda``) and
 forward (K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``):
 device time per call and per train step, the bits of every call's
 output, and each train config's device busy time a step, on the card;
@@ -20,15 +21,19 @@ holds:
   call of the ModelNet40 point-wise MLP train step and at the K6 calls
   of ``seg-train:shapenetpart_pwmlp`` (8 clouds; its last stage takes
   the K13 + K7 route), K10b at every call of the ModelNet40 pseudo-grid
-  train step; with ``forward`` or ``all``: K10f at every call of the
-  pseudo-grid step and K5f at every call of the sin/cos step. bf16,
+  train step, K5b and K9b at every call of the sin/cos and the
+  adaptive-weight steps; with ``forward`` or ``all``: K10f at every call
+  of the pseudo-grid step and K5f at every call of the sin/cos step. bf16,
   inputs from three seeded batches as ``chip_smoke.py`` makes them; each
   call first held to its plain version or twin run on the card, the
   SHA-256 of its output bytes taken on the first set in bf16 and again
   with every bf16 input cast to f32, then timed by
   ``chip_smoke._device_time`` (the profiler's mean per device op, summed
   over the call's ops: the reverse index, fills, casts and kernels) and
-  by CUDA events over eager launches, beside its bound;
+  by CUDA events over eager launches, beside its bound; K5b and K9b
+  also hashed on a second launch (the same bits run to run) and held to
+  their twins run on CPU copies (whether the bits are equal, and the
+  largest difference);
 * each train config of ``chip_smoke.py`` (the five ModelNet40 configs
   and the two segmentation ones): 4 bf16 steps on one batch, then 3
   under torch.profiler; device busy ms a step (union of device op
@@ -38,7 +43,9 @@ Without ``--parent`` one reading of this checkout is taken. With it the
 readings go parent, this, this, parent, and the summary gives each
 checkout's mean of two: per call (device ms and ops, events ms, bound,
 the parent's device ms, and whether the output bits equal the parent's
-in bf16 and f32), per step, and per config the busy time beside the
+in bf16 and f32; for K5b and K9b, whose parents add with atomics, the
+bits run to run and against the CPU twin instead), per step, and per
+config the busy time beside the
 timed kernels' saving (per-call device times times calls a step). The
 card's name and power limit are printed first; everything goes to
 ``chiprun_out/time_backward.json``.
@@ -61,10 +68,16 @@ import time_ball_query  # noqa: E402
 # names a config of chip_smoke.py and the kernel its kernels line's name
 TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                       ("pgrid", "pseudo_grid_bwd"),
-                      ("shapenetpart_pwmlp", "pwmlp_stats_bwd")),
+                      ("shapenetpart_pwmlp", "pwmlp_stats_bwd"),
+                      ("sincos", "pospool_sincos_bwd"),
+                      ("adaptive", "moments_bwd")),
          "forward": (("pgrid", "pseudo_grid"),
                      ("sincos", "pospool_sincos"))}
 TIMED["all"] = TIMED["backward"] + TIMED["forward"]
+# backward kernels whose parents scattered with f32 atomics, so that their
+# bits varied run to run: held to themselves and to their CPU twins
+# instead of the parent's bits
+RECOMPUTED = ("pospool_sincos_bwd", "moments_bwd")
 
 
 def _cases(step: str, kernel: str, gen) -> list:
@@ -108,7 +121,36 @@ def _tol(kernel: str, dtype):
         return chip_smoke._pgrid_tol(dtype)
     if kernel == "pospool_sincos":
         return chip_smoke._pospool_fwd_tol(dtype, "avg", "sincos")
+    if kernel in RECOMPUTED:
+        return chip_smoke._bwd_tol(dtype, "avg", "sincos"
+                                   if kernel == "pospool_sincos_bwd"
+                                   else "adaptive")
     return chip_smoke._pwmlp_bwd_tol(dtype)
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def twin_check(fn, twin, inputs) -> dict:
+    """A second launch's bits against the first's, and the output against
+    the twin run on CPU copies of ``inputs``: bits equal, largest
+    difference."""
+    import torch
+
+    got = fn(*inputs)
+    ref = twin(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in inputs))
+    again = fn(*inputs)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    return {"same_bits_run_to_run": bool(torch.equal(_bits(got),
+                                                      _bits(again.cpu()))),
+            "equal_to_cpu_twin": bool(torch.equal(_bits(got), _bits(ref))),
+            "cpu_twin_max_abs_err": float((got.float() - ref.float())
+                                          .abs().max())}
 
 
 def output_sha256(fn, inputs) -> dict:
@@ -160,6 +202,8 @@ def time_calls(step: str, kernel: str, reps: int) -> dict:
                      "stream_ms": chip_smoke._time(fn, ins, reps),
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "flops": flops, "sha256": sha})
+        if kernel in RECOMPUTED:
+            rows[-1].update(twin_check(fn, plain, ins[0]))
         chip_smoke.log("backward-timing", f"{step} {kernel} {name} x{count}: "
                        f"device {ms:.5f} ms in {ops} ops ("
                        + ", ".join(f"{chip_smoke._op_name(n)} {v:.5f}"
@@ -213,19 +257,33 @@ def compare(parent: list, this: list) -> dict:
                     for p in parent + this]
             r["same_bits_as_parent"] = {
                 dt: len({h[dt] for h in shas}) == 1 for dt in shas[0]}
+            for k in ("same_bits_run_to_run", "equal_to_cpu_twin",
+                      "cpu_twin_max_abs_err"):
+                if k in row:
+                    r[k] = [p["calls"][key]["calls"][i][k] for p in this]
+                    r["parent_" + k] = [p["calls"][key]["calls"][i][k]
+                                        for p in parent]
             for k in ("device_ms", "stream_ms", "device_ops_per_call"):
                 r["parent_" + k] = _mean([p["calls"][key]["calls"][i][k]
                                           for p in parent])
                 r[k] = _mean([p["calls"][key]["calls"][i][k] for p in this])
             rows.append(r)
+            if "equal_to_cpu_twin" in r:
+                bits = (f"same bits run to run {r['same_bits_run_to_run']} "
+                        f"(parent {r['parent_same_bits_run_to_run']}), "
+                        f"equal to the CPU twin {r['equal_to_cpu_twin']} "
+                        f"(parent {r['parent_equal_to_cpu_twin']}), max abs "
+                        f"err {max(r['cpu_twin_max_abs_err']):.3g}")
+            else:
+                bits = ("bits equal to the parent's: "
+                        f"{r['same_bits_as_parent']}")
             chip_smoke.log("compare", f"{key} {r['call']}: device "
                            f"{r['device_ms']:.5f} ms in "
                            f"{r['device_ops_per_call']:g} ops, parent "
                            f"{r['parent_device_ms']:.5f} ms in "
                            f"{r['parent_device_ops_per_call']:g}; events "
                            f"{r['stream_ms']:.5f} ms; bound "
-                           f"{r['bound_ms']:.5f}; bits equal to the "
-                           f"parent's: {r['same_bits_as_parent']}")
+                           f"{r['bound_ms']:.5f}; {bits}")
         tot = {k: sum(r[k] * r["per_step"] for r in rows)
                for k in ("device_ms", "parent_device_ms", "stream_ms",
                          "parent_stream_ms", "bound_ms")}

@@ -1,23 +1,29 @@
-"""Source variants of the forward kernels K10f (``csrc/pseudo_grid.cu``)
-and K5f (``csrc/pospool_sincos.cu``), timed against each other call by
-call in one process, on the card.
+"""Source variants of the redesigned neighborhood kernels, timed against
+each other call by call in one process, on the card: the forwards K10f
+(``csrc/pseudo_grid.cu``) and K5f (``csrc/pospool_sincos.cu``), or the
+backwards K6b (``csrc/gather_reduce.cu``), K10b, K5b and K9b
+(``csrc/moments.cu``).
 
-    python3 tools/time_variants.py VARIANTS.json
+    python3 tools/time_variants.py VARIANTS.json [--kernels forward]
 
 VARIANTS.json maps a variant's name to the edits that make it from this
 checkout's ``csrc/``: ``{"file under csrc/": [[old, new], ...]}`` (each
 ``old`` must occur), or ``{"__dir__": "a csrc directory, relative to the
 repository"}`` for another design's sources; ``{}`` is this checkout as
-it stands. Needs a CUDA card and ``nvcc``. Each variant builds both
-sources into the git-ignored ``csrc/_build/variants/``, all at once, and
-prints each forward kernel's registers and spills. Then, at every call
-of the ModelNet40 pseudo-grid (K10f) and sin/cos (K5f) bf16 train steps,
-on the inputs ``tools/time_backward.py`` times, each variant's library
-takes the wrapper's place in turn (``kernels._LIBS``): its output's bits
-against the first variant's, and its device time
+it stands. ``--kernels`` takes the choices of ``tools/time_backward.py``
+(``forward``, the default; ``backward``; ``all``), or kernel names there
+joined by commas (``pospool_sincos_bwd,moments_bwd``). Needs a CUDA card
+and ``nvcc``. Each variant builds the sources of the chosen kernels into
+the git-ignored ``csrc/_build/variants/``, all at once, and prints their
+kernels' registers and spills. Then, at every call of the ModelNet40 bf16 train
+steps that ``tools/time_backward.py`` times them at, on its inputs, each
+variant's library takes the wrapper's place in turn (``kernels._LIBS``):
+its output's bits against the first variant's, and its device time
 (``chip_smoke._device_time``) read twice, in the variants' order and
-then reversed. Lines ``CALL`` give each call's mean per variant and its
-ratio to the first variant, ``STEP`` the sums a step; the records go to
+then reversed. A reading whose profile window recorded no device events
+is printed as such and left out of the mean. Lines ``CALL`` give each
+call's mean per variant and its ratio to the first variant, ``STEP`` the
+sums a step; the records go to
 ``chiprun_out/time_variants/<VARIANTS>.json``. A design's variants are
 edits of its own sources, so a spec applies to the tree it was written
 for.
@@ -41,7 +47,15 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import chip_smoke  # noqa: E402
 import time_backward  # noqa: E402
 
-SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos"}
+# kernel (time_backward.TIMED's names) -> its source under csrc/
+SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
+           "pwmlp_stats_bwd": "gather_reduce",
+           "pseudo_grid_bwd": "pseudo_grid",
+           "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments"}
+# parts of the device functions' names whose registers are printed
+KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
+                "sincos_gather", "moments_gather", "index_scale",
+                "pwstats_terms", "csr_gather")
 
 
 def build(name: str, spec: dict, src: str):
@@ -76,7 +90,7 @@ def build(name: str, spec: dict, src: str):
     for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif entry and f"{src}_kernel" in entry and (
+        elif entry and any(n in entry for n in KERNEL_NAMES) and (
                 "registers" in line
                 or ("spill" in line and " 0 bytes spill stores" not in line)):
             print(f"PTXAS {name} {entry[-60:]}: {line.strip()}", flush=True)
@@ -97,53 +111,95 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()
 
 
+def device_ms(fn, ins, per_op):
+    """``chip_smoke._device_time`` of one reading (each op's ms into
+    ``per_op``), or None (printed) where its profile windows recorded no
+    device events."""
+    try:
+        return chip_smoke._device_time(fn, ins, 20, per_op)[0]
+    except AssertionError as e:
+        print(f"NO DEVICE EVENTS {str(e)[:200]}", flush=True)
+        return None
+
+
+def timed(choice: str):
+    """(step, kernel) pairs of a --kernels choice: a set of
+    ``time_backward.TIMED``, or kernel names joined by commas."""
+    if choice in time_backward.TIMED:
+        return time_backward.TIMED[choice]
+    names = choice.split(",")
+    unknown = set(names) - set(SOURCES)
+    if unknown:
+        raise SystemExit(f"--kernels: unknown {sorted(unknown)}")
+    return tuple(p for p in time_backward.TIMED["all"] if p[1] in names)
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
     from closerlook3d_tpu_torch.ops import kernels
 
-    spec_path = sys.argv[1]
-    with open(spec_path) as f:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("spec")
+    ap.add_argument("--kernels", default="forward",
+                    help="forward, backward, all, or kernel names joined "
+                         "by commas (pospool_sincos_bwd,moments_bwd)")
+    args = ap.parse_args()
+    with open(args.spec) as f:
         variants = json.load(f)
+    pairs = timed(args.kernels)
     print(chip_smoke.gpu_line(), flush=True)
+    sources = sorted({SOURCES[k] for _, k in pairs})
     with ThreadPoolExecutor(max_workers=8) as pool:
         jobs = {(n, src): pool.submit(build, n, spec, src)
-                for n, spec in variants.items() for src in SOURCES}
+                for n, spec in variants.items() for src in sources}
     libs = {k: load(job.result()) for k, job in jobs.items() if job.result()}
     gen = torch.Generator(device=chip_smoke.DEVICE).manual_seed(
         chip_smoke.SEED + 4)
     record = {}
-    for step, kernel in time_backward.TIMED["forward"]:
+    for step, kernel in pairs:
         src = SOURCES[kernel]
         names = [n for n in variants if (n, src) in libs]
         per_step = dict.fromkeys(names, 0.0)
         for call, count, fn, _, ins, (nbytes, flops) in time_backward._cases(
                 step, kernel, gen):
             ms = {n: [] for n in names}
+            ops = {n: {} for n in names}  # op -> ms a call, last reading
             bits = {}
             for order in (names, names[::-1]):
                 for n in order:
                     kernels._LIBS[src] = libs[(n, src)]
                     if n not in bits:
                         bits[n] = digest(fn(*ins[0]))
-                    ms[n].append(chip_smoke._device_time(fn, ins, 20)[0])
-            mean = {n: sum(v) / len(v) for n, v in ms.items()}
+                    ms[n].append(device_ms(fn, ins, ops[n]))
+            mean = {}
+            for n, v in ms.items():
+                read = [x for x in v if x is not None]
+                mean[n] = sum(read) / len(read) if read else float("nan")
             first = mean[names[0]]
-            print(f"CALL {kernel} {call} x{count} bound "
+            print(f"CALL {step}:{kernel} {call} x{count} bound "
                   f"{chip_smoke._bound(nbytes, flops)[0]:.5f}: " + " ".join(
                       f"{n}={m:.5f}({m / first:.2f})"
                       + ("" if bits[n] == bits[names[0]] else "!BITS")
                       for n, m in mean.items()), flush=True)
+            print(f"OPS {kernel} {call}: " + "; ".join(
+                f"{n} " + ", ".join(f"{chip_smoke._op_name(o)[:40]} {v:.5f}"
+                                    for o, v in ops[n].items())
+                for n in names), flush=True)
             for n in names:
                 per_step[n] += count * mean[n]
-            record[f"{kernel}:{call}"] = {"ms": ms, "sha256": bits}
+            record[f"{step}:{kernel}:{call}"] = {"ms": ms, "sha256": bits,
+                                                 "ms_by_op": ops}
+            torch.cuda.empty_cache()
         first = per_step[names[0]]
-        print(f"STEP {kernel}: " + " ".join(
+        print(f"STEP {step}:{kernel}: " + " ".join(
             f"{n}={v:.5f}({v / first:.3f})" for n, v in per_step.items()),
             flush=True)
     out = os.path.join(REPO, "chiprun_out", "time_variants")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, os.path.basename(spec_path)), "w") as f:
+    with open(os.path.join(out, os.path.basename(args.spec)), "w") as f:
         json.dump(record, f)
     return 0
 
