@@ -16,7 +16,7 @@
 // _bwd_kernel (entry neighborhood_moments -> _moments_vjp). The TPU kernels
 // build a masked multi-hot matrix per Morton support chunk and contract it
 // (and its D-weighted copies) with the features on the MXU; here the
-// forward's blocks read their neighbor rows directly, and the backward
+// forward reads each query's neighbor rows directly, and the backward
 // gathers per support row over a reverse neighbor index (row_terms.cuh).
 //
 // Numerics: D is (s - q) / r in f32 rounded to the features' type before
@@ -28,19 +28,34 @@
 // index_add_ on CPU tensors, so the two are equal to the bit, and every run
 // gives the same bits.
 //
-// Forward layout (query_blocks.cuh): one block per kQPB queries; slots
-// and D in shared memory; threads stride over the C channels and keep four
-// f32 accumulators each, so one gathered read of f[idx[k], c] feeds all
-// four moments. Backward: two launches, the reverse index (and, for avg,
-// g = dy / max(count, 1) by query), then a gather in which 16 bytes of
-// channels of a support row take one lane (9 lanes a row at C = 72 bf16),
-// recomputing each entry's D from the row's own position: no float
-// atomics, no zeroed scratch, no cast.
+// Forward layout (query_groups.cuh): a group of 8-32 lanes a query (and
+// slice of its channels where queries are few), several groups a block
+// and no block-wide barrier. The group compacts the query's valid slots
+// in slot order and stages their support rows and D in its own shared
+// memory; then each lane takes units of 8 bytes of channels (4 bf16, 2
+// f32), so that one gathered 8-byte vector of a row feeds the unit's four
+// moments (4 kW f32 sums in registers), and writes the output's four
+// C-slices of the unit as four 8-byte stores. C off the vector width, or
+// views off 8 bytes, take scalar units. Backward: two launches, the
+// reverse index (and, for avg, g = dy / max(count, 1) by query), then a
+// gather in which 16 bytes of channels of a support row take one lane (9
+// lanes a row at C = 72 bf16), recomputing each entry's D from the row's
+// own position: no float atomics, no zeroed scratch, no cast.
 //
-// Bound on the H100: bytes. Forward: the gathered reads of B*Nq*K*C values
-// hit L2; device-memory traffic is about one pass over the features plus
-// the 4C-wide output. Backward: dy once (and g written and read once for
-// avg) and df once; but each valid slot reads q's 4C-wide g row again
+// Bound on the H100: bytes (inputs read once, the 4C-wide output written
+// once). Forward: its pace is set by memory latency, not by that bound:
+// the chain of dependent loads a query (idx and mask, positions, rows)
+// and the gathered rows, B*Nq*(valid slots)*C values re-read from L2, each
+// vector feeding kW conversions, 3 kW products and 4 kW adds. At
+// ModelNet40's bf16 step (NVIDIA H100 80GB HBM3, 700 W) it moves its
+// bytes at 0.96 TB/s, 29% of the bound; staging and the four stores take
+// 35% of its time (52% at C = 72, 160000 queries of ~5 valid slots), and
+// the slot loops read rows from L2 at 1.0-2.2 TB/s. Hence no block
+// barrier, valid slots only, and 8-byte units (16 f32 sums: 48-64
+// registers) with 4 slots' rows in flight: 16-byte units' 32 sums took
+// 80 registers and ran 1.2x slower, 2 slots at once 4% slower.
+// Backward: dy once (and g written and read once for avg) and df once;
+// but each valid slot reads q's 4C-wide g row again
 // (8C bytes in bf16), from L1 or L2 where Morton-adjacent support rows
 // share queries, and each entry costs a chain of dependent loads (offsets,
 // entry, then position and g): the gather is bound by that latency, at a
@@ -49,58 +64,119 @@
 // a lane, 18 lanes a row, 28% slower). For avg, writing g moves dy's
 // bytes twice more, which takes most of launch 1 at the wide calls.
 
-#include "query_blocks.cuh"
+#include "query_groups.cuh"
 #include "row_terms.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void moments_kernel(const float* __restrict__ q,
-                               const float* __restrict__ s,
-                               const T* __restrict__ f,
-                               const int32_t* __restrict__ idx,
-                               const bool* __restrict__ mask, int nq, int ns,
-                               int c, int k, float radius, int avg,
-                               T* __restrict__ out) {
-  __shared__ int s_idx[kMaxK];
-  __shared__ float s_d[kMaxK * 3];
-  const int b = blockIdx.y;
-  const T* fb = f + static_cast<size_t>(b) * ns * c;
-  const float* sb = s + static_cast<size_t>(b) * ns * 3;
+constexpr int kMomentsBytes = 8;  // channels a lane's unit holds, in bytes
+constexpr int kMomentsBatch = 4;  // valid slots' rows a lane loads at once
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;  // uniform across the block
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();  // previous query's slots fully consumed
-    stage_slots<T>(q, sb, idx, mask, row, k, radius, s_idx, s_d);
-    __syncthreads();
-    const float cnt = static_cast<float>(max(staged_count(s_idx, k), 1));
-    T* orow = out + row * 4 * c;
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const float v = to_f32(fb[static_cast<size_t>(j) * c + ch]);
-          a0 = __fadd_rn(a0, v);
-          a1 = __fadd_rn(a1, __fmul_rn(v, s_d[t * 3 + 0]));
-          a2 = __fadd_rn(a2, __fmul_rn(v, s_d[t * 3 + 1]));
-          a3 = __fadd_rn(a3, __fmul_rn(v, s_d[t * 3 + 2]));
+// K9 forward in query groups (query_groups.cuh): a group of kG lanes per
+// item, a query and a slice of its passes. Unit e * kG + lg of pass e
+// belongs to lane lg: channels [unit * kW, unit * kW + kW) of each moment.
+// Each channel's four sums run over the valid slots in slot order from +0:
+// a0 + v and a(d+1) + v * D[d], each product and sum rounded to f32 (the
+// intrinsics keep nvcc from contracting them); avg divides each by
+// max(n, 1); each is rounded once to T: the bits of a loop over all K
+// slots that skips the invalid ones.
+template <typename T, bool kVec, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    moments_kernel(const float* __restrict__ q, const float* __restrict__ s,
+                   const T* __restrict__ f, const int32_t* __restrict__ idx,
+                   const bool* __restrict__ mask, int nq, int ns, int c,
+                   int k, float radius, int avg, long long items, int slices,
+                   int per, T* __restrict__ out) {
+  using U = ChannelUnit<T, kVec, kMomentsBytes>;
+  constexpr int kW = U::kW;
+  __shared__ GroupSlots s_slots[kGroupThreads / kG];
+  GroupSlots& st = s_slots[threadIdx.x / kG];
+  const int lg = threadIdx.x % kG;
+  const GroupItem it = group_item<kG>(items, slices);
+  const size_t b = it.row / nq;
+  float qp[3] = {};
+  if (it.live) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) qp[d] = q[it.row * 3 + d];
+  }
+  const int n = stage_valid_slots<kG>(
+      idx + it.row * k, mask + it.row * k, k, it.live, s + b * ns * 3, qp,
+      [radius](float sv, float qv) {
+        return to_f32(from_f32<T>(__fdiv_rn(__fsub_rn(sv, qv), radius)));
+      },
+      st);
+  __syncwarp();
+  if (!it.live) return;
+  const float cnt = static_cast<float>(max(n, 1));
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  T* orow = out + it.row * 4 * c;
+  const int u_end = min(U::units(c), (it.slice + 1) * per * kG);
+  for (int unit = it.slice * per * kG + lg; unit < u_end; unit += kG) {
+    const int ch0 = unit * kW;
+    const T* f0 = f + b * ns * c + ch0;  // the unit's channels of row 0
+    float acc[4][kW] = {};
+    for (int i0 = 0; i0 < n; i0 += kMomentsBatch) {
+      typename U::Raw r[kMomentsBatch];
+#pragma unroll
+      for (int v = 0; v < kMomentsBatch; ++v)
+        r[v] = U::load(row_at(f0, st.j[min(i0 + v, n - 1)], row_bytes),
+                       c - ch0);
+#pragma unroll
+      for (int v = 0; v < kMomentsBatch; ++v) {
+        if (i0 + v < n) {
+          const float* x = st.x[i0 + v];
+          const float x0 = x[0], x1 = x[1], x2 = x[2];
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            const float fv = to_f32(r[v].v[i]);
+            acc[0][i] = __fadd_rn(acc[0][i], fv);
+            acc[1][i] = __fadd_rn(acc[1][i], __fmul_rn(fv, x0));
+            acc[2][i] = __fadd_rn(acc[2][i], __fmul_rn(fv, x1));
+            acc[3][i] = __fadd_rn(acc[3][i], __fmul_rn(fv, x2));
+          }
         }
       }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
       if (avg) {
-        a0 = __fdiv_rn(a0, cnt);
-        a1 = __fdiv_rn(a1, cnt);
-        a2 = __fdiv_rn(a2, cnt);
-        a3 = __fdiv_rn(a3, cnt);
+#pragma unroll
+        for (int i = 0; i < kW; ++i) acc[m][i] = __fdiv_rn(acc[m][i], cnt);
       }
-      orow[ch] = from_f32<T>(a0);
-      orow[c + ch] = from_f32<T>(a1);
-      orow[2 * c + ch] = from_f32<T>(a2);
-      orow[3 * c + ch] = from_f32<T>(a3);
+      U::store(orow + m * c + ch0, c - ch0, acc[m]);
     }
   }
+}
+
+template <typename T, bool kVec>
+int launch_fwd_as(const float* q, const float* s, const T* f,
+                  const int32_t* idx, const bool* mask, int b, int nq,
+                  int ns, int c, int k, float radius, int avg, T* out,
+                  cudaStream_t stream) {
+  return launch_query_groups(
+      static_cast<long long>(b) * nq,
+      ChannelUnit<T, kVec, kMomentsBytes>::units(c), 8,  // any width
+      [&](auto lanes, unsigned blocks, long long items, PassSplit sp) {
+        moments_kernel<T, kVec, decltype(lanes)::value>
+            <<<blocks, kGroupThreads, 0, stream>>>(
+                q, s, f, idx, mask, nq, ns, c, k, radius, avg, items,
+                sp.slices, sp.per, out);
+      });
+}
+
+// The forward in vector units where C and the pointers allow them.
+template <typename T>
+int launch_fwd(const float* q, const float* s, const void* f,
+               const int32_t* idx, const bool* mask, int b, int nq, int ns,
+               int c, int k, float radius, int avg, void* out,
+               cudaStream_t stream) {
+  const T* fp = static_cast<const T*>(f);
+  T* op = static_cast<T*>(out);
+  if (runs_ok<T, ChannelUnit<T, true, kMomentsBytes>::kW>(c, f, out))
+    return launch_fwd_as<T, true>(q, s, fp, idx, mask, b, nq, ns, c, k,
+                                  radius, avg, op, stream);
+  return launch_fwd_as<T, false>(q, s, fp, idx, mask, b, nq, ns, c, k,
+                                 radius, avg, op, stream);
 }
 
 // K9 backward, launch 2 (row_terms.cuh): the lane of unit `unit` of
@@ -205,19 +281,14 @@ extern "C" int cl3d_moments(const float* q, const float* s, const void* f,
                             int nq, int ns, int c, int k, float radius,
                             int avg, int is_bf16, void* out,
                             cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, ns, c, k) ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    moments_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            q, s, static_cast<const __nv_bfloat16*>(f), idx, mask, nq, ns, c,
-            k, radius, avg, static_cast<__nv_bfloat16*>(out));
-  } else {
-    moments_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        q, s, static_cast<const float*>(f), idx, mask, nq, ns, c, k, radius,
-        avg, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(q, s, f, idx, mask, b, nq, ns,
+                                             c, k, radius, avg, out, stream)
+                 : launch_fwd<float>(q, s, f, idx, mask, b, nq, ns, c, k,
+                                     radius, avg, out, stream);
 }
 
 // df [B, Ns, C] in the features' dtype, written in full (no zeroing

@@ -1,9 +1,11 @@
-// Launch layout shared by the neighborhood kernels (pospool_xyz.cu,
-// pospool_sincos.cu, moments.cu, neighborhood_max.cu, gather_reduce.cu):
-// one block per kQPB
-// consecutive queries of one cloud (grid.y = cloud), which stages its
-// query's K <= kMaxK slots in shared memory with one thread per slot, then
-// strides its threads over the C channels.
+// The older launch layout of the neighborhood kernels, kept by K1b
+// (pospool_xyz.cu's backward), K6f and K7 (gather_reduce.cu) and K8
+// (neighborhood_max.cu): one block per kQPB consecutive queries of one
+// cloud (grid.y = cloud), which stages its query's K <= kMaxK slots in
+// shared memory with one thread per slot behind __syncthreads, then
+// strides its threads over the C channels. The forwards K1f, K5f, K9f and
+// K10f moved to query_groups.cuh; kMaxK serves every kernel (row_gather.cuh
+// includes this header).
 #pragma once
 
 #include "common.cuh"

@@ -1,7 +1,8 @@
-// Query-group layout of the forward neighborhood kernels (pseudo_grid.cu's
-// K10 forward, pospool_sincos.cu's K5 forward): a group of kG lanes of one
-// warp (8, 16 or 32) owns one work item, a query and a slice of its
-// output, and several groups share a block with no block-wide barrier:
+// Query-group layout of the forward neighborhood kernels (K10f in
+// pseudo_grid.cu, K5f in pospool_sincos.cu, K1f in pospool_xyz.cu, K9f in
+// moments.cu): a group of kG lanes of one warp (8, 16 or 32) owns one work
+// item, a query and a slice of its output, and several groups share a
+// block with no block-wide barrier:
 // each group stages its query in its own slice of shared memory behind
 // __syncwarp only, so one query's staging overlaps another's row traffic.
 //
@@ -20,8 +21,12 @@
 // few (deep stages: 608 queries at C = 1152) the passes are split into
 // slices, one item each, so that the launch still fills the card.
 // query_blocks.cuh keeps the older layout of the other neighborhood
-// kernels (one block per 4 queries behind __syncthreads).
+// kernels (K1b, K6f, K7, K8: one block per 4 queries behind
+// __syncthreads).
 #pragma once
+
+#include <climits>
+#include <type_traits>
 
 #include "row_gather.cuh"
 
@@ -101,12 +106,13 @@ __device__ __forceinline__ const T* row_at(const T* row0, int j,
 }
 
 // Lanes a query group takes for `units` units a query: the largest of 32,
-// 16 and 8 whose passes (ceil(units / lanes)) keep at least 85% of its
-// lanes busy, else the one that keeps the most busy.
-inline int group_lanes_for(int units) {
+// 16 and 8 (down to `narrowest`) whose passes (ceil(units / lanes)) keep
+// at least 85% of its lanes busy, else the one that keeps the most busy.
+inline int group_lanes_for(int units, int narrowest = 8) {
   int best = 32;
   double best_busy = 0.0;
   for (int g : {32, 16, 8}) {
+    if (g < narrowest) break;
     const int passes = (units + g - 1) / g;
     const double busy = static_cast<double>(units) / (passes * g);
     if (busy >= 0.85) return g;
@@ -151,6 +157,74 @@ __device__ __forceinline__ GroupItem group_item(long long items,
   const bool live = item < items;
   return {live, live ? static_cast<size_t>(item / slices) : 0,
           live ? static_cast<int>(item % slices) : 0};
+}
+
+// A unit of kW = kBytes / sizeof(T) consecutive channels of a row (K1f's
+// and K9f's lanes; kBytes 8 or 16). Vectorized (kVec): one load of kBytes
+// through the read-only path and one store; needs rows of a multiple of kW
+// channels aligned to kBytes (runs_ok<T, kW>). Scalar: element by element,
+// any C and any alignment, `left` channels of the row from p.
+template <typename T, bool kVec, int kBytes>
+struct ChannelUnit {
+  static constexpr int kW = kBytes / static_cast<int>(sizeof(T));
+  using Vec = std::conditional_t<kBytes == 16, uint4, uint2>;
+  struct alignas(kBytes) Raw {
+    T v[kW];
+  };
+  __device__ __forceinline__ static Raw load(const T* __restrict__ p,
+                                             int left) {
+    Raw r;
+    if (kVec) {
+      *reinterpret_cast<Vec*>(&r) = __ldg(reinterpret_cast<const Vec*>(p));
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        r.v[i] = i < left ? p[i] : from_f32<T>(0.f);
+    }
+    return r;
+  }
+  __device__ __forceinline__ static void store(T* __restrict__ p, int left,
+                                               const float (&x)[kW]) {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < kW; ++i) r.v[i] = from_f32<T>(x[i]);
+    if (kVec) {
+      *reinterpret_cast<Vec*>(p) = *reinterpret_cast<const Vec*>(&r);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kW; ++i)
+        if (i < left) p[i] = r.v[i];
+    }
+  }
+  __host__ __device__ static int units(int c) { return (c + kW - 1) / kW; }
+};
+
+// Launch a query-group kernel over `queries` queries of `units` units
+// each, at the group width group_lanes_for picks (`narrowest` lanes at
+// least) and the slices split_passes gives: launch(lanes, blocks, items,
+// split) launches it in `blocks` blocks of kGroupThreads, lanes a
+// std::integral_constant of kG. Returns the launch's error code.
+template <typename Launch>
+int launch_query_groups(long long queries, int units, int narrowest,
+                        Launch launch) {
+  const auto at = [&](auto lanes) {
+    constexpr int kG = decltype(lanes)::value;
+    constexpr int kGroups = kGroupThreads / kG;
+    const PassSplit sp = split_passes(queries, (units + kG - 1) / kG, kG);
+    const long long items = queries * sp.slices;
+    const long long blocks = (items + kGroups - 1) / kGroups;
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    launch(lanes, static_cast<unsigned>(blocks), items, sp);
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (group_lanes_for(units, narrowest)) {
+    case 8:
+      return at(std::integral_constant<int, 8>{});
+    case 16:
+      return at(std::integral_constant<int, 16>{});
+    default:
+      return at(std::integral_constant<int, 32>{});
+  }
 }
 
 }  // namespace

@@ -183,6 +183,16 @@ bool vec_ok(int c, const Ptr*... ptrs) {
          ((reinterpret_cast<uintptr_t>(ptrs) % 16 == 0) && ...);
 }
 
+// Whether runs of kN values of T may be loaded as row_terms.cuh's load_run
+// and query_groups.cuh's vector ChannelUnit load them at every multiple of
+// kN of these rows.
+template <typename T, int kN, typename... Ptr>
+bool runs_ok(int c, const Ptr*... ptrs) {
+  constexpr int kBytes = kN * sizeof(T) < 16 ? kN * sizeof(T) : 16;
+  return c % kN == 0 &&
+         ((reinterpret_cast<uintptr_t>(ptrs) % kBytes == 0) && ...);
+}
+
 // Lanes a row takes: the fewest of 8, 16 or 32 that cover its channels at
 // kW = kBytes of T a lane; rows wider than 32 lanes take whole warps, slice
 // by slice.

@@ -273,13 +273,4 @@ __device__ __forceinline__ void store_run(T* __restrict__ p,
   }
 }
 
-// Whether runs of kN values of T may be loaded as load_run does at every
-// multiple of kN of these rows.
-template <typename T, int kN, typename... Ptr>
-bool runs_ok(int c, const Ptr*... ptrs) {
-  constexpr int kBytes = kN * sizeof(T) < 16 ? kN * sizeof(T) : 16;
-  return c % kN == 0 &&
-         ((reinterpret_cast<uintptr_t>(ptrs) % kBytes == 0) && ...);
-}
-
 }  // namespace

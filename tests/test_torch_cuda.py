@@ -903,12 +903,13 @@ def test_pseudo_grid_wrappers_refuse():
                              extent, "linear")
 
 
-# ---- the forward kernels' query-group layout (K10f, K5f) ---------------------
+# ---- the forward kernels' query-group layout (K10f, K5f, K1f, K9f) ----------
 
-def _sincos_fwd_tol(dtype, reduction):
-    """As test_sincos_and_moments_kernels_match_plain holds the sin/cos
-    forward: the same f32 terms summed in slot order; in bf16 the plain
-    version rounds each product."""
+def _group_fwd_tol(dtype, reduction):
+    """As test_pospool_kernel_matches_plain and
+    test_sincos_and_moments_kernels_match_plain hold these forwards: the
+    same f32 terms summed in slot order; in bf16 the plain version rounds
+    each product."""
     if dtype == torch.float32:
         return dict(rtol=1e-5, atol=1e-6 if reduction == "avg" else 1e-5)
     return dict(rtol=2e-2, atol=2e-2 if reduction == "avg" else 6e-2)
@@ -920,6 +921,11 @@ GROUP_CASES = {
     "stage4_split": (32, 19, 78, 39, 1152, 15),  # channels across groups
     "k64_kp64": (3, 20, 90, MAX_K, 24, 64),
 }
+# the forwards of PosPool xyz and the moments, taking (radius, reduction)
+GROUP_OPS = {"sincos": (pospool_sincos_cuda, pospool_sincos_plain),
+             "xyz": (pospool_xyz_cuda, pospool_xyz_plain),
+             "moments": (neighborhood_moments_cuda,
+                         neighborhood_moments_plain)}
 
 
 def _group_forward(op, name, dtype, seed=70):
@@ -936,14 +942,13 @@ def _group_forward(op, name, dtype, seed=70):
         return (pseudo_grid_cuda, pseudo_grid_plain,
                 (q, s, idx, nmask, (kp, 0.4, extent, "linear")), f,
                 _pgrid_tol(dtype))
-    return (pospool_sincos_cuda, pospool_sincos_plain,
-            (q, s, idx, nmask, (0.4, "sum")), f,
-            _sincos_fwd_tol(dtype, "sum"))
+    return (*GROUP_OPS[op], (q, s, idx, nmask, (0.4, "sum")), f,
+            _group_fwd_tol(dtype, "sum"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(GROUP_CASES))
-@pytest.mark.parametrize("op", ["pseudo_grid", "sincos"])
+@pytest.mark.parametrize("op", ["pseudo_grid", "sincos", "xyz", "moments"])
 def test_forward_query_groups_match_plain(op, name, dtype):
     fwd, plain, (q, s, idx, nmask, rest), f, tol = _group_forward(
         op, name, dtype)
@@ -955,7 +960,7 @@ def test_forward_query_groups_match_plain(op, name, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("op", ["pseudo_grid", "sincos"])
+@pytest.mark.parametrize("op", ["pseudo_grid", "sincos", "xyz", "moments"])
 def test_forward_query_groups_take_unaligned_views(op, dtype):
     """Features as a view one element into a buffer (off 16 bytes: the
     scalar path) give the bits of their aligned copy."""
@@ -970,6 +975,63 @@ def test_forward_query_groups_take_unaligned_views(op, dtype):
     torch.testing.assert_close(got.float(),
                                plain(q, s, f, idx, nmask, *rest).float(),
                                **tol)
+
+
+def _slot_order(op, q, s, f, idx, nmask, radius, reduction):
+    """K1f's and K9f's sums as their parents' loops over all K slots ran
+    them, in PyTorch on the card: for t = 0 .. K-1, each valid slot (mask
+    set, idx >= 0) adds v * D (xyz, D of channel c's coordinate c / (C/3))
+    or v and v * D[d] (moments) in f32 from +0, each product and sum a
+    tensor op of its own (rounded, never fused); avg divides by
+    max(valid slots, 1); one rounding to f's dtype."""
+    valid = nmask & (idx >= 0)
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    v = grouping.group_features(f, safe).float()  # [B, Nq, K, C]
+    dp = grouping.neighbor_offsets(q, s, safe, radius, f.dtype).float()
+    if op == "xyz":
+        terms = [v * dp.repeat_interleave(f.shape[-1] // 3, dim=-1)]
+    else:
+        terms = [v] + [v * dp[..., d:d + 1] for d in range(3)]
+    acc = [torch.zeros_like(v[:, :, 0]) for _ in terms]
+    for t in range(idx.shape[2]):
+        live = valid[:, :, t, None]
+        acc = [torch.where(live, a + x[:, :, t], a)
+               for a, x in zip(acc, terms)]
+    out = torch.cat(acc, dim=-1)
+    if reduction == "avg":
+        out = out / valid.sum(-1, keepdim=True).clamp(min=1).float()
+    return out.to(f.dtype)
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GROUP_CASES) + ["s3dis_padding"])
+@pytest.mark.parametrize("op", ["xyz", "moments"])
+def test_xyz_and_moments_forwards_equal_slot_order(op, name, dtype,
+                                                   reduction):
+    """K1f and K9f keep their parents' arithmetic: bit for bit the
+    slot-order f32 sums of ``_slot_order``, at the group cases (a few
+    slots naming row -1 under a set mask, which the loops skip) and on
+    an S3DIS-like stage: 2 x 4096 query slots of which ~17% hold points,
+    the rest padding whose neighborhoods are all masked."""
+    if name == "s3dis_padding":
+        s, smask = _cloud(80, 2, 4096, masked_frac=0.83)
+        s = s * smask[..., None]  # padding at the origin
+        idx, nmask = ball_query_cuda(s, s, 0.4, 26, smask, smask)
+        gen = torch.Generator(device="cuda").manual_seed(81)
+        f = torch.randn((2, 4096, 72), generator=gen, device="cuda").to(dtype)
+        q = s
+        assert 0 < int(nmask.any(-1).sum()) < 2 * 4096 // 4
+    else:
+        _, _, (q, s, idx, nmask, _), f, _ = _group_forward(op, name, dtype)
+        idx = idx.clone()
+        idx[..., ::7] = torch.where(nmask[..., ::7], -1, idx[..., ::7])
+    fwd = GROUP_OPS[op][0]
+    got = fwd(q, s, f, idx, nmask, 0.4, reduction)
+    ref = _slot_order(op, q, s, f, idx, nmask, 0.4, reduction)
+    assert got.shape == ref.shape and got.float().abs().max() > 0.1
+    assert torch.equal(_bits(got), _bits(ref))
+    assert (got[~nmask.any(-1)] == 0).all()
 
 
 # ---- the reverse neighbor index; the backward gathers of K6 and K10 ----------

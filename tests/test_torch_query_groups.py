@@ -1,6 +1,7 @@
-"""The query-group layout of the forward kernels K10f and K5f
+"""The query-group layout of the forward kernels K10f, K5f, K1f and K9f
 (``csrc/query_groups.cuh``, ``csrc/pseudo_grid.cu``,
-``csrc/pospool_sincos.cu``), emulated in PyTorch on the CPU.
+``csrc/pospool_sincos.cu``, ``csrc/pospool_xyz.cu``, ``csrc/moments.cu``),
+emulated in PyTorch on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` hold them to their plain versions there). Here the
@@ -10,23 +11,29 @@ layout and each output element's order of operations are mirrored:
   by round, the valid slots (mask set, idx >= 0) come out in ascending
   slot order at every group width, so the sums run in the order of the
   parent kernels' loops over all K slots that skip the masked ones;
-* the host's choices (``group_lanes_for``, ``split_passes``) and the
-  unit, pair and slice mapping: every output element written exactly
-  once, by the item of its own query (K10f's unit of kW channels by kPC
-  kernel points, K5f's sin/cos pair), Nq off the groups a block;
+* the host's choices (``group_lanes_for``, ``split_passes``, the vector
+  or scalar units of ``ChannelUnit``) and the unit, pair and slice
+  mapping: every output element written exactly once, by the item of its
+  own query (K10f's unit of kW channels by kPC kernel points, K5f's
+  sin/cos pair, K1f's and K9f's 16 bytes of channels, of one coordinate
+  for K1f), Nq off the groups a block;
 * each element's arithmetic: K10f ``fma(w, f, acc)`` over the compacted
   slots from +0, rounded once (the fma emulated in f64: the product is
   exact there, the sum rounds twice, which can differ from the card's
   one rounding in the last bit); K5f ``acc + f * round_T(sin/cos)`` in
-  f32, then avg. The emulation is held to the plain versions
-  (``pseudo_grid_plain``, ``pospool_sincos_plain``) at the tolerances of
-  ``chip_smoke.py``, and to the JAX package: ``pseudo_grid_fused`` and
-  the sin/cos ``pospool_fused`` run interpreted, as
-  ``tests/test_torch_pseudo_grid.py`` and ``tests/test_torch_operators.py``
-  run them.
+  f32, then avg; K1f ``acc + v * D[d]`` and K9f ``a0 + v``,
+  ``a(d+1) + v * D[d]`` in f32, then avg, equal to the bit to their
+  parents' loops over all K slots (emulated). The emulations are held to
+  the plain versions (``pseudo_grid_plain``, ``pospool_sincos_plain``,
+  ``pospool_xyz_plain``, ``neighborhood_moments_plain``) at the
+  tolerances of ``chip_smoke.py``, and to the JAX package:
+  ``pseudo_grid_fused``, the sin/cos and xyz ``pospool_fused`` and
+  ``neighborhood_moments`` run interpreted, as
+  ``tests/test_torch_pseudo_grid.py``, ``tests/test_torch_grad.py`` and
+  ``tests/test_torch_operators.py`` run them.
 
 Edge cases: an all-masked query, K = 64, Kp = 1 and 64, C off the vector
-width, duplicated valid indices.
+width, duplicated valid indices, idx < 0 under a set mask.
 """
 
 import math
@@ -40,8 +47,10 @@ import conftest
 from closerlook3d_tpu.ops.pallas import pseudo_grid as jpseudo_grid
 from closerlook3d_tpu.ops.pallas.aggregation import (
     pospool_fused as jpospool_fused)
+from closerlook3d_tpu.ops.pallas.moments import (
+    neighborhood_moments as jmoments)
 from closerlook3d_tpu_torch.models import aggregation as agg
-from closerlook3d_tpu_torch.ops import aggregation, pseudo_grid
+from closerlook3d_tpu_torch.ops import aggregation, moments, pseudo_grid
 from closerlook3d_tpu_torch.ops.grouping import neighbor_offsets
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K, ball_query
 
@@ -60,11 +69,13 @@ def _one_aten_thread():
 
 # ---- the host's choices (query_groups.cuh) ---------------------------------
 
-def group_lanes_for(units: int) -> int:
-    """The largest of 32, 16, 8 lanes whose passes keep >= 85% busy, else
-    the busiest."""
+def group_lanes_for(units: int, narrowest: int = 8) -> int:
+    """The largest of 32, 16, 8 lanes (down to ``narrowest``) whose passes
+    keep >= 85% busy, else the busiest."""
     best, best_busy = 32, 0.0
     for g in (32, 16, 8):
+        if g < narrowest:
+            break
         busy = units / (math.ceil(units / g) * g)
         if busy >= 0.85:
             return g
@@ -103,6 +114,45 @@ def sincos_layout(c: int, queries: int):
     lanes = group_lanes_for(pairs)
     slices, per = split_passes(queries, -(-pairs // lanes), lanes)
     return dict(pairs=pairs, lanes=lanes, slices=slices, per=per)
+
+
+# K1f's and K9f's units (kXyzBytes, kMomentsBytes) and narrowest groups
+# (kXyzLanes; K9f takes 8)
+UNIT_BYTES = {"xyz": 16, "moments": 8}
+NARROWEST = {"xyz": 16, "moments": 8}
+
+
+def unit_layout(op: str, c: int, elem_bytes: int, queries: int,
+                aligned: bool = True):
+    """K1f's (op "xyz") or K9f's ("moments") launch: units of kW channels
+    (16 bytes for K1f, 8 for K9f), vectors where the rows allow them
+    (``units_ok``: K1f's C/3, K9f's C a multiple of kW, and pointers
+    aligned to the unit), else scalar units of the same channels."""
+    kw = UNIT_BYTES[op] // elem_bytes
+    vec = aligned and (c // 3 if op == "xyz" else c) % kw == 0
+    units = -(-c // kw)
+    lanes = group_lanes_for(units, NARROWEST[op])
+    slices, per = split_passes(queries, -(-units // lanes), lanes)
+    return dict(kw=kw, vec=vec, units=units, lanes=lanes, slices=slices,
+                per=per)
+
+
+def unit_channels(lay: dict, c: int, sl: int, lg: int):
+    """The units lane ``lg`` takes in slice ``sl`` (the kernel's loop from
+    slice * per * lanes + lg, step lanes, to u_end): [(ch0, channels)]."""
+    lanes, kw = lay["lanes"], lay["kw"]
+    u_end = min(lay["units"], (sl + 1) * lay["per"] * lanes)
+    return [(u * kw, [ch for ch in range(u * kw, u * kw + kw) if ch < c])
+            for u in range(sl * lay["per"] * lanes + lg, u_end, lanes)]
+
+
+def unit_coordinates(lay: dict, c: int, ch0: int):
+    """Each channel's coordinate as a unit of K1f reads it: ch0 / g for a
+    vector unit, min((ch0 + i) / g, 2) element by element for a scalar
+    one (g = C/3)."""
+    g = c // 3
+    return [ch0 // g if lay["vec"] else min((ch0 + i) // g, 2)
+            for i in range(lay["kw"])]
 
 
 def items_of_block(block: int, lanes: int, items: int, slices: int):
@@ -199,13 +249,68 @@ def sincos_emulated(q, s, f, idx, mask, radius, reduction, lanes):
     return acc.reshape(b, nq, c).to(f.dtype)
 
 
+def _slot_terms(op, q, s, f, idx, mask, radius):
+    """Each slot's f32 terms of K1f (v * D[c / (C/3)]) or K9f (v, then
+    v * D[d]) as [Q, K, C] tensors, each product rounded to f32 once, and
+    the valid slots [Q, K] (mask set, idx >= 0; other slots name row 0)."""
+    b, nq, k = idx.shape
+    c = f.shape[-1]
+    valid = (mask & (idx >= 0)).reshape(-1, k)
+    safe = torch.where(mask & (idx >= 0), idx, torch.zeros_like(idx))
+    d = neighbor_offsets(q, s, safe, radius, f.dtype).float()
+    d = d.reshape(-1, k, 3)
+    cloud = torch.arange(b * nq) // nq
+    v = f.float()[cloud[:, None], safe.reshape(-1, k).long()]  # [Q, K, C]
+    if op == "xyz":
+        return [v * d.repeat_interleave(c // 3, dim=-1)], valid
+    return [v] + [v * d[..., j:j + 1] for j in range(3)], valid
+
+
+def _finish(acc, n, reduction, shape, dtype):
+    out = torch.cat(acc, dim=-1)
+    if reduction == "avg":
+        out = out / n.clamp(min=1).float()[:, None]
+    return out.reshape(*shape, -1).to(dtype)
+
+
+def unit_emulated(op, q, s, f, idx, mask, radius, reduction, lanes):
+    """K1f or K9f, element by element: each sum adds its slot's term
+    (acc + v * D) over the compacted valid slots, in the group's ballot
+    order, in f32 from +0; avg divides by max(n, 1); rounded once."""
+    b, nq, k = idx.shape
+    order, n, _ = _compacted(idx, mask, lanes)
+    terms, _ = _slot_terms(op, q, s, f, idx, mask, radius)
+    rows = torch.arange(b * nq)
+    acc = [torch.zeros_like(x[:, 0]) for x in terms]
+    for i in range(int(n.max())):
+        t = order[:, i]
+        live = (t >= 0)[:, None]
+        acc = [torch.where(live, a + x[rows, t.clamp(min=0)], a)
+               for a, x in zip(acc, terms)]
+    return _finish(acc, n, reduction, (b, nq), f.dtype)
+
+
+def parent_loop(op, q, s, f, idx, mask, radius, reduction):
+    """The parent kernels' loop: slots t = 0 .. K-1, a slot adding its
+    term where its mask is set and its row >= 0 (the staged s_idx[t] >= 0),
+    counting it; f32, then avg, rounded once."""
+    b, nq, k = idx.shape
+    terms, valid = _slot_terms(op, q, s, f, idx, mask, radius)
+    acc = [torch.zeros_like(x[:, 0]) for x in terms]
+    for t in range(k):
+        live = valid[:, t, None]
+        acc = [torch.where(live, a + x[:, t], a) for a, x in zip(acc, terms)]
+    return _finish(acc, valid.sum(1), reduction, (b, nq), f.dtype)
+
+
 # ---- inputs -----------------------------------------------------------------
 
 def _case(name, seed=7):
     """(q, s, idx, mask, radius) of a named case on 2 clouds: random slots
     (40% valid) with one all-masked query; "k64" at K = 64; "dup" with
-    every query's first valid slots naming one support row; Nq = 37 (off
-    the groups a block)."""
+    every query's first valid slots naming one support row; "neg" with
+    every fifth slot naming row -1 (mask set: not a valid slot); Nq = 37
+    (off the groups a block)."""
     rng = np.random.default_rng(seed)
     k = MAX_K if name == "k64" else 13
     nq, ns = 37, 50
@@ -217,6 +322,9 @@ def _case(name, seed=7):
     if name == "dup":
         idx[..., 1:4] = idx[..., :1]
         mask[:, 4:, :4] = True
+    if name == "neg":
+        idx[..., ::5] = -1
+        mask[:, 4:, ::5] = True
     return (torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(idx),
             torch.from_numpy(mask), 1.5)
 
@@ -433,3 +541,166 @@ def test_sincos_emulation_matches_the_pallas_kernel(cloud, reduction):
     # the JAX package's own tolerance for it (sum: up to 12 slots)
     atol = 2e-4 if reduction == "avg" else 1e-3
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=atol)
+
+
+# ---- K1f and K9f: units of 16 or 8 bytes of channels ------------------------
+
+def test_unit_layout_at_the_modelnet40_calls():
+    """K1f's and K9f's choices at ModelNet40's bf16 step (32 clouds; C =
+    72 ... 1152) on the H100's 132 SMs: vector units at every width (C/3
+    = 24 * 2^i, a multiple of 8), group widths by the units a query has
+    (K1f 16 or 32 lanes, K9f 8 to 32)."""
+    calls = [(5000, 72), (1250, 144), (312, 288), (78, 576), (19, 1152)]
+    want = {
+        # K1f: 8 bf16 channels a unit; 32 lanes x 1 pass at C = 144
+        "xyz": [(9, True, 16, 1, 1), (18, True, 32, 1, 1),
+                (36, True, 16, 3, 1), (72, True, 16, 5, 1),
+                (144, True, 32, 5, 1)],
+        # K9f: 4 bf16 channels a unit; 8 lanes x 3 passes at C = 72
+        "moments": [(18, True, 8, 1, 3), (36, True, 8, 2, 3),
+                    (72, True, 16, 3, 2), (144, True, 32, 5, 1),
+                    (288, True, 32, 9, 1)]}
+    for op in ("xyz", "moments"):
+        got = [unit_layout(op, c, 2, 32 * nq) for nq, c in calls]
+        assert [(g["units"], g["vec"], g["lanes"], g["slices"], g["per"])
+                for g in got] == want[op]
+        for (nq, _), lay in zip(calls, got):
+            assert (32 * nq * lay["slices"] * lay["lanes"]
+                    >= 0.7 * H100_SMS * FILL_THREADS or lay["per"] == 1)
+    # f32: 4 channels a K1f unit, 2 a K9f unit
+    assert [unit_layout("xyz", c, 4, 32 * nq)["units"]
+            for nq, c in calls] == [18, 36, 72, 144, 288]
+    assert [unit_layout("moments", c, 4, 32 * nq)["units"]
+            for nq, c in calls] == [36, 72, 144, 288, 576]
+
+
+@pytest.mark.parametrize("op,b,nq,c,elem,aligned", [
+    ("xyz", 3, 7, 6, 2, True),        # C/3 = 2: one scalar unit
+    ("xyz", 2, 37, 30, 4, True),      # C/3 = 10 off the vector: scalar
+    ("xyz", 2, 37, 72, 2, True),      # stage 0's width, Nq off a block
+    ("xyz", 2, 37, 72, 2, False),     # an unaligned view: scalar
+    ("xyz", 32, 19, 1152, 2, True),   # stage 4: passes split into slices
+    ("moments", 3, 7, 6, 2, True),    # C = 6 off the bf16 vector (4)
+    ("moments", 2, 37, 30, 4, True),  # f32 vectors of 2 channels
+    ("moments", 2, 37, 30, 4, False),  # an unaligned view: scalar
+    ("moments", 2, 37, 72, 2, True),  # 8 lanes x 3 passes
+    ("moments", 32, 19, 1152, 2, True)])
+def test_units_write_every_output_element_once(op, b, nq, c, elem, aligned):
+    lay = unit_layout(op, c, elem, b * nq, aligned)
+    lanes, slices = lay["lanes"], lay["slices"]
+    width = c * (1 if op == "xyz" else 4)
+    count = np.zeros(b * nq * width, np.int64)
+    items = b * nq * slices
+    blocks = -(-items // (GROUP_THREADS // lanes))
+    got = [it for blk in range(blocks)
+           for it in items_of_block(blk, lanes, items, slices) if it]
+    assert len(got) == items
+    rows = np.array(got)
+    for sl in range(slices):
+        chans = [ch for lg in range(lanes)
+                 for _, cs in unit_channels(lay, c, sl, lg) for ch in cs]
+        # K9f writes each channel's four moments at m * C + ch
+        off = np.array([m * c + ch for ch in chans
+                        for m in range(width // c)], np.int64)
+        assert ((off >= 0) & (off < width)).all()  # the item's own query
+        mine = rows[rows[:, 1] == sl, 0]
+        np.add.at(count, (mine[:, None] * width + off[None, :]).ravel(), 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("c", [6, 24, 30, 72, 78, 144, 1152])
+def test_unit_coordinates(c, elem):
+    """A K1f unit's channels read D of their own coordinate c / (C/3):
+    vector units only where C/3 is a multiple of kW (then the unit's
+    channels share one coordinate), scalar units element by element."""
+    lay = unit_layout("xyz", c, elem, 100)
+    kw, g = lay["kw"], c // 3
+    assert lay["vec"] == (g % kw == 0)
+    if c in (72, 144, 1152):  # the widths the models run
+        assert lay["vec"]
+    for ch0 in range(0, c, kw):
+        got = unit_coordinates(lay, c, ch0)
+        want = [ch // g for ch in range(ch0, min(ch0 + kw, c))]
+        assert got[:len(want)] == want
+        if lay["vec"]:
+            assert len(set(got)) == 1
+
+
+UNIT_CASES = [("plain", 12), ("k64", 6), ("dup", 30), ("neg", 24)]
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,c", UNIT_CASES)
+@pytest.mark.parametrize("op", ["xyz", "moments"])
+def test_unit_emulation_equals_the_parent_loop(op, case, c, dtype,
+                                               reduction):
+    """Each element's sum over the compacted valid slots gives the bits of
+    the parent's loop over all K slots."""
+    q, s, idx, mask, r = _case(case)
+    f = _features(15, (2, s.shape[1], c), dtype)
+    lanes = unit_layout(op, c, f.element_size(), 74)["lanes"]
+    got = unit_emulated(op, q, s, f, idx, mask, r, reduction, lanes)
+    ref = parent_loop(op, q, s, f, idx, mask, r, reduction)
+    assert got.dtype == dtype
+    assert got.shape == (2, 37, c * (1 if op == "xyz" else 4))
+    assert (got[0, 3] == 0).all()  # the all-masked query
+    assert got.float().abs().max() > 0.1
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       ref.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32))
+
+
+def _unit_tol(dtype, reduction):
+    """As ``tests/test_torch_cuda.py`` holds the K1 and K9 forwards to
+    their plain versions: f32 the same products summed in another order;
+    bf16 the plain version rounds each product and the sum (of up to 64
+    slots here, so a sum's rounding reaches further than an average's)."""
+    if dtype == torch.float32:
+        return (dict(rtol=1e-5, atol=1e-6) if reduction == "avg"
+                else dict(rtol=1e-5, atol=1e-5))
+    return dict(rtol=2e-2, atol=2e-2 if reduction == "avg" else 6e-2)
+
+
+UNIT_PLAIN = {"xyz": aggregation.pospool_xyz_plain,
+              "moments": moments.neighborhood_moments_plain}
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,c", UNIT_CASES)
+@pytest.mark.parametrize("op", ["xyz", "moments"])
+def test_unit_emulation_matches_plain(op, case, c, dtype, reduction):
+    """The plain versions take slots naming row -1 as valid (a gather
+    wraps it): they are given the kernels' mask, set only where idx >= 0."""
+    q, s, idx, mask, r = _case(case)
+    f = _features(16, (2, s.shape[1], c), dtype)
+    lanes = unit_layout(op, c, f.element_size(), 74)["lanes"]
+    got = unit_emulated(op, q, s, f, idx, mask, r, reduction, lanes)
+    valid = mask & (idx >= 0)
+    ref = UNIT_PLAIN[op](q, s, f, idx.clamp(min=0), valid, r, reduction)
+    assert got.shape == ref.shape and (got[0, 3] == 0).all()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **_unit_tol(dtype, reduction))
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("op", ["xyz", "moments"])
+def test_unit_emulation_matches_the_pallas_kernel(cloud, op, reduction):
+    q, s, idx, mask, r = cloud
+    c = 12
+    f = _features(17, (2, 96, c), torch.float32)
+    lanes = unit_layout(op, c, 4, 48)["lanes"]
+    got = unit_emulated(op, q, s, f, idx, mask, r, reduction, lanes)
+    with pytest.MonkeyPatch.context() as mp:
+        conftest.pallas_test_mode(mp)
+        args = _j(q, s, f, idx, mask)
+        ref = np.asarray(jpospool_fused(*args, r, "xyz", reduction)
+                         if op == "xyz" else jmoments(*args, r, reduction))
+    assert ref.shape == got.shape and (ref[0, 5] == 0).all()
+    assert np.abs(ref).max() > 0.1
+    # the TPU kernels multiply by 1/r and sum through MXU matmuls; the
+    # JAX package's own tolerance (tests/test_pallas_moments.py)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)

@@ -1,11 +1,12 @@
 """The redesigned neighborhood kernels, backward (K6b,
 ``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``; K5b,
 ``pospool_sincos_bwd_cuda``; K9b, ``neighborhood_moments_bwd_cuda``) and
-forward (K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``):
-device time per call and per train step, the bits of every call's
-output, and each train config's device busy time a step, on the card;
-optionally against the same readings of another checkout, taken in
-turns.
+forward (K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``; K1f,
+``pospool_xyz_cuda``; K9f, ``neighborhood_moments_cuda``): device time
+per call and per train step or request, the bits of every call's
+output, and each train config's device busy time a step and each
+serving config's a request, on the card; optionally against the same
+readings of another checkout, taken in turns.
 
     python3 tools/time_backward.py [--parent DIR] [--reps 20]
                                    [--kernels backward|forward|all]
@@ -23,7 +24,10 @@ holds:
   the K13 + K7 route), K10b at every call of the ModelNet40 pseudo-grid
   train step, K5b and K9b at every call of the sin/cos and the
   adaptive-weight steps; with ``forward`` or ``all``: K10f at every call
-  of the pseudo-grid step and K5f at every call of the sin/cos step. bf16,
+  of the pseudo-grid step, K5f at every call of the sin/cos step, K1f at
+  every call of the xyz step and of a flagship request (16 x 1024
+  points, ``chip_smoke.flagship_config()``: the serving path) and K9f at
+  every call of the adaptive-weight step. bf16,
   inputs from three seeded batches as ``chip_smoke.py`` makes them; each
   call first held to its plain version or twin run on the card, the
   SHA-256 of its output bytes taken on the first set in bf16 and again
@@ -37,17 +41,21 @@ holds:
 * each train config of ``chip_smoke.py`` (the five ModelNet40 configs
   and the two segmentation ones): 4 bf16 steps on one batch, then 3
   under torch.profiler; device busy ms a step (union of device op
-  intervals, user annotations out) and each device op's ms a step.
+  intervals, user annotations out) and each device op's ms a step;
+* each serving config (the flagship, ShapeNetPart and S3DIS, seeded
+  weights): 2 requests through ``Predictor``, then 5 under
+  torch.profiler; device busy ms and each device op's ms a request.
 
 Without ``--parent`` one reading of this checkout is taken. With it the
 readings go parent, this, this, parent, and the summary gives each
 checkout's mean of two: per call (device ms and ops, events ms, bound,
 the parent's device ms, and whether the output bits equal the parent's
-in bf16 and f32; for K5b and K9b, whose parents add with atomics, the
-bits run to run and against the CPU twin instead), per step, and per
-config the busy time beside the
-timed kernels' saving (per-call device times times calls a step). The
-card's name and power limit are printed first; everything goes to
+in bf16 and f32, as for every forward, whose sums run in slot order;
+for K5b and K9b, whose parents add with atomics, the bits run to run
+and against the CPU twin instead), per step or request, and per config
+the busy time beside the timed kernels' saving (per-call device times
+times calls a step or request). The card's name and power limit are
+printed first; everything goes to
 ``chiprun_out/time_backward.json``.
 """
 
@@ -64,15 +72,25 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import chip_smoke  # noqa: E402  (imports no part of the port at load)
 import time_ball_query  # noqa: E402
 
+# the flagship's request: its K1f calls are timed, its busy read a request
+FLAGSHIP = "flagship request"
+# serving configs profiled a request: the flagship, and chip_smoke.py's
+# segmentation configs
+REQUESTS = {FLAGSHIP: "flagship", "shapenetpart request": "shapenetpart",
+            "s3dis request": "s3dis"}
 # (step, kernel) pairs timed call by call, by --kernels choice; the step
-# names a config of chip_smoke.py and the kernel its kernels line's name
+# names a config of chip_smoke.py (or the flagship's request) and the
+# kernel its kernels line's name
 TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                       ("pgrid", "pseudo_grid_bwd"),
                       ("shapenetpart_pwmlp", "pwmlp_stats_bwd"),
                       ("sincos", "pospool_sincos_bwd"),
                       ("adaptive", "moments_bwd")),
          "forward": (("pgrid", "pseudo_grid"),
-                     ("sincos", "pospool_sincos"))}
+                     ("sincos", "pospool_sincos"),
+                     ("xyz", "pospool_xyz"),
+                     (FLAGSHIP, "pospool_xyz"),
+                     ("adaptive", "moments"))}
 TIMED["all"] = TIMED["backward"] + TIMED["forward"]
 # backward kernels whose parents scattered with f32 atomics, so that their
 # bits varied run to run: held to themselves and to their CPU twins
@@ -90,8 +108,9 @@ def _cases(step: str, kernel: str, gen) -> list:
 
     dev = torch.device(chip_smoke.DEVICE)
     calls = []
-    if step in chip_smoke.TRAIN_KINDS:
-        tcfg = chip_smoke.train_config(step)
+    if step in chip_smoke.TRAIN_KINDS or step == FLAGSHIP:
+        tcfg = (chip_smoke.flagship_config() if step == FLAGSHIP
+                else chip_smoke.train_config(step))
         for r in range(3):
             b = chip_smoke.make_batch(chip_smoke.SEED + 600 + r,
                                       batch=tcfg.batch_size,
@@ -99,7 +118,7 @@ def _cases(step: str, kernel: str, gen) -> list:
             calls.append(chip_smoke.path_calls(
                 tcfg, torch.from_numpy(b["xyz"]).to(dev),
                 torch.from_numpy(b["mask"]).to(dev)))
-        kind = step
+        kind = "xyz" if step == FLAGSHIP else step
     else:  # the K6 calls of a segmentation step (not on the K13 route)
         tcfg = chip_smoke.seg_train_config(step)
         for r in range(3):
@@ -119,8 +138,8 @@ def _tol(kernel: str, dtype):
     inputs reduce by avg)."""
     if kernel.startswith("pseudo_grid"):
         return chip_smoke._pgrid_tol(dtype)
-    if kernel == "pospool_sincos":
-        return chip_smoke._pospool_fwd_tol(dtype, "avg", "sincos")
+    if kernel in ("pospool_sincos", "pospool_xyz", "moments"):
+        return chip_smoke._pospool_fwd_tol(dtype, "avg")
     if kernel in RECOMPUTED:
         return chip_smoke._bwd_tol(dtype, "avg", "sincos"
                                    if kernel == "pospool_sincos_bwd"
@@ -217,6 +236,37 @@ def time_calls(step: str, kernel: str, reps: int) -> dict:
     return {"calls": rows, **tot}
 
 
+def request_profile(name: str, warm: int = 2, n: int = 5) -> dict:
+    """Device busy ms a request of serving config ``REQUESTS[name]``
+    through ``Predictor`` (seeded weights, one seeded batch) and each
+    device op's ms a request, over ``n`` profiled requests after
+    ``warm``."""
+    import torch
+
+    from closerlook3d_tpu_torch.serving import Predictor
+
+    config = REQUESTS[name]
+    if config == "flagship":
+        cfg = chip_smoke.flagship_config()
+        bt = chip_smoke.make_batch(chip_smoke.SEED + 1)
+    else:
+        cfg = chip_smoke.seg_config(config)
+        bt = chip_smoke.seg_batch(cfg, chip_smoke.SEED + 900)
+    weights = chip_smoke.seeded_weights(
+        cfg, torch.Generator().manual_seed(chip_smoke.SEED + 20))
+    predictor = Predictor(cfg, weights, device=chip_smoke.DEVICE)
+    def run():
+        predictor(bt["xyz"], bt["mask"], bt["features"])
+
+    for _ in range(warm):
+        run()
+    torch.cuda.synchronize()
+    out = time_ball_query.profiled_ops(run, n)
+    chip_smoke.log("request-profile", f"{name}: device busy "
+                   f"{out['busy_ms']:.3f} ms a request")
+    return out
+
+
 def reading(tree: str, reps: int, kernels: str = "all") -> dict:
     """One reading of checkout ``tree`` (see the module's docstring)."""
     sys.path.insert(0, tree)
@@ -236,6 +286,9 @@ def reading(tree: str, reps: int, kernels: str = "all") -> dict:
         torch.cuda.empty_cache()
     for name in chip_smoke.TRAIN_KINDS + chip_smoke.SEG_TRAIN_NAMES:
         out["steps"][name] = time_ball_query.step_profile(name, set())
+        torch.cuda.empty_cache()
+    for name in REQUESTS:
+        out["steps"][name] = request_profile(name)
         torch.cuda.empty_cache()
     return out
 
@@ -314,7 +367,8 @@ def compare(parent: list, this: list) -> dict:
         row["rose_most"] = [(op[:90], delta[op]) for op in order[::-1][:4]]
         out["steps"][name] = row
         chip_smoke.log(
-            "compare", f"{name}: busy {row['busy_ms']:.3f} ms a step, parent "
+            "compare", f"{name}: busy {row['busy_ms']:.3f} ms a "
+            f"{'request' if name in REQUESTS else 'step'}, parent "
             f"{row['parent_busy_ms']:.3f}, fall {row['fall_ms']:+.4f}, "
             f"timed kernels' saving {row['saving_ms']:.4f}; rose most "
             + "; ".join(f"{op} {d:+.4f}" for op, d in row["rose_most"]))

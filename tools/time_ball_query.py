@@ -73,30 +73,44 @@ def _setup(name: str):
     return step, state, batch
 
 
-def step_profile(name: str, bq_ops: set, warm: int = 4, n: int = 3) -> dict:
-    """Device busy ms a train step of config ``name`` and each device op's
-    ms a step, over ``n`` profiled steps after ``warm``."""
+def profiled_ops(run, n: int) -> dict:
+    """``run()`` ``n`` times under torch.profiler: device busy ms a run
+    (``busy_ms``) and each device op's ms a run (``ops_ms``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.manual_seed(chip_smoke.SEED)
-    step, state, batch = _setup(name)
-    for _ in range(warm):
-        state, _ = step(state, batch, chip_smoke.SEED)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            state, _ = step(state, batch, chip_smoke.SEED)
+            run()
         torch.cuda.synchronize()
     ops = {}
     for e in prof.events():
         if chip_smoke._is_device_op(e):
             ops[e.name] = (ops.get(e.name, 0.0)
                            + (e.time_range.end - e.time_range.start) / n / 1e3)
-    bq = sum(v for k, v in ops.items() if chip_smoke._op_name(k) in bq_ops)
-    out = {"busy_ms": chip_smoke._busy_us(prof) / n / 1e3,
-           "ball_query_ms": bq, "ops_ms": ops}
+    return {"busy_ms": chip_smoke._busy_us(prof) / n / 1e3, "ops_ms": ops}
+
+
+def step_profile(name: str, bq_ops: set, warm: int = 4, n: int = 3) -> dict:
+    """Device busy ms a train step of config ``name`` and each device op's
+    ms a step, over ``n`` profiled steps after ``warm``."""
+    import torch
+
+    torch.manual_seed(chip_smoke.SEED)
+    step, state, batch = _setup(name)
+    for _ in range(warm):
+        state, _ = step(state, batch, chip_smoke.SEED)
+    torch.cuda.synchronize()
+
+    def run():
+        nonlocal state
+        state, _ = step(state, batch, chip_smoke.SEED)
+
+    out = profiled_ops(run, n)
+    bq = sum(v for k, v in out["ops_ms"].items()
+             if chip_smoke._op_name(k) in bq_ops)
+    out["ball_query_ms"] = bq
     chip_smoke.log("step-profile", f"{name}: device busy "
                    f"{out['busy_ms']:.3f} ms a step, ball query {bq:.5f} ms")
     return out

@@ -1,8 +1,8 @@
 """Source variants of the redesigned neighborhood kernels, timed against
 each other call by call in one process, on the card: the forwards K10f
-(``csrc/pseudo_grid.cu``) and K5f (``csrc/pospool_sincos.cu``), or the
-backwards K6b (``csrc/gather_reduce.cu``), K10b, K5b and K9b
-(``csrc/moments.cu``).
+(``csrc/pseudo_grid.cu``), K5f (``csrc/pospool_sincos.cu``), K1f
+(``csrc/pospool_xyz.cu``) and K9f (``csrc/moments.cu``), or the
+backwards K6b (``csrc/gather_reduce.cu``), K10b, K5b and K9b.
 
     python3 tools/time_variants.py VARIANTS.json [--kernels forward]
 
@@ -49,13 +49,15 @@ import time_backward  # noqa: E402
 
 # kernel (time_backward.TIMED's names) -> its source under csrc/
 SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
+           "pospool_xyz": "pospool_xyz", "moments": "moments",
            "pwmlp_stats_bwd": "gather_reduce",
            "pseudo_grid_bwd": "pseudo_grid",
            "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments"}
 # parts of the device functions' names whose registers are printed
 KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
-                "sincos_gather", "moments_gather", "index_scale",
-                "pwstats_terms", "csr_gather")
+                "pospool_xyz_kernel", "moments_kernel", "sincos_gather",
+                "moments_gather", "index_scale", "pwstats_terms",
+                "csr_gather")
 
 
 def build(name: str, spec: dict, src: str):
