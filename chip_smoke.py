@@ -683,8 +683,8 @@ def _bwd_tol(dtype, red, kind="xyz"):
     """Backward kernel vs its plain twin, elementwise."""
     if dtype == torch.float32:
         # the same f32 terms summed in other orders: the twin's index_add_
-        # on the card adds with atomics in an order that varies, as K1b's
-        # and K8b's scatters do, while K5b and K9b add each support row's
+        # on the card adds with atomics in an order that varies, as K8b's
+        # scatter does, while K1b, K5b and K9b add each support row's
         # terms in (q, t) order (and sin/cos: CUDA's sinf against
         # sincosf); sums of up to ~40 terms carry more rounding than
         # averages, and a moments slot's term (g0 + sum_d g_d dp_d) is up
@@ -1729,7 +1729,8 @@ def _kernel_cases(tcfg, calls, gen, kind: str):
     input set, (bytes, flops) of the first set)]} for one train step of
     the ``kind`` config: its aggregation kernels (the point-wise MLP's K7
     per eval-mode forward instead), and for the xyz config the geometry
-    kernels and the neighborhood max too."""
+    kernels and the neighborhood max too, where ``calls`` hold the
+    geometry's calls (not None)."""
     from closerlook3d_tpu_torch.ops import grouping as grp
     from closerlook3d_tpu_torch.ops import neighbors as nbr
     from closerlook3d_tpu_torch.ops import sampling as smp
@@ -1765,7 +1766,7 @@ def _kernel_cases(tcfg, calls, gen, kind: str):
         cases[bwd_name].append((
             name, count, bwd_fn, twin_fn, bwd,
             (_nbytes(q, s, idx, nmask, dy, f) + table, flops)))
-    if kind != "xyz":
+    if kind != "xyz" or calls[0][0] is None:
         return cases
     cases.update({k: [] for k in ("ball_query", "fps", "neighborhood_max",
                                   "neighborhood_max_bwd")})
@@ -1847,13 +1848,22 @@ def _timing_calls(tcfg) -> list:
     return calls
 
 
+# device ops a call of the redesigned neighborhood kernels: the forwards
+# one kernel, the backward gathers two (the reverse index, then the gather)
+DEVICE_OPS = {"pospool_xyz": 1, "pospool_sincos": 1, "moments": 1,
+              "pwmlp_stats": 1, "pseudo_grid": 1, "pospool_xyz_bwd": 2,
+              "pospool_sincos_bwd": 2, "moments_bwd": 2,
+              "pwmlp_stats_bwd": 2, "pseudo_grid_bwd": 2}
+
+
 def phase_device_timing() -> dict:
     """Every kernel row of every train config (``_kernel_cases``, the
     inputs of ``phase_train_timing``) by device time (``_device_time``),
     per call and per step, and the device ops a call, and the k-NN per
     upsample call of each segmentation request (the inputs of
     ``phase_seg_timing``); run right after the build, as
-    ``phase_k13_timing``."""
+    ``phase_k13_timing``. Fails where a kernel of ``DEVICE_OPS`` runs
+    another number of device ops a call."""
     out = {}
     for kind in TRAIN_KINDS:
         tcfg = train_config(kind)
@@ -1876,6 +1886,12 @@ def phase_device_timing() -> dict:
                 f"a step, {t['device_ops_per_call']} device ops a call ("
                 + ", ".join(f"{r['call']} {r['device_ms']:.5f}"
                             for r in calls) + ")")
+            want = DEVICE_OPS.get(kernel)
+            for r in calls:
+                if want and r["device_ops_per_call"] != want:
+                    raise AssertionError(
+                        f"{kind} {kernel}: {r['device_ops_per_call']:g} "
+                        f"device ops a call at {r['call']}, expected {want}")
         torch.cuda.empty_cache()
     for name in SEG_NAMES:  # the k-NN, per upsample call of a request
         ups = _knn_calls(seg_config(name))

@@ -54,18 +54,33 @@
 // each query tile's partial to the output dtype; at the caller's shapes
 // there is one tile, so it too rounds once.
 //
-// Layout. K6's forward and K7 (query_blocks.cuh): one block per kQPB
-// consecutive queries of one cloud stages the K slot rows in shared
-// memory; threads stride over the C channels, so a warp's loads (and
-// atomics) of one support row are coalesced. K6's backward: two launches
-// over a reverse neighbor index (reverse_index.cuh, row_gather.cuh); see
-// pwstats_terms_kernel. K13 has its own, below: forward a warp per
-// (query, 256-channel bf16 slice; 128 in f32), a block per 8 queries of
-// one cloud; backward a warp per 1-4 support rows and slice.
+// Layout. K6's forward (query_groups.cuh): a group of 8-32 lanes a query
+// (and slice of its channels where queries are few), several groups a
+// block and no block-wide barrier; the group compacts the query's valid
+// slots in slot order and stages their support rows in its own shared
+// memory, then each lane takes units of 4 channels of g and gsq (8 bytes
+// of bf16), loads 4 valid slots' rows of both at once and writes its
+// unit of each of the four f32 outputs once (one 16-byte store each). C
+// off 4, or views off the vector, take scalar units. K7 (query_blocks.cuh):
+// one block per kQPB consecutive queries of one cloud stages the K slot
+// rows in shared memory; threads stride over the C channels, so a warp's
+// loads (and atomics) of one support row are coalesced. K6's backward:
+// two launches over a reverse neighbor index (reverse_index.cuh,
+// row_gather.cuh); see pwstats_terms_kernel. K13 has its own, below:
+// forward a warp per (query, 256-channel bf16 slice; 128 in f32), a block
+// per 8 queries of one cloud; backward a warp per 1-4 support rows and
+// slice.
 //
 // Bound on the H100: bytes. The forward does a few f32 (and two f64)
 // operations per gathered value and writes f32 outputs (K6 four, K7 two),
 // which dominate the bytes; the K-fold re-reads of support rows hit L2.
+// K6's forward takes 0.80 ms a ModelNet40 bf16 step (NVIDIA H100 80GB
+// HBM3, 700 W), twice its byte bound, against 2.24 for the kQPB layout:
+// each valid slot costs a lane two dependent row loads (g and gsq) from
+// L2. Hence groups as narrow as 8 lanes at C = 72 (at least 16 ran 1.08x
+// slower), 4 slots' rows in flight (2: 1.02x, 8: 1.13x), and 92
+// registers for the f64 sums (a cap at 85, 3 blocks an SM, gained
+// nothing).
 // K6's backward reads its six f32 [B, Nq, C] inputs once and writes dg and
 // dgsq once, but also writes and reads back an f32 term per valid slot and
 // channel (on ModelNet40's synthetic clouds 3-10 valid slots of 26-41 a
@@ -88,7 +103,7 @@
 // dy[q] repeated n[q, s] times, so integer counts, exact in any order,
 // fix the sum.
 
-#include "query_blocks.cuh"
+#include "query_groups.cuh"
 #include "reverse_index.cuh"
 
 namespace {
@@ -111,48 +126,123 @@ struct MinMax {
   }
 };
 
-template <typename T>
-__global__ void pwstats_fwd_kernel(const T* __restrict__ g,
-                                   const T* __restrict__ gsq,
-                                   const int32_t* __restrict__ idx,
-                                   const bool* __restrict__ mask, int nq,
-                                   int ns, int c, int k,
-                                   float* __restrict__ gmax,
-                                   float* __restrict__ gmin,
-                                   float* __restrict__ s1,
-                                   float* __restrict__ s2) {
-  __shared__ int s_idx[kMaxK];  // support row, or -1 for a masked slot
-  const int b = blockIdx.y;
-  const T* gb = g + static_cast<size_t>(b) * ns * c;
-  const T* qb = gsq + static_cast<size_t>(b) * ns * c;
+// ---- K6 forward: query groups (query_groups.cuh) ---------------------------
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;  // uniform across the block
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();  // previous query's slots fully consumed
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      MinMax mm;
-      double a1 = 0.0, a2 = 0.0;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const size_t off = static_cast<size_t>(j) * c + ch;
-          const float v = to_f32(gb[off]);
-          mm.add(v);
-          a1 += v;
-          a2 += to_f32(qb[off]);
+constexpr int kStatsChannels = 4;  // channels of a lane's unit
+constexpr int kStatsBatch = 4;     // valid slots' rows a lane loads at once
+constexpr int kStatsLanes = 8;     // the narrowest group
+
+// K6 forward in query groups: a group of kG lanes per item, a query and a
+// slice of its passes; the group stages its query's valid slots' rows in
+// slot order (stage_valid_rows). Unit e * kG + lg of pass e belongs to
+// lane lg: channels [unit * 4, unit * 4 + 4) of g and gsq (8 bytes of
+// bf16, 16 of f32), whose rows it loads kStatsBatch valid slots at once.
+// Per channel, over the valid slots in slot order: the first sets hi and
+// lo, the others update them as MinMax does (a NaN wins and stays); a1
+// and a2 add g and gsq in f64 from +0 and round once to f32. So each
+// output has the bits of a loop over all K slots that skips the invalid
+// ones; each is written once, a 16-byte f32 store a unit where the rows
+// allow vectors. 0 where no slot is valid.
+template <typename T, bool kVec, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    pwstats_fwd_kernel(const T* __restrict__ g, const T* __restrict__ gsq,
+                       const int32_t* __restrict__ idx,
+                       const bool* __restrict__ mask, int nq, int ns, int c,
+                       int k, long long items, int slices, int per,
+                       float* __restrict__ gmax, float* __restrict__ gmin,
+                       float* __restrict__ s1, float* __restrict__ s2) {
+  using U = ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>;
+  using Out = ChannelUnit<float, kVec, kStatsChannels * sizeof(float)>;
+  constexpr int kW = U::kW;
+  __shared__ GroupRows s_rows[kGroupThreads / kG];
+  GroupRows& st = s_rows[threadIdx.x / kG];
+  const int lg = threadIdx.x % kG;
+  const GroupItem it = group_item<kG>(items, slices);
+  const int n = stage_valid_rows<kG>(idx + it.row * k, mask + it.row * k,
+                                     k, it.live, st);
+  __syncwarp();
+  if (!it.live) return;
+  const size_t b = it.row / nq;
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  const size_t o = it.row * c;
+  const int u_end = min(U::units(c), (it.slice + 1) * per * kG);
+  for (int unit = it.slice * per * kG + lg; unit < u_end; unit += kG) {
+    const int ch0 = unit * kW;
+    const T* g0 = g + b * ns * c + ch0;  // the unit's channels of row 0
+    const T* q0 = gsq + b * ns * c + ch0;
+    float hi[kW] = {}, lo[kW] = {};
+    double a1[kW] = {}, a2[kW] = {};
+    for (int i0 = 0; i0 < n; i0 += kStatsBatch) {
+      typename U::Raw r[kStatsBatch], rq[kStatsBatch];
+#pragma unroll
+      for (int v = 0; v < kStatsBatch; ++v) {
+        const int j = st.j[min(i0 + v, n - 1)];
+        r[v] = U::load(row_at(g0, j, row_bytes), c - ch0);
+        rq[v] = U::load(row_at(q0, j, row_bytes), c - ch0);
+      }
+#pragma unroll
+      for (int v = 0; v < kStatsBatch; ++v) {
+        if (i0 + v < n) {
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            const float x = to_f32(r[v].v[i]);
+            if (i0 + v == 0) {
+              hi[i] = x;
+              lo[i] = x;
+            } else {
+              if (hi[i] == hi[i] && (x != x || x > hi[i])) hi[i] = x;
+              if (lo[i] == lo[i] && (x != x || x < lo[i])) lo[i] = x;
+            }
+            a1[i] += x;
+            a2[i] += to_f32(rq[v].v[i]);
+          }
         }
       }
-      const size_t o = row * c + ch;
-      gmax[o] = mm.any ? mm.hi : 0.f;
-      gmin[o] = mm.any ? mm.lo : 0.f;
-      s1[o] = __double2float_rn(a1);
-      s2[o] = __double2float_rn(a2);
     }
+    float x1[kW], x2[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      x1[i] = __double2float_rn(a1[i]);
+      x2[i] = __double2float_rn(a2[i]);
+    }
+    Out::store(gmax + o + ch0, c - ch0, hi);
+    Out::store(gmin + o + ch0, c - ch0, lo);
+    Out::store(s1 + o + ch0, c - ch0, x1);
+    Out::store(s2 + o + ch0, c - ch0, x2);
   }
+}
+
+template <typename T, bool kVec>
+int launch_pwstats_fwd_as(const T* g, const T* gsq, const int32_t* idx,
+                          const bool* mask, int b, int nq, int ns, int c,
+                          int k, float* gmax, float* gmin, float* s1,
+                          float* s2, cudaStream_t stream) {
+  return launch_query_groups(
+      static_cast<long long>(b) * nq,
+      ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>::units(c),
+      kStatsLanes,
+      [&](auto lanes, unsigned blocks, long long items, PassSplit sp) {
+        pwstats_fwd_kernel<T, kVec, decltype(lanes)::value>
+            <<<blocks, kGroupThreads, 0, stream>>>(
+                g, gsq, idx, mask, nq, ns, c, k, items, sp.slices, sp.per,
+                gmax, gmin, s1, s2);
+      });
+}
+
+// K6's forward in vector units where C and the pointers allow them.
+template <typename T>
+int launch_pwstats_fwd(const void* g, const void* gsq, const int32_t* idx,
+                       const bool* mask, int b, int nq, int ns, int c, int k,
+                       float* gmax, float* gmin, float* s1, float* s2,
+                       cudaStream_t stream) {
+  const T* gp = static_cast<const T*>(g);
+  const T* qp = static_cast<const T*>(gsq);
+  if (runs_ok<T, kStatsChannels>(c, g, gsq) &&
+      runs_ok<float, kStatsChannels>(c, gmax, gmin, s1, s2))
+    return launch_pwstats_fwd_as<T, true>(gp, qp, idx, mask, b, nq, ns, c,
+                                          k, gmax, gmin, s1, s2, stream);
+  return launch_pwstats_fwd_as<T, false>(gp, qp, idx, mask, b, nq, ns, c, k,
+                                         gmax, gmin, s1, s2, stream);
 }
 
 // (dmax / n, dmin / m) for one (query, channel): n (m) = valid slots whose
@@ -779,20 +869,15 @@ extern "C" int cl3d_pwmlp_stats(const void* g, const void* gsq,
                                 int nq, int ns, int c, int k, int is_bf16,
                                 float* gmax, float* gmin, float* s1, float* s2,
                                 cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, ns, c, k) ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    pwstats_fwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(g),
-            static_cast<const __nv_bfloat16*>(gsq), idx, mask, nq, ns, c, k,
-            gmax, gmin, s1, s2);
-  } else {
-    pwstats_fwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(g), static_cast<const float*>(gsq), idx,
-        mask, nq, ns, c, k, gmax, gmin, s1, s2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_pwstats_fwd<__nv_bfloat16>(g, gsq, idx, mask, b,
+                                                     nq, ns, c, k, gmax, gmin,
+                                                     s1, s2, stream)
+                 : launch_pwstats_fwd<float>(g, gsq, idx, mask, b, nq, ns, c,
+                                             k, gmax, gmin, s1, s2, stream);
 }
 
 // Outputs: dg, dgsq [B, Ns, C] in g's dtype, written in full (no zeroing

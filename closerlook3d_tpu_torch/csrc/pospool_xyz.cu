@@ -4,7 +4,7 @@
 //   out[q, c] = R_k  mask[k] * D[k, c / (C/3)] * f[idx[k], c],
 //   D[k, d] = (s[idx[k], d] - q[d]) / r,
 // with R = sum, or avg = sum / max(count of valid slots, 1). The backward
-// scatters onto the support rows:
+// gathers onto the support rows:
 //   df[s, c] = sum over (q, k) with idx[q, k] = s and mask[q, k] of
 //              g[q, c] * D[k, c / (C/3)],
 //   g = dy (sum), or dy / max(count_q, 1) rounded to the features' dtype
@@ -16,18 +16,19 @@
 // VJP's _pospool_bwd). The TPU kernels build multi-hot matrices and
 // gather / scatter with MXU matmuls over Morton support chunks; here the
 // forward reads each query's neighbor rows directly, and the backward
-// scatters with f32 atomics into a zeroed f32 scratch that the wrapper
-// casts once to the features' dtype.
+// gathers per support row over a reverse neighbor index (row_terms.cuh).
 //
 // Numerics: D is computed as (s - q) / r in f32 (the jnp gather path's
 // form; the Pallas kernel multiplies by 1/r instead) and rounded to the
 // features' dtype, as the gather path casts dp to f.dtype. Products and
-// sums are f32; forward sums run over k in slot order, backward sums in
-// atomic order (run to run). Each result is rounded once to the
-// features' dtype. Against the plain PyTorch versions: f32 agrees to the
-// rounding of the sum order; bf16 differs by the plain path's bf16
-// rounding of each product and of the sum (the plain backward twin,
-// pospool_xyz_bwd_plain, sums in f32 too and agrees to one bf16 ulp).
+// sums are f32; forward sums run over k in slot order, and the backward
+// adds a support row's terms from +0 in (q, t) order. Each result is
+// rounded once to the features' dtype. Against the plain PyTorch forward:
+// f32 agrees to the rounding of the sum order; bf16 differs by the plain
+// path's bf16 rounding of each product and of the sum. The plain backward
+// twin, pospool_xyz_bwd_plain, forms the same f32 terms and, on CPU
+// tensors, adds them with index_add_ in the same order: the two are equal
+// to the bit, and every run gives the same bits.
 //
 // Forward layout (query_groups.cuh): a group of 16 or 32 lanes a query
 // (and slice of its channels where queries are few), several groups a
@@ -38,10 +39,12 @@
 // C/3 a multiple of 8), reads the valid slots' 16-byte vectors of those
 // channels, 4 slots at once, and writes its 16 bytes of the output once.
 // C/3 off the vector width, or views off 16 bytes, take scalar units of
-// the same channels. Backward layout (query_blocks.cuh): one block per
-// kQPB consecutive queries of one cloud stages idx and D of its K slots in
-// shared memory, then threads stride over the C channels and scatter with
-// f32 atomics.
+// the same channels. Backward: two launches over a reverse neighbor index
+// (row_terms.cuh), the index (and, for avg, g = dy / max(count, 1) by
+// query), then a gather in which 16 bytes of channels of one coordinate
+// of a support row take one lane (9 lanes a row at C = 72 bf16),
+// recomputing each entry's D from the row's own position: no float
+// atomics, no zeroed scratch, no cast.
 //
 // Bound on the H100: bytes (inputs read once, the output written once).
 // The forward's term is one product and one add a channel, so its pace is
@@ -55,10 +58,19 @@
 // calls (13-16). Hence no block barrier, valid slots only, 16 bytes a
 // lane and 4 slots' rows in flight (2 ran 5% slower, 8 6% slower);
 // groups of 8 lanes stage in 8 rounds, take 64 registers and spill, and
-// lost 4-14% to 16 and 32. Backward: the same pattern with f32 atomics
-// into L2-resident rows, plus the scratch write and the cast.
+// lost 4-14% to 16 and 32. Backward: dy once (and g written and read
+// once for avg) and df once; but each entry reads its query's g unit
+// again, from L1 or L2 where Morton-adjacent support rows share queries,
+// after a chain of dependent loads (offsets, entry, then position and g),
+// as K9b's gather does with a quarter of its g bytes. At ModelNet40's
+// bf16 step (NVIDIA H100 80GB HBM3, 700 W) it takes 0.79-0.86 ms against
+// 1.76 for the atomic scatter, the index launch 0.35 of it; 16-byte
+// units win (8 bytes ran 1.29x slower, 4 bytes 1.84x: every lane walks
+// all its row's entries), and two entries' loads at once gain 1-7% (4:
+// 80 registers, 1.12x slower).
 
 #include "query_groups.cuh"
+#include "row_terms.cuh"
 
 namespace {
 
@@ -170,45 +182,99 @@ int launch_fwd(const float* q, const float* s, const void* f,
                                  radius, avg, op, stream);
 }
 
-template <typename T>
-__global__ void pospool_xyz_bwd_kernel(const float* __restrict__ q,
-                                       const float* __restrict__ s,
-                                       const int32_t* __restrict__ idx,
-                                       const bool* __restrict__ mask,
-                                       const T* __restrict__ dy, int nq,
-                                       int ns, int c, int k, float radius,
-                                       int avg, float* __restrict__ df) {
-  __shared__ int s_idx[kMaxK];
-  __shared__ float s_d[kMaxK * 3];
-  const int b = blockIdx.y;
-  const int g = c / 3;
-  float* dfb = df + static_cast<size_t>(b) * ns * c;
-  const float* sb = s + static_cast<size_t>(b) * ns * 3;
-
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_slots<T>(q, sb, idx, mask, row, k, radius, s_idx, s_d);
-    __syncthreads();
-    const int cnt = staged_count(s_idx, k);
-    if (cnt == 0) continue;  // uniform: nothing to scatter
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const int d = ch / g;
-      float gv = to_f32(dy[row * c + ch]);
-      if (avg) {
-        gv = to_f32(from_f32<T>(__fdiv_rn(gv, static_cast<float>(cnt))));
-      }
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          atomicAdd(dfb + static_cast<size_t>(j) * c + ch,
-                    __fmul_rn(gv, s_d[t * 3 + d]));
+// K1 backward, launch 2 (row_terms.cuh): the lane of unit `unit` of
+// support row s holds channels [unit * kW, unit * kW + kW), all of one
+// coordinate d = ch / (C/3); for each entry (q, t) of the row, in (q, t)
+// order,
+//   df[s, c] += g[q, c] * D,   D = (s[s, d] - q[q, d]) / r in f32 rounded
+// to T, the product and the sum rounded to f32 (the intrinsics keep nvcc
+// from contracting them). A lane holds kW = 16 bytes of T (8 bf16
+// channels; 1 channel where C/3 or the pointers do not allow vectors) and
+// takes a row's entries two at once, both g units and query positions
+// loaded first, then the last one alone. An entry holds its query
+// (row_terms.cuh).
+template <typename T, int kW>
+__global__ void __launch_bounds__(kRowThreads)
+    xyz_gather_kernel(const float* __restrict__ q,
+                      const float* __restrict__ s, const T* __restrict__ g,
+                      const int32_t* __restrict__ offsets,
+                      const int32_t* __restrict__ entries, int nq, int ns,
+                      int c, int k, int tiles, int per, float radius,
+                      int lanes, int slices, T* __restrict__ df) {
+  const RowItem it = row_item(ns, c / kW, lanes, slices);
+  if (!it.live) return;
+  const size_t b = blockIdx.y;
+  const int ch = it.unit * kW;
+  const int d = ch / (c / 3);
+  const float sd = s[(b * ns + it.row) * 3 + d];
+  const float* qb = q + b * nq * 3 + d;
+  const T* gb = g + b * nq * c + ch;
+  float acc[kW] = {};
+  for_each_entry_tile(
+      offsets, entries, b, nq, ns, k, tiles, per, it.row,
+      [&](const int32_t* eb, int start, int end, int q0) {
+        int e = start;
+        for (; e + 1 < end; e += 2) {
+          const int qa = q0 + eb[e], qz = q0 + eb[e + 1];
+          T ga[kW], gz[kW];
+          load_run<T, kW>(gb + static_cast<size_t>(qa) * c, ga);
+          load_run<T, kW>(gb + static_cast<size_t>(qz) * c, gz);
+          const float da = to_f32(
+              from_f32<T>(__fdiv_rn(__fsub_rn(sd, qb[qa * 3]), radius)));
+          const float dz = to_f32(
+              from_f32<T>(__fdiv_rn(__fsub_rn(sd, qb[qz * 3]), radius)));
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(ga[i]), da));
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(gz[i]), dz));
         }
-      }
-    }
-  }
+        if (e < end) {
+          const int qi = q0 + eb[e];
+          T gv[kW];
+          load_run<T, kW>(gb + static_cast<size_t>(qi) * c, gv);
+          const float dv = to_f32(
+              from_f32<T>(__fdiv_rn(__fsub_rn(sd, qb[qi * 3]), radius)));
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(to_f32(gv[i]), dv));
+        }
+      });
+  store_run<T, kW>(df + (b * ns + it.row) * c + ch, acc);
+}
+
+template <typename T, int kW>
+void launch_gather_as(const float* q, const float* s, const T* g,
+                      const int32_t* offsets, const int32_t* entries, int b,
+                      int nq, int ns, int c, int k, int tiles, float radius,
+                      T* df, cudaStream_t stream) {
+  const RowSplit sp = row_split(c / kW);
+  xyz_gather_kernel<T, kW><<<row_grid(b, ns, sp), kRowThreads, 0, stream>>>(
+      q, s, g, offsets, entries, nq, ns, c, k, tiles,
+      (nq + tiles - 1) / tiles, radius, sp.lanes, sp.slices, df);
+}
+
+// K1's backward in two launches: the index (and g for avg), then the
+// gather, in 16-byte units where C/3 and the pointers allow them.
+template <typename T>
+void launch_bwd(const float* q, const float* s, const int32_t* idx,
+                const bool* mask, const void* dy, int b, int nq, int ns,
+                int c, int k, int tiles, float radius, int avg,
+                int32_t* offsets, int32_t* entries, int32_t* raw,
+                int* counters, void* g, void* df, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const T* dp = static_cast<const T*>(dy);
+  T* gp = static_cast<T*>(g);
+  T* fp = static_cast<T*>(df);
+  launch_index_scale<T>(idx, mask, dp, b, nq, ns, k, tiles, c, avg, offsets,
+                        entries, raw, counters, gp, stream);
+  if (runs_ok<T, kV>(c / 3, g, df))
+    launch_gather_as<T, kV>(q, s, gp, offsets, entries, b, nq, ns, c, k,
+                            tiles, radius, fp, stream);
+  else
+    launch_gather_as<T, 1>(q, s, gp, offsets, entries, b, nq, ns, c, k,
+                           tiles, radius, fp, stream);
 }
 
 bool bad_args(int b, int ns, int c, int k) {
@@ -234,26 +300,32 @@ extern "C" int cl3d_pospool_xyz(const float* q, const float* s,
                                      radius, avg, out, stream);
 }
 
-// df32 must be zeroed [B, Ns, C] float32; dy is [B, Nq, C] in the
-// features' dtype.
+// df [B, Ns, C] in the features' dtype, written in full (no zeroing
+// needed); dy is [B, Nq, C] in that dtype. g: for avg a [B, Nq, C] buffer
+// in that dtype that launch 1 fills with dy / max(count, 1), for sum dy
+// itself. The index in `tiles` query tiles a cloud (1 .. kMaxTiles, at
+// most Nq). Scratch, none zeroed: offsets and counters [B * tiles, Ns + 1]
+// (counters used where Ns outgrows shared memory), entries (each tile's
+// queries, in the cloud's slot range of the tile) and raw [B, Nq * K].
+// Two launches.
 extern "C" int cl3d_pospool_xyz_bwd(const float* q, const float* s,
                                     const int32_t* idx, const bool* mask,
                                     const void* dy, int b, int nq, int ns,
-                                    int c, int k, float radius, int avg,
-                                    int is_bf16, float* df32,
+                                    int c, int k, int tiles, float radius,
+                                    int avg, int is_bf16, int32_t* offsets,
+                                    int32_t* entries, int32_t* raw,
+                                    int* counters, void* g, void* df,
                                     cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, ns, c, k) || static_cast<long long>(nq) * k > INT_MAX - 1 ||
+      tiles < 1 || tiles > kMaxTiles || (nq > 0 && tiles > nq))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    pospool_xyz_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            q, s, idx, mask, static_cast<const __nv_bfloat16*>(dy), nq, ns,
-            c, k, radius, avg, df32);
-  } else {
-    pospool_xyz_bwd_kernel<float>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            q, s, idx, mask, static_cast<const float*>(dy), nq, ns, c, k,
-            radius, avg, df32);
-  }
+  if (is_bf16)
+    launch_bwd<__nv_bfloat16>(q, s, idx, mask, dy, b, nq, ns, c, k, tiles,
+                              radius, avg, offsets, entries, raw, counters, g,
+                              df, stream);
+  else
+    launch_bwd<float>(q, s, idx, mask, dy, b, nq, ns, c, k, tiles, radius,
+                      avg, offsets, entries, raw, counters, g, df, stream);
   return static_cast<int>(cudaGetLastError());
 }

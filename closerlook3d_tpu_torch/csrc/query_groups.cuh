@@ -1,8 +1,8 @@
 // Query-group layout of the forward neighborhood kernels (K10f in
 // pseudo_grid.cu, K5f in pospool_sincos.cu, K1f in pospool_xyz.cu, K9f in
-// moments.cu): a group of kG lanes of one warp (8, 16 or 32) owns one work
-// item, a query and a slice of its output, and several groups share a
-// block with no block-wide barrier:
+// moments.cu, K6f in gather_reduce.cu): a group of kG lanes of one warp
+// (8, 16 or 32) owns one work item, a query and a slice of its output,
+// and several groups share a block with no block-wide barrier:
 // each group stages its query in its own slice of shared memory behind
 // __syncwarp only, so one query's staging overlaps another's row traffic.
 //
@@ -14,15 +14,15 @@
 //      skips the masked ones;
 //   3. position staging: for valid slots only, the support row and a
 //      position term per coordinate, pos(s[idx, d], q[d]), are written to
-//      the group's GroupSlots.
+//      the group's GroupSlots (K6f, which needs no positions, stages the
+//      rows alone in GroupRows: stage_valid_rows).
 //
 // A query's output is cut into `passes` of kG lanes' units (channel
 // vectors, pairs, kernel-point chunks: the kernel's own); where queries are
 // few (deep stages: 608 queries at C = 1152) the passes are split into
 // slices, one item each, so that the launch still fills the card.
-// query_blocks.cuh keeps the older layout of the other neighborhood
-// kernels (K1b, K6f, K7, K8: one block per 4 queries behind
-// __syncthreads).
+// query_blocks.cuh keeps the older layout of K7 and K8 (one block per 4
+// queries behind __syncthreads).
 #pragma once
 
 #include <climits>
@@ -41,6 +41,15 @@ struct GroupSlots {
   float x[kMaxK][3];
 };
 
+// The same without positions (stage_valid_rows).
+struct GroupRows {
+  int j[kMaxK];
+};
+
+// stage_valid_slots' pos where the kernel needs no positions: nothing but
+// the rows is loaded or staged.
+struct NoPositions {};
+
 // Steps 1-3 above for the calling lane's group (live: the group has an
 // item). Every lane of the warp takes part; the caller syncs the warp
 // before reading `st`. Returns the number of valid slots, uniform across
@@ -48,11 +57,13 @@ struct GroupSlots {
 // (the backward gathers, which keep slot numbers), a slot naming a
 // negative row is not valid, as the forward kernels' loops over K skipped
 // it, and every round's positions are loaded before the first ballot.
-template <int kG, typename Pos>
+// With pos NoPositions (and `st` a GroupRows) no position is loaded.
+template <int kG, typename Pos, typename Slots>
 __device__ __forceinline__ int stage_valid_slots(
     const int32_t* __restrict__ idx_row, const bool* __restrict__ mask_row,
     int k, bool live, const float* __restrict__ sb, const float (&qp)[3],
-    Pos pos, GroupSlots& st) {
+    Pos pos, Slots& st) {
+  constexpr bool kPos = !std::is_same_v<Pos, NoPositions>;
   constexpr int kRounds = kMaxK / kG;
   const int lane = threadIdx.x & 31, lg = lane % kG;
   const unsigned group =
@@ -72,7 +83,7 @@ __device__ __forceinline__ int stage_valid_slots(
 #pragma unroll
   for (int h = 0; h < kRounds; ++h) {
     if (kG * h >= k) break;
-    if (v[h]) {
+    if (kPos && v[h]) {
 #pragma unroll
       for (int d = 0; d < 3; ++d)
         sp[h][d] = sb[static_cast<size_t>(j[h]) * 3 + d];
@@ -86,12 +97,25 @@ __device__ __forceinline__ int stage_valid_slots(
     if (v[h]) {
       const int at = n + __popc(m & below);
       st.j[at] = j[h];
+      if constexpr (kPos) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) st.x[at][d] = pos(sp[h][d], qp[d]);
+        for (int d = 0; d < 3; ++d) st.x[at][d] = pos(sp[h][d], qp[d]);
+      }
     }
     n += __popc(m);
   }
   return n;
+}
+
+// Steps 1 and 2 alone: the query's valid slots' support rows, compacted
+// in slot order into `st` (stage_valid_slots without positions).
+template <int kG>
+__device__ __forceinline__ int stage_valid_rows(
+    const int32_t* __restrict__ idx_row, const bool* __restrict__ mask_row,
+    int k, bool live, GroupRows& st) {
+  const float none[3] = {};
+  return stage_valid_slots<kG>(idx_row, mask_row, k, live, nullptr, none,
+                               NoPositions{}, st);
 }
 
 // Row j of a [Ns, C] matrix, from a pointer into its row 0: one 32 x 32 ->
@@ -159,11 +183,12 @@ __device__ __forceinline__ GroupItem group_item(long long items,
           live ? static_cast<int>(item % slices) : 0};
 }
 
-// A unit of kW = kBytes / sizeof(T) consecutive channels of a row (K1f's
-// and K9f's lanes; kBytes 8 or 16). Vectorized (kVec): one load of kBytes
-// through the read-only path and one store; needs rows of a multiple of kW
-// channels aligned to kBytes (runs_ok<T, kW>). Scalar: element by element,
-// any C and any alignment, `left` channels of the row from p.
+// A unit of kW = kBytes / sizeof(T) consecutive channels of a row (K1f's,
+// K9f's and K6f's lanes; kBytes 8 or 16). Vectorized (kVec): one load of
+// kBytes through the read-only path and one store; needs rows of a
+// multiple of kW channels aligned to kBytes (runs_ok<T, kW>). Scalar:
+// element by element, any C and any alignment, `left` channels of the row
+// from p.
 template <typename T, bool kVec, int kBytes>
 struct ChannelUnit {
   static constexpr int kW = kBytes / static_cast<int>(sizeof(T));

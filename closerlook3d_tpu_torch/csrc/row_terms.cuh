@@ -1,6 +1,7 @@
-// Backward gathers that recompute each slot's term from dy (K5b in
-// pospool_sincos.cu, K9b in moments.cu), in two launches over a reverse
-// neighbor index (reverse_index.cuh) built in query tiles:
+// Backward gathers that recompute each slot's term from dy (K1b in
+// pospool_xyz.cu, K5b in pospool_sincos.cu, K9b in moments.cu), in two
+// launches over a reverse neighbor index (reverse_index.cuh) built in
+// query tiles:
 //
 //   1. index_scale_kernel: each cloud's queries are cut into `tiles`
 //      tiles of `per` consecutive queries (the last may hold fewer), and

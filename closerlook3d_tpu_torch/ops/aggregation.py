@@ -88,6 +88,8 @@ def pospool_xyz_bwd_plain(query_xyz, support_xyz, idx, mask, dy,
     valid slot k adds g * dp_{d(c)} to its support row. Products and the
     scatter (``index_add_``) are f32, rounded once to dy's dtype, as the
     kernel does; autograd of ``pospool_xyz_plain`` rounds each step instead.
+    On CPU tensors ``index_add_`` adds in (b, q, t) order, the kernel's, so
+    the two are equal to the bit (on CUDA tensors it adds in atomic order).
     """
     g = reduction_grad(dy, mask, reduction)
     dp = neighbor_offsets(query_xyz, support_xyz, idx, radius,
@@ -249,21 +251,22 @@ pospool_xyz_cuda.launches = 0
 def pospool_xyz_bwd_cuda(query_xyz, support_xyz, idx, mask, dy,
                          radius: float, reduction: str):
     """Launch the backward of ``csrc/pospool_xyz.cu``: d out / d features
-    [B, Ns, C] in dy's dtype, scattered with f32 atomics into a zeroed f32
-    scratch that is cast once. Raises on anything it does not take."""
+    [B, Ns, C] in dy's dtype. Two device kernels: the reverse index of
+    idx/mask (for avg beside dy / max(count, 1) by query), then a gather
+    per support row that recomputes each slot's term and writes the row
+    once (``launch_backward_gather``); equal to ``pospool_xyz_bwd_plain``
+    on CPU copies to the bit. Raises on anything it does not take."""
     what = "pospool_xyz_bwd_cuda"
     b, nq, ns, c, k = check_neighborhood_call(
         what, query_xyz, support_xyz, dy, idx, mask, reduction, 3)
     kernels.require(dy.shape == (b, nq, c), f"{what}: dy must be [B, Nq, C]")
-    df = torch.zeros((b, ns, c), dtype=torch.float32, device=dy.device)
     if b * nq == 0:
-        return df.to(dy.dtype)
-    launch_neighborhood_kernel("pospool_xyz", "cl3d_pospool_xyz_bwd", what,
-                               (query_xyz, support_xyz, idx, mask, dy),
-                               (b, nq, ns, c, k), radius, reduction,
-                               dy.dtype == torch.bfloat16, df)
+        return torch.zeros((b, ns, c), dtype=dy.dtype, device=dy.device)
+    df = launch_backward_gather(
+        "pospool_xyz", what, (query_xyz, support_xyz, idx, mask, dy),
+        (b, nq, ns, c, k), dy, radius, reduction)
     pospool_xyz_bwd_cuda.launches += 1
-    return df.to(dy.dtype)
+    return df
 
 
 pospool_xyz_bwd_cuda.launches = 0

@@ -16,11 +16,11 @@ out. The backward kernels of the point-wise MLP's statistics (K6,
 (``csrc/reverse_index.cuh``, in buffers from ``index_buffers``), so that
 a group of lanes owning a support row reads that row's terms in (q, t)
 order, the order of their plain twins' ``index_add_``. Those of PosPool
-sin/cos (K5, ``ops/aggregation.py``) and of the neighborhood moments (K9,
-``ops/moments.py``) build it in ``index_tiles`` tiles of consecutive
-queries a cloud, a block each (``csrc/row_terms.cuh``): tile i's offsets
-index its own entries, each holding its query, and a row's entries, tile
-after tile, are again in (q, t) order. No TPU kernel
+xyz and sin/cos (K1, K5, ``ops/aggregation.py``) and of the neighborhood
+moments (K9, ``ops/moments.py``) build it in ``index_tiles`` tiles of
+consecutive queries a cloud, a block each (``csrc/row_terms.cuh``): tile
+i's offsets index its own entries, each holding its query, and a row's
+entries, tile after tile, are again in (q, t) order. No TPU kernel
 corresponds to it (the Pallas backwards scatter by one-hot matmuls).
 ``reverse_index_cuda`` launches it alone (``csrc/reverse_index.cu``),
 which the card tests and ``chip_smoke.py`` hold to
@@ -56,7 +56,7 @@ def reverse_index_plain(idx, mask, ns: int):
     return offsets.to(torch.int32), slots
 
 
-# csrc/row_terms.cuh: the reverse index of K5b and K9b in query tiles
+# csrc/row_terms.cuh: the reverse index of K1b, K5b and K9b in query tiles
 MAX_TILES = 16  # kMaxTiles
 TILE_MIN_SLOTS = 16384
 
@@ -67,11 +67,11 @@ def _sm_count(device: int) -> int:
 
 
 def index_tiles(b: int, nq: int, k: int, device) -> int:
-    """Query tiles a cloud in the reverse index of K5b and K9b, each built
-    by a block of its own: at most one block an SM over the B clouds (4 at
-    B = 32 on 132 SMs) and MAX_TILES, each of at least TILE_MIN_SLOTS
-    slots (the gather reads a row's entries tile by tile, which costs more
-    the more tiles hold them)."""
+    """Query tiles a cloud in the reverse index of K1b, K5b and K9b, each
+    built by a block of its own: at most one block an SM over the B clouds
+    (4 at B = 32 on 132 SMs) and MAX_TILES, each of at least
+    TILE_MIN_SLOTS slots (the gather reads a row's entries tile by tile,
+    which costs more the more tiles hold them)."""
     return max(1, min(MAX_TILES, _sm_count(torch.device(device).index) // b,
                       nq * k // TILE_MIN_SLOTS))
 

@@ -341,19 +341,22 @@ def _neighborhoods(nq, ns, k, seed=10):
     (70, 300, 3, 1), (257, 500, 300, 20), (33, 90, 1152, MAX_K),
     (40, 5, 12, 8)])  # the last: K > Ns
 def test_pospool_bwd_kernel_matches_plain(dtype, reduction, nq, ns, c, k):
+    """K1b (the reverse index, then a gather per support row) equal to
+    ``pospool_xyz_bwd_plain`` run on CPU copies, bit for bit with zero
+    signs (both add the same f32 terms in (q, t) order from +0 and round
+    once), and the same bits on a second launch."""
     q, s, idx, nmask = _neighborhoods(nq, ns, k)
     gen = torch.Generator(device="cuda").manual_seed(11)
     dy = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
-    got = pospool_xyz_bwd_cuda(q, s, idx, nmask, dy, 0.4, reduction)
-    twin = pospool_xyz_bwd_plain(q, s, idx, nmask, dy, 0.4, reduction)
+    args = (q, s, idx, nmask, dy, 0.4, reduction)
+    got = pospool_xyz_bwd_cuda(*args)
+    again = pospool_xyz_bwd_cuda(*args)
+    twin = pospool_xyz_bwd_plain(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (3, ns, c)
-    if dtype == torch.float32:
-        # the same f32 terms, summed in atomic order
-        tol = dict(rtol=1e-5, atol=1e-6 if reduction == "avg" else 1e-5)
-    else:
-        # both sum in f32 and round once: one bf16 ulp at most
-        tol = dict(rtol=8e-3, atol=1e-5)
-    torch.testing.assert_close(got.float(), twin.float(), **tol)
+    assert torch.equal(_bits(got.cpu()), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again))
     assert (got[-1] == 0).all()  # the all-masked cloud gets nothing
 
 
@@ -559,6 +562,91 @@ def test_pwmlp_stats_kernels_match_plain(dtype, values, nq, ns, c, k):
         torch.testing.assert_close(o.float(), r.float(),
                                    **_pwmlp_bwd_tol(dtype))
         assert (o[-1] == 0).all()
+
+
+def _stats_slot_order(g, gsq, idx, nmask):
+    """K6f's sums as its parent's loop over all K slots ran them, in
+    PyTorch on the card: for t = 0 .. K-1, each valid slot (mask set, idx
+    >= 0) adds g and gsq in f64 from +0, each add a tensor op of its own;
+    one rounding to f32. (s1, s2)."""
+    valid = nmask & (idx >= 0)
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    sums = []
+    for x in (g, gsq):
+        v = grouping.group_features(x, safe).double()  # [B, Nq, K, C]
+        acc = torch.zeros_like(v[:, :, 0])
+        for t in range(idx.shape[2]):
+            acc = torch.where(valid[:, :, t, None], acc + v[:, :, t], acc)
+        sums.append(acc.float())
+    return sums
+
+
+# name: (B, Nq, Ns, K, C): the ModelNet40 step's stages (C = 72 ... 1152,
+# the strided calls' Nq < Ns, deep stages split into slices) and C off the
+# 4-channel unit (scalar units)
+STATS_CASES = {"s0": (4, 500, 500, 26, 72),
+               "s1_strided": (4, 125, 500, 26, 144),
+               "s2": (8, 80, 80, 38, 288), "s3": (32, 78, 78, 41, 576),
+               "s4": (32, 19, 19, 39, 1152), "c78": (3, 37, 120, 16, 78),
+               "c13": (3, 37, 120, 16, 13), "k64": (3, 20, 90, MAX_K, 6)}
+
+
+def _stats_case(name, dtype, seed=90):
+    """(g, gsq, idx, nmask) of a K6f case: ball-query neighborhoods (the
+    last cloud all masked) with a few slots naming row -1 under a set mask
+    (the loops skip them), values on a coarse grid (ties) and gsq = g^2."""
+    b, nq, ns, k, c = STATS_CASES[name]
+    s, smask = _cloud(seed, b, ns, masked_frac=0.2)
+    q, qmask = (s, smask) if nq == ns else _cloud(seed + 1, b, nq,
+                                                  masked_frac=0.1)
+    idx, nmask = ball_query_cuda(q, s, 0.4, k, qmask, smask)
+    idx = idx.clone()
+    idx[..., ::7] = torch.where(nmask[..., ::7], -1, idx[..., ::7])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    g32 = torch.round(4 * torch.randn((b, ns, c), generator=gen,
+                                      device="cuda")) / 4
+    return g32.to(dtype), (g32 * g32).to(dtype), idx, nmask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(STATS_CASES))
+def test_pwmlp_stats_forward_equals_slot_order(name, dtype):
+    """K6f in query groups: gmax and gmin equal the plain version, s1 and
+    s2 the slot-order f64 sums of ``_stats_slot_order``, bit for bit, and
+    a second launch gives the same bits; 0 where no slot is valid."""
+    g, gsq, idx, nmask = _stats_case(name, dtype)
+    outs = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+    again = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+    valid = nmask & (idx >= 0)
+    ref = gather_reduce.pwmlp_minmax_stats_plain(
+        g, gsq, idx.clamp(min=0), valid)
+    sums = _stats_slot_order(g, gsq, idx, nmask)
+    for o, r in zip(outs[:2], ref[:2]):  # values: amax may pick -0 or +0
+        assert o.dtype == torch.float32 and torch.equal(o, r)
+    for o, r in zip(outs[2:], sums):
+        assert o.dtype == torch.float32 and torch.equal(_bits(o), _bits(r))
+    for o, o2 in zip(outs, again):
+        assert torch.equal(_bits(o), _bits(o2))
+    assert outs[2].abs().max() > 0.1
+    assert all((o[~valid.any(-1)] == 0).all() for o in outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pwmlp_stats_forward_takes_unaligned_views(dtype):
+    """g and gsq as views one element into a buffer (off the vector: the
+    scalar units) give the bits of their aligned copies."""
+    g, gsq, idx, nmask = _stats_case("s1_strided", dtype, seed=93)
+    views = []
+    for x in (g, gsq):
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 8 != 0
+        views.append(view)
+    got = gather_reduce.pwmlp_minmax_stats_cuda(*views, idx, nmask)
+    ref = gather_reduce.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+    for o, r in zip(got, ref):
+        assert torch.equal(_bits(o), _bits(r))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1177,18 +1265,62 @@ def test_moments_bwd_gather_equals_twin_to_the_bit(name, c, dtype,
 
 @pytest.mark.parametrize("reduction", ["avg", "sum"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 9, 72, 300, 1152])
+@pytest.mark.parametrize("name", GATHER_CASES)
+def test_xyz_bwd_gather_equals_twin_to_the_bit(name, c, dtype, reduction):
+    """K1b (reverse index and, for avg, dy / max(count, 1) by query; then a
+    gather per support row that recomputes each entry's D from the row's
+    own position; 16-byte units of one coordinate where C/3 allows them:
+    72, 1152 and f32 300; else scalar) equal to ``pospool_xyz_bwd_plain``
+    run on CPU copies, bit for bit with zero signs, and the same bits on a
+    second launch."""
+    q, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(69)
+    dy = torch.randn((3, idx.shape[1], c), generator=gen,
+                     device="cuda").to(dtype)
+    args = (q, s, idx, nmask, dy, 0.4, reduction)
+    got = pospool_xyz_bwd_cuda(*args)
+    again = pospool_xyz_bwd_cuda(*args)
+    twin = pospool_xyz_bwd_plain(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (3, s.shape[1], c)
+    assert torch.equal(_bits(got.cpu()), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()
+
+
+def _sums_on_cpu(twin, *args):
+    """``twin`` (a plain backward twin of ``ops/aggregation.py``) with its
+    per-slot terms formed on the card and its ``scatter_to_support`` run on
+    CPU copies of them: the terms keep CUDA's arithmetic (sinf and cosf of
+    the angles), and ``index_add_`` on CPU tensors adds them in (q, t)
+    order, as the gathers do, where on CUDA tensors it adds with atomics in
+    an order that varies run to run."""
+    def on_cpu(contrib, idx, ns):
+        return grouping.scatter_to_support(contrib.cpu(), idx.cpu(), ns)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(aggregation, "scatter_to_support", on_cpu)
+        return twin(*args)
+
+
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [6, 18, 72, 300, 1152])
 @pytest.mark.parametrize("name", GATHER_CASES)
 def test_sincos_bwd_gather_matches_twin(name, c, dtype, reduction):
     """K5b (as K9b, with each entry's angles and sincosf recomputed from
     the row's own position; 4, 2 or 1 frequencies a lane as C / 6 allows:
-    72 and 1152, 300, 6 and 18) within ``chip_smoke._bwd_tol`` of
-    ``pospool_sincos_bwd_plain`` on the card (the same terms: CUDA's sinf
-    and cosf of the same f32 angles; its index_add_ adds them with
-    atomics), and the same bits on a second launch. The twin on CPU
-    copies takes torch's CPU sin and cos, an ulp from sincosf, which
-    flipped the bf16 rounding of one term of one element in 1.7 million
-    (1.3% of that element, whose terms cancel)."""
+    72 and 1152, 300, 6 and 18) against ``pospool_sincos_bwd_plain`` with
+    its terms formed on the card (CUDA's sinf and cosf of the same f32
+    angles) and added on CPU copies in (q, t) order (``_sums_on_cpu``):
+    within ``chip_smoke._bwd_tol`` and equal to the bit, and the same bits
+    on a second launch. The twin run wholly on CPU copies takes torch's CPU
+    sin and cos, an ulp from sincosf, which flipped the bf16 rounding of
+    one term of one element in 1.7 million (1.3% of that element, whose
+    terms cancel); run wholly on the card, its index_add_ adds with
+    atomics, whose order moved one f32 element of 45000 by 1.24e-6 once."""
     import chip_smoke
 
     q, s, idx, nmask = _gather_case(name)
@@ -1198,21 +1330,30 @@ def test_sincos_bwd_gather_matches_twin(name, c, dtype, reduction):
     args = (q, s, idx, nmask, dy, 0.4, reduction)
     got = pospool_sincos_bwd_cuda(*args)
     again = pospool_sincos_bwd_cuda(*args)
-    twin = pospool_sincos_bwd_plain(*args)
+    twin = _sums_on_cpu(pospool_sincos_bwd_plain, *args)
     torch.cuda.synchronize()
+    got = got.cpu()
     assert got.dtype == dtype and got.shape == (3, s.shape[1], c)
     torch.testing.assert_close(got.float(), twin.float(),
                                **chip_smoke._bwd_tol(dtype, reduction,
                                                      "sincos"))
-    assert torch.equal(_bits(got), _bits(again))
+    assert torch.equal(_bits(got), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again.cpu()))
     assert (got[-1] == 0).all()
 
 
-@pytest.mark.parametrize("op", ["sincos", "moments"])
+# the backward gathers that recompute their terms: (kernel, dy channels
+# per input channel)
+RECOMPUTED_BWD = {"xyz": (pospool_xyz_bwd_cuda, 1),
+                  "sincos": (pospool_sincos_bwd_cuda, 1),
+                  "moments": (neighborhood_moments_bwd_cuda, 4)}
+
+
+@pytest.mark.parametrize("op", sorted(RECOMPUTED_BWD))
 def test_recomputed_gathers_take_unaligned_views(op):
     """dy a view at an odd element offset (sum: the gather reads dy
     itself, one value at a time): the bits of its aligned copy."""
-    _, _, bwd, _, widen = NEW_OPS[op]
+    bwd, widen = RECOMPUTED_BWD[op]
     q, s, idx, nmask = _gather_case("ball")
     c = 72
     n = 3 * idx.shape[1] * c * widen
@@ -1246,6 +1387,8 @@ dy5, dy9 = (torch.randn((4, 2000, w), generator=g, device="cuda").bfloat16()
             for w in (72, 4 * 72))
 calls = {"pwmlp_stats_bwd": lambda: gather_reduce.pwmlp_minmax_stats_bwd_cuda(
              f, idx, nmask, gmax, gmin, *cot),
+         "pospool_xyz_bwd": lambda: aggregation.pospool_xyz_bwd_cuda(
+             x, x, idx, nmask, dy5, 0.1, "avg"),
          "pseudo_grid_bwd": lambda: pseudo_grid.pseudo_grid_bwd_cuda(
              x, x, idx, nmask, kp, dy, 0.1, 0.4, "linear"),
          "pospool_sincos_bwd": lambda: aggregation.pospool_sincos_bwd_cuda(
@@ -1266,11 +1409,12 @@ print(json.dumps([e.name for e in prof.events()
 
 
 @pytest.mark.parametrize("kernel", ["pwmlp_stats_bwd", "pseudo_grid_bwd",
-                                    "pospool_sincos_bwd", "moments_bwd"])
+                                    "pospool_xyz_bwd", "pospool_sincos_bwd",
+                                    "moments_bwd"])
 def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
-    """K6b, K10b, K5b and K9b each run two device kernels once a call (the
-    reverse index beside the per-slot terms, or for K5b and K9b beside
-    avg's dy / max(count, 1); then the gather) and nothing else on the
+    """K6b, K10b, K1b, K5b and K9b each run two device kernels once a call
+    (the reverse index beside the per-slot terms, or for K1b, K5b and K9b
+    beside avg's dy / max(count, 1); then the gather) and nothing else on the
     device: no fill, no cast. Profiled in a process of its own (see
     ``test_ball_query_device_ops_run_once_a_call``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1288,8 +1432,9 @@ def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
 def test_backward_gathers_count_in_global_memory_past_shared_memory():
     """Ns = 60000 outgrows the shared memory of the index's block, whose
     counters then live in global memory: the index alone still equals its
-    plain version, K6b and K9b their twins on CPU copies to the bit, K10b
-    and K5b their twins within tolerance."""
+    plain version, K6b, K1b and K9b their twins on CPU copies to the bit,
+    K10b its twin within tolerance and K5b its twin with the sums on CPU
+    copies (``_sums_on_cpu``) within tolerance."""
     s, smask = _cloud(63, 2, 60000)
     q, qmask = _cloud(64, 2, 64)
     idx, nmask = ball_query_cuda(q, s, 0.2, 16, qmask, smask)
@@ -1321,9 +1466,16 @@ def test_backward_gathers_count_in_global_memory_past_shared_memory():
                 *(a.cpu() if isinstance(a, torch.Tensor) else a
                   for a in margs))))
         sargs = (q, s, idx, nmask, cot[1][..., :6].contiguous(), 0.2, red)
-        torch.testing.assert_close(pospool_sincos_bwd_cuda(*sargs),
-                                   pospool_sincos_bwd_plain(*sargs),
+        torch.testing.assert_close(pospool_sincos_bwd_cuda(*sargs).cpu(),
+                                   _sums_on_cpu(pospool_sincos_bwd_plain,
+                                                *sargs),
                                    rtol=1e-5, atol=1e-5)
+        xargs = (q, s, idx, nmask, cot[2][..., :6].contiguous(), 0.2, red)
+        assert torch.equal(
+            _bits(pospool_xyz_bwd_cuda(*xargs).cpu()),
+            _bits(pospool_xyz_bwd_plain(
+                *(a.cpu() if isinstance(a, torch.Tensor) else a
+                  for a in xargs))))
 
 
 @pytest.mark.parametrize("nq,ns,k,grid", [

@@ -12,7 +12,8 @@ from +0 and writes the row once. The backward kernels of PosPool sin/cos
 one block a tile of consecutive queries (and, for avg, g = dy /
 max(count, 1) by query), and their gather recomputes each entry's term
 from g[q] and D, which it takes from the row's own position
-(``csrc/row_terms.cuh``). Here the plain index
+(``csrc/row_terms.cuh``), as does the backward of PosPool xyz (K1b,
+``csrc/pospool_xyz.cu``). Here the plain index
 (``reverse_index_plain``) and a plain emulation of each gather (the same
 terms, one f32 add at a time in the index's order, one rounding) are held
 to the port's twins and to JAX:
@@ -26,16 +27,17 @@ to the port's twins and to JAX:
   ``pseudo_grid_bwd_plain`` (which sums over kernel points by a matmul)
   and of the VJP of JAX's Pallas ``pseudo_grid_fused`` run interpreted;
 * the tiled index, read tile after tile, is the index;
-* K5b's and K9b's emulations equal ``pospool_sincos_bwd_plain`` and
-  ``neighborhood_moments_bwd_plain`` to the bit (bit patterns), f32 and
-  bf16, sum and avg, and are within the JAX package's tolerances of the
-  VJPs of its Pallas ``pospool_fused`` (sin/cos) and
-  ``neighborhood_moments`` run interpreted;
+* K1b's, K5b's and K9b's emulations equal ``pospool_xyz_bwd_plain``,
+  ``pospool_sincos_bwd_plain`` and ``neighborhood_moments_bwd_plain`` to
+  the bit (bit patterns), f32 and bf16, sum and avg, and are within the
+  JAX package's tolerances of the VJPs of its Pallas ``pospool_fused``
+  (xyz, sin/cos) and ``neighborhood_moments`` run interpreted;
 
 on ties (duplicated points), all-masked queries, support rows no query
 reaches, one row named by every valid slot, strided shapes, and C = 1, 7
-and 72 (6 and 72 for K5b and K9b). The kernels themselves are held to the
-twins on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+and 72 (6 and 72 for K1b, K5b and K9b). The kernels themselves are held
+to the twins on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
 """
 
 import jax
@@ -327,6 +329,21 @@ def _dp(diff, radius, dtype):
     return (diff / torch.full((), radius, dtype=torch.float32)).to(dtype)
 
 
+def xyz_bwd_gather(q, s, idx, mask, dy, radius, reduction):
+    """K1b's two launches emulated: g as for K5b; each entry's term
+    g[q, c] * dp[c / (C/3)], dp rounded to dy's dtype, the product rounded
+    once; gathered over the reverse index; in dy's dtype."""
+    g = reduction_grad(dy, mask, reduction)
+    cloud = torch.arange(idx.shape[0])[:, None]
+    c = dy.shape[-1]
+
+    def term(qi, diff):
+        dp = _dp(diff, radius, dy.dtype).float()
+        return g[cloud, qi] * dp.repeat_interleave(c // 3, dim=-1)
+
+    return recompute_rows(q, s, idx, mask, c, term).to(dy.dtype)
+
+
 def sincos_bwd_gather(q, s, idx, mask, dy, radius, reduction):
     """K5b's two launches emulated: g = dy, or dy / max(count, 1) rounded
     to dy's dtype (avg); each entry's term g[q, c] * E(dp)[c], E the
@@ -387,10 +404,13 @@ def test_tiled_index_read_tile_after_tile_is_the_index(name, tiles):
             assert tiled == (whole // k).tolist()
 
 
-# K5b and K9b: (emulation, twin, JAX's Pallas op, dy channels per input
-# channel, the JAX package's tolerance for its kernel's VJP; see
+# K1b, K5b and K9b: (emulation, twin, JAX's Pallas op, dy channels per
+# input channel, the JAX package's tolerance for its kernel's VJP; see
 # tests/test_pallas_aggregation.py and tests/test_pallas_moments.py)
 RECOMPUTED = {
+    "xyz": (xyz_bwd_gather, aggregation.pospool_xyz_bwd_plain,
+            lambda *a: jaggregation.pospool_fused(*a[:6], "xyz", a[6]),
+            1, dict(rtol=1e-4, atol=1e-5)),
     "sincos": (sincos_bwd_gather, aggregation.pospool_sincos_bwd_plain,
                lambda *a: jaggregation.pospool_fused(*a[:6], "sin_cos",
                                                      a[6]),
@@ -408,8 +428,8 @@ RECOMPUTED = {
 @pytest.mark.parametrize("op", sorted(RECOMPUTED))
 def test_recomputed_gather_equals_twin_to_the_bit(op, name, c, dtype,
                                                   reduction):
-    """K5b's and K9b's gathers, which recompute each entry's term from
-    the row's own position, equal their twins (per-slot terms from the
+    """K1b's, K5b's and K9b's gathers, which recompute each entry's term
+    from the row's own position, equal their twins (per-slot terms from the
     gathered positions, scattered by ``index_add_`` in (q, t) order) bit
     for bit, zero signs included."""
     gather, twin, _, widen, _ = RECOMPUTED[op]
@@ -430,9 +450,10 @@ def test_recomputed_gather_equals_twin_to_the_bit(op, name, c, dtype,
 @pytest.mark.parametrize("op", sorted(RECOMPUTED))
 def test_recomputed_gather_matches_pallas_kernel(op, name, reduction,
                                                  monkeypatch):
-    """Against the VJP of JAX's Pallas kernel (``_sc_bwd_kernel`` through
-    ``pospool_fused``, or ``neighborhood_moments``' ``_bwd_kernel``) run
-    interpreted, f32, C = 6, within the JAX package's tolerance for it."""
+    """Against the VJP of JAX's Pallas kernel (``_xyz_bwd_kernel`` or
+    ``_sc_bwd_kernel`` through ``pospool_fused``, or
+    ``neighborhood_moments``' ``_bwd_kernel``) run interpreted, f32, C =
+    6, within the JAX package's tolerance for it."""
     gather, _, jop, widen, tol = RECOMPUTED[op]
     q, s, idx, mask, r = _case(name)
     c = 6

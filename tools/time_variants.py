@@ -1,16 +1,18 @@
 """Source variants of the redesigned neighborhood kernels, timed against
 each other call by call in one process, on the card: the forwards K10f
 (``csrc/pseudo_grid.cu``), K5f (``csrc/pospool_sincos.cu``), K1f
-(``csrc/pospool_xyz.cu``) and K9f (``csrc/moments.cu``), or the
-backwards K6b (``csrc/gather_reduce.cu``), K10b, K5b and K9b.
+(``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``) and K6f
+(``csrc/gather_reduce.cu``), or the backwards K6b, K10b, K5b, K9b and
+K1b.
 
     python3 tools/time_variants.py VARIANTS.json [--kernels forward]
 
 VARIANTS.json maps a variant's name to the edits that make it from this
 checkout's ``csrc/``: ``{"file under csrc/": [[old, new], ...]}`` (each
 ``old`` must occur), or ``{"__dir__": "a csrc directory, relative to the
-repository"}`` for another design's sources; ``{}`` is this checkout as
-it stands. ``--kernels`` takes the choices of ``tools/time_backward.py``
+repository"}`` for another design's sources, whose C entries must take
+this checkout's wrappers' arguments; ``{}`` is this checkout as it
+stands. ``--kernels`` takes the choices of ``tools/time_backward.py``
 (``forward``, the default; ``backward``; ``all``), or kernel names there
 joined by commas (``pospool_sincos_bwd,moments_bwd``). Needs a CUDA card
 and ``nvcc``. Each variant builds the sources of the chosen kernels into
@@ -52,12 +54,13 @@ SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
            "pospool_xyz": "pospool_xyz", "moments": "moments",
            "pwmlp_stats_bwd": "gather_reduce",
            "pseudo_grid_bwd": "pseudo_grid",
-           "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments"}
+           "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments",
+           "pwmlp_stats": "gather_reduce", "pospool_xyz_bwd": "pospool_xyz"}
 # parts of the device functions' names whose registers are printed
 KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
                 "pospool_xyz_kernel", "moments_kernel", "sincos_gather",
                 "moments_gather", "index_scale", "pwstats_terms",
-                "csr_gather")
+                "csr_gather", "pwstats_fwd", "xyz_gather")
 
 
 def build(name: str, spec: dict, src: str):
@@ -106,11 +109,15 @@ def load(path: str) -> ctypes.CDLL:
     return lib
 
 
-def digest(t) -> str:
+def digest(out) -> str:
+    """SHA-256 of the bytes of a kernel's output (every tensor of a
+    tuple in turn)."""
     import torch
 
-    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
-                          .tobytes()).hexdigest()
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def device_ms(fn, ins, per_op):
