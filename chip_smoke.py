@@ -683,9 +683,9 @@ def _bwd_tol(dtype, red, kind="xyz"):
     """Backward kernel vs its plain twin, elementwise."""
     if dtype == torch.float32:
         # the same f32 terms summed in other orders: the twin's index_add_
-        # on the card adds with atomics in an order that varies, as K8b's
-        # scatter does, while K1b, K5b and K9b add each support row's
-        # terms in (q, t) order (and sin/cos: CUDA's sinf against
+        # on the card adds with atomics in an order that varies, while
+        # K1b, K5b, K9b and K8b add each support row's terms in (q, t)
+        # order (and sin/cos: CUDA's sinf against
         # sincosf); sums of up to ~40 terms carry more rounding than
         # averages, and a moments slot's term (g0 + sum_d g_d dp_d) is up
         # to 4x a PosPool one
@@ -1782,7 +1782,20 @@ def _kernel_cases(tcfg, calls, gen, kind: str):
             smp.furthest_point_sample_plain, [c[1][i][1] for c in calls],
             (_nbytes(xyz, m) + xyz.shape[0] * npoint * 5,
              9.0 * npoint * float(m.sum()))))
-    per_set = [max_calls(tcfg, cs[2]) for cs in calls]
+    cases.update(_max_cases(tcfg, [cs[2] for cs in calls], gen))
+    return cases
+
+
+def _max_cases(tcfg, pps, gen):
+    """{"neighborhood_max": rows, "neighborhood_max_bwd": rows} as
+    ``_kernel_cases`` gives them, at the strided calls of ``pps`` (the
+    PosPool calls of each input set, ``path_calls`` or ``seg_calls``), on
+    ``_tie_features``."""
+    from closerlook3d_tpu_torch.ops import grouping as grp
+
+    bf = torch.bfloat16
+    cases = {"neighborhood_max": [], "neighborhood_max_bwd": []}
+    per_set = [max_calls(tcfg, pp) for pp in pps]
     for j, (name, _, c) in enumerate(per_set[0]):
         fwd, bwd = [], []
         for mc in per_set:
@@ -1848,12 +1861,13 @@ def _timing_calls(tcfg) -> list:
     return calls
 
 
-# device ops a call of the redesigned neighborhood kernels: the forwards
-# one kernel, the backward gathers two (the reverse index, then the gather)
+# device ops a call of the redesigned kernels: the forwards and FPS one
+# kernel, the backward gathers two (the reverse index, then the gather)
 DEVICE_OPS = {"pospool_xyz": 1, "pospool_sincos": 1, "moments": 1,
               "pwmlp_stats": 1, "pseudo_grid": 1, "pospool_xyz_bwd": 2,
               "pospool_sincos_bwd": 2, "moments_bwd": 2,
-              "pwmlp_stats_bwd": 2, "pseudo_grid_bwd": 2}
+              "pwmlp_stats_bwd": 2, "pseudo_grid_bwd": 2, "fps": 1,
+              "neighborhood_max_bwd": 2}
 
 
 def phase_device_timing() -> dict:

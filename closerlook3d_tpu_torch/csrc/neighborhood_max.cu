@@ -17,26 +17,44 @@
 // follows the plain version's even split instead, and finds the ties by
 // reading the features and the saved output again, so it needs no argmax.
 // The TPU kernels gather with one-hot MXU matmuls over Morton support
-// chunks; here each block reads its neighbor rows directly.
+// chunks; here the forward reads each query's neighbor rows directly and
+// the backward gathers per support row over a reverse neighbor index.
 //
-// Numerics: the max is exact in the features' dtype. dy / n is computed
-// in f32 and rounded to the features' dtype, as PyTorch's amax backward
-// rounds it; the scatter sums in f32 with atomics (order varies run to
-// run) into a zeroed f32 scratch that the wrapper casts once to the
-// features' dtype. So f32 agrees with the plain version to the sum order,
-// and bf16 to the plain version's bf16 rounding of its scatter sums.
+// Numerics: the max is exact in the features' dtype. The backward rounds
+// g[q, c] = dy[q, c] / n[q, c] (f32 quotient) to the features' dtype, as
+// PyTorch's amax backward rounds it, and adds a support row's g of its
+// tying entries in f32 from +0 in (q, t) order, rounded once: the order
+// of its plain twin's index_add_ on CPU tensors (neighborhood_max_bwd_plain),
+// which it equals to the bit, with the same bits on every run. A slot
+// that does not tie adds nothing: the twin adds g * 0, which is the same
+// for finite g, but where dy holds an inf or a NaN the twin spreads NaN to
+// every row its query's slots name (masked ones too) and the kernel only
+// to the tying rows, as the atomic scatter before this design did.
 //
-// Layout (query_blocks.cuh): one block per kQPB consecutive queries of
-// one cloud stages the K slot rows in shared memory; threads stride
-// over the C channels, so a warp's loads (and atomics) of one support row
-// are coalesced.
+// Forward layout (query_blocks.cuh): one block per kQPB consecutive
+// queries of one cloud stages the K slot rows in shared memory; threads
+// stride over the C channels. Backward: two launches (row_terms.cuh), as
+// K1b's: launch 1 builds the reverse index in query tiles, and beside it
+// query groups (query_groups.cuh, stage_valid_rows: a group of 8-32 lanes
+// a query and slice of its channels, the valid slots' rows compacted in
+// slot order, no block barrier) count each channel's ties over the valid
+// slots' rows of f, 8 bytes of channels a lane (kTieBytes: 16 spilled at
+// the 64 registers of the index's launch bounds, and ran 5% slower) and
+// kTieBatch rows at once, and write g (0 where n = 0; a query with no
+// valid slot writes nothing, as no entry reads it); launch 2, a gather per
+// support row: a
+// lane holds 16 bytes of the row's channels of f and, entry by entry in
+// (q, t) order, two at once, loads those of out[q] and g[q], and adds g
+// where f ties out. No float atomics, no zeroed scratch, no cast. Rows
+// off the 16-byte vector (C % 8 for bf16, C % 4 for f32) or views off 16
+// bytes take scalar units of the same channels.
 //
 // Bound on the H100: bytes (one compare per gathered value). Device
 // memory sees the features, indices, mask and output (and, backward, dy,
-// the saved output and the f32 scratch); the K-fold re-reads of feature
-// rows hit L2.
+// the saved output and df); the K-fold re-reads of feature rows hit L2.
 
-#include "query_blocks.cuh"
+#include "query_groups.cuh"
+#include "row_terms.cuh"
 
 namespace {
 
@@ -78,43 +96,233 @@ __global__ void nmax_fwd_kernel(const T* __restrict__ f,
   }
 }
 
-template <typename T>
-__global__ void nmax_bwd_kernel(const T* __restrict__ f,
-                                const int32_t* __restrict__ idx,
-                                const bool* __restrict__ mask,
-                                const T* __restrict__ out,
-                                const T* __restrict__ dy, int nq, int ns,
-                                int c, int k, float* __restrict__ df) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  const T* fb = f + static_cast<size_t>(b) * ns * c;
-  float* dfb = df + static_cast<size_t>(b) * ns * c;
+constexpr int kTieBatch = 4;   // valid slots' rows a lane loads at once
+constexpr int kTieBytes = 8;   // bytes of channels a launch-1 lane's unit
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const float o = to_f32(out[row * c + ch]);
-      int n = 0;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        n += j >= 0 && to_f32(fb[static_cast<size_t>(j) * c + ch]) == o;
-      }
-      if (n == 0) continue;  // empty neighborhood: no gradient
-      const float gv = to_f32(from_f32<T>(
-          __fdiv_rn(to_f32(dy[row * c + ch]), static_cast<float>(n))));
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0 && to_f32(fb[static_cast<size_t>(j) * c + ch]) == o) {
-          atomicAdd(dfb + static_cast<size_t>(j) * c + ch, gv);
-        }
-      }
+// Launch 1's query-group part, for the item (query row = b * Nq + q,
+// slice) of the calling lane's group: the query's valid slots' rows staged
+// in `st`, then for each unit of kW channels of the slice
+//   n[c] = #{valid t : f[idx[t], c] == out[q, c]},
+//   g[q, c] = n > 0 ? round_T(dy[q, c] / n[c]) : 0.
+template <typename T, bool kVec, int kG>
+__device__ __forceinline__ void tie_quotients(
+    const T* __restrict__ f, const int32_t* __restrict__ idx,
+    const bool* __restrict__ mask, const T* __restrict__ out,
+    const T* __restrict__ dy, int nq, int ns, int c, int k, bool live,
+    size_t row, int slice, int per, GroupRows& st, T* __restrict__ g) {
+  using U = ChannelUnit<T, kVec, kTieBytes>;
+  constexpr int kW = U::kW;
+  const int nv = stage_valid_rows<kG>(idx + row * k, mask + row * k, k, live,
+                                      st);
+  __syncwarp();
+  if (nv == 0) return;  // not live, or no valid slot: nothing reads g[q]
+  const int lg = (threadIdx.x & 31) % kG;
+  const T* fb = f + row / nq * ns * c;
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  const int end = min(U::units(c), (slice + 1) * per * kG);
+  for (int u = slice * per * kG + lg; u < end; u += kG) {
+    const int ch = u * kW;
+    const int left = c - ch;
+    const typename U::Raw o = U::load(out + row * c + ch, left);
+    const typename U::Raw d = U::load(dy + row * c + ch, left);
+    int n[kW] = {};
+    for (int a = 0; a < nv; a += kTieBatch) {
+      typename U::Raw v[kTieBatch];
+#pragma unroll
+      for (int h = 0; h < kTieBatch; ++h)
+        if (a + h < nv)
+          v[h] = U::load(row_at(fb, st.j[a + h], row_bytes) + ch, left);
+#pragma unroll
+      for (int h = 0; h < kTieBatch; ++h)
+        if (a + h < nv)
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            n[i] += to_f32(v[h].v[i]) == to_f32(o.v[i]);
     }
+    float q[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i)
+      q[i] = n[i] > 0 ? to_f32(from_f32<T>(__fdiv_rn(
+                            to_f32(d.v[i]), static_cast<float>(n[i]))))
+                      : 0.f;
+    U::store(g + row * c + ch, left, q);
   }
+}
+
+// K8 backward, launch 1: blocks [0, B * tiles) build the tiles' reverse
+// indexes (row_terms.cuh), the rest hold kIndexThreads / kG query groups
+// that write g (tie_quotients) for `items` items of `slices` slices a
+// query, `per` passes of kG units a slice.
+template <typename T, bool kShared, bool kVec, int kG>
+__global__ void __launch_bounds__(kIndexThreads, 2)
+    nmax_index_ties_kernel(const T* __restrict__ f,
+                           const int32_t* __restrict__ idx,
+                           const bool* __restrict__ mask,
+                           const T* __restrict__ out,
+                           const T* __restrict__ dy, int clouds, int nq,
+                           int ns, int c, int k, int tiles, int tile_queries,
+                           long long items, int slices, int per,
+                           int32_t* __restrict__ offsets,
+                           int32_t* __restrict__ entries,
+                           int32_t* __restrict__ raw,
+                           int* __restrict__ counters, T* __restrict__ g) {
+  extern __shared__ int s_cnt[];
+  __shared__ GroupRows s_rows[kIndexThreads / kG];
+  const int index_blocks = clouds * tiles;
+  if (blockIdx.x < index_blocks) {
+    index_tile<kShared>(idx, mask, nq, ns, k, tiles, tile_queries, s_cnt,
+                        offsets, entries, raw, counters);
+    return;
+  }
+  const long long item =
+      static_cast<long long>(blockIdx.x - index_blocks) * (kIndexThreads / kG)
+      + threadIdx.x / kG;
+  const bool live = item < items;
+  tie_quotients<T, kVec, kG>(
+      f, idx, mask, out, dy, nq, ns, c, k, live,
+      live ? static_cast<size_t>(item / slices) : 0,
+      live ? static_cast<int>(item % slices) : 0, per,
+      s_rows[threadIdx.x / kG], g);
+}
+
+// K8 backward, launch 2: the lane of unit `unit` of support row s holds
+// channels [unit * kW, unit * kW + kW) of f[s]; for each entry (q, t) of
+// the row, in (q, t) order, two at once,
+//   df[s, c] += g[q, c]   where f[s, c] == out[q, c],
+// in f32 from +0, written once in T. An entry holds its query
+// (row_terms.cuh).
+template <typename T, int kW>
+__global__ void __launch_bounds__(kRowThreads)
+    nmax_gather_kernel(const T* __restrict__ f, const T* __restrict__ out,
+                       const T* __restrict__ g,
+                       const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ entries, int nq, int ns,
+                       int c, int k, int tiles, int per, int lanes,
+                       int slices, T* __restrict__ df) {
+  const RowItem it = row_item(ns, c / kW, lanes, slices);
+  if (!it.live) return;
+  const size_t b = blockIdx.y;
+  const int ch = it.unit * kW;
+  T fv[kW];
+  load_run<T, kW>(f + (b * ns + it.row) * c + ch, fv);
+  const T* ob = out + b * nq * c + ch;
+  const T* gb = g + b * nq * c + ch;
+  float acc[kW] = {};
+  for_each_entry_tile(
+      offsets, entries, b, nq, ns, k, tiles, per, it.row,
+      [&](const int32_t* eb, int start, int end, int q0) {
+        int e = start;
+        for (; e + 1 < end; e += 2) {
+          const size_t qa = q0 + eb[e], qz = q0 + eb[e + 1];
+          T oa[kW], ga[kW], oz[kW], gz[kW];
+          load_run<T, kW>(ob + qa * c, oa);
+          load_run<T, kW>(gb + qa * c, ga);
+          load_run<T, kW>(ob + qz * c, oz);
+          load_run<T, kW>(gb + qz * c, gz);
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            if (to_f32(fv[i]) == to_f32(oa[i]))
+              acc[i] = __fadd_rn(acc[i], to_f32(ga[i]));
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            if (to_f32(fv[i]) == to_f32(oz[i]))
+              acc[i] = __fadd_rn(acc[i], to_f32(gz[i]));
+        }
+        if (e < end) {
+          const size_t qi = q0 + eb[e];
+          T ov[kW], gv[kW];
+          load_run<T, kW>(ob + qi * c, ov);
+          load_run<T, kW>(gb + qi * c, gv);
+#pragma unroll
+          for (int i = 0; i < kW; ++i)
+            if (to_f32(fv[i]) == to_f32(ov[i]))
+              acc[i] = __fadd_rn(acc[i], to_f32(gv[i]));
+        }
+      });
+  store_run<T, kW>(df + (b * ns + it.row) * c + ch, acc);
+}
+
+// Launch 1 at the group width group_lanes_for picks for C / kW units a
+// query, with the counters of the index in shared memory where Ns allows.
+template <typename T, bool kVec>
+void launch_index_ties(const T* f, const int32_t* idx, const bool* mask,
+                       const T* out, const T* dy, int b, int nq, int ns,
+                       int c, int k, int tiles, int32_t* offsets,
+                       int32_t* entries, int32_t* raw, int* counters, T* g,
+                       cudaStream_t stream) {
+  const int units = ChannelUnit<T, kVec, kTieBytes>::units(c);
+  const long long queries = static_cast<long long>(b) * nq;
+  const int tile_queries = (nq + tiles - 1) / tiles;
+  const int smem = (ns + 1) * static_cast<int>(sizeof(int));
+  const auto at = [&](auto lanes) {
+    constexpr int kG = decltype(lanes)::value;
+    constexpr int kGroups = kIndexThreads / kG;
+    static const int room =
+        dynamic_smem_room(nmax_index_ties_kernel<T, true, kVec, kG>);
+    const PassSplit sp = split_passes(queries, (units + kG - 1) / kG, kG);
+    const long long items = queries * sp.slices;
+    const int blocks =
+        b * tiles + static_cast<int>((items + kGroups - 1) / kGroups);
+    if (smem <= room)
+      nmax_index_ties_kernel<T, true, kVec, kG>
+          <<<blocks, kIndexThreads, smem, stream>>>(
+              f, idx, mask, out, dy, b, nq, ns, c, k, tiles, tile_queries,
+              items, sp.slices, sp.per, offsets, entries, raw, counters, g);
+    else
+      nmax_index_ties_kernel<T, false, kVec, kG>
+          <<<blocks, kIndexThreads, 0, stream>>>(
+              f, idx, mask, out, dy, b, nq, ns, c, k, tiles, tile_queries,
+              items, sp.slices, sp.per, offsets, entries, raw, counters, g);
+  };
+  switch (group_lanes_for(units)) {
+    case 8:
+      return at(std::integral_constant<int, 8>{});
+    case 16:
+      return at(std::integral_constant<int, 16>{});
+    default:
+      return at(std::integral_constant<int, 32>{});
+  }
+}
+
+template <typename T, int kW>
+void launch_gather_as(const T* f, const T* out, const T* g,
+                      const int32_t* offsets, const int32_t* entries, int b,
+                      int nq, int ns, int c, int k, int tiles, T* df,
+                      cudaStream_t stream) {
+  const RowSplit sp = row_split(c / kW);
+  nmax_gather_kernel<T, kW><<<row_grid(b, ns, sp), kRowThreads, 0, stream>>>(
+      f, out, g, offsets, entries, nq, ns, c, k, tiles,
+      (nq + tiles - 1) / tiles, sp.lanes, sp.slices, df);
+}
+
+// The backward's two launches, in 16-byte units where C and the pointers
+// allow them.
+template <typename T>
+void launch_bwd(const void* f, const int32_t* idx, const bool* mask,
+                const void* out, const void* dy, int b, int nq, int ns, int c,
+                int k, int tiles, int32_t* offsets, int32_t* entries,
+                int32_t* raw, int* counters, void* g, void* df,
+                cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const T* fp = static_cast<const T*>(f);
+  const T* op = static_cast<const T*>(out);
+  const T* dp = static_cast<const T*>(dy);
+  T* gp = static_cast<T*>(g);
+  T* dfp = static_cast<T*>(df);
+  constexpr int kTieW = kTieBytes / static_cast<int>(sizeof(T));
+  if (runs_ok<T, kTieW>(c, fp, op, dp, gp))
+    launch_index_ties<T, true>(fp, idx, mask, op, dp, b, nq, ns, c, k, tiles,
+                               offsets, entries, raw, counters, gp, stream);
+  else
+    launch_index_ties<T, false>(fp, idx, mask, op, dp, b, nq, ns, c, k,
+                                tiles, offsets, entries, raw, counters, gp,
+                                stream);
+  if (runs_ok<T, kV>(c, fp, op, gp, dfp))
+    launch_gather_as<T, kV>(fp, op, gp, offsets, entries, b, nq, ns, c, k,
+                            tiles, dfp, stream);
+  else
+    launch_gather_as<T, 1>(fp, op, gp, offsets, entries, b, nq, ns, c, k,
+                           tiles, dfp, stream);
 }
 
 bool bad_args(int b, int ns, int c, int k) {
@@ -142,26 +350,31 @@ extern "C" int cl3d_neighborhood_max(const void* f, const int32_t* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// df32 must be zeroed [B, Ns, C] float32; f, out and dy are in the
-// features' dtype, out being this op's forward output for f.
-extern "C" int cl3d_neighborhood_max_bwd(const void* f, const int32_t* idx,
-                                         const bool* mask, const void* out,
-                                         const void* dy, int b, int nq,
-                                         int ns, int c, int k, int is_bf16,
-                                         float* df32, cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+// df [B, Ns, C] in the features' dtype, written in full (no zeroing
+// needed); f, out and dy are in that dtype, out being this op's forward
+// output for f. g: a [B, Nq, C] scratch buffer in that dtype (launch 1's
+// quotients). The index in `tiles` query tiles a cloud (1 .. kMaxTiles, at
+// most Nq); scratch, none zeroed: offsets and counters [B * tiles, Ns + 1]
+// (counters used where Ns outgrows shared memory), entries and raw [B, Nq
+// * K]. Two launches. The argument list is that of the other backwards on
+// row_terms.cuh (cl3d_pospool_xyz_bwd), so that one host launcher serves
+// them all: radius is unused and avg must be 1 (g is always a buffer).
+extern "C" int cl3d_neighborhood_max_bwd(
+    const void* f, const void* out, const int32_t* idx, const bool* mask,
+    const void* dy, int b, int nq, int ns, int c, int k, int tiles,
+    float radius, int avg, int is_bf16, int32_t* offsets, int32_t* entries,
+    int32_t* raw, int* counters, void* g, void* df, cudaStream_t stream) {
+  (void)radius;
+  if (bad_args(b, ns, c, k) || static_cast<long long>(nq) * k > INT_MAX - 1 ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes ||
+      tiles < 1 || tiles > kMaxTiles || (nq > 0 && tiles > nq) || avg != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    nmax_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(f), idx, mask,
-            static_cast<const __nv_bfloat16*>(out),
-            static_cast<const __nv_bfloat16*>(dy), nq, ns, c, k, df32);
-  } else {
-    nmax_bwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(f), idx, mask,
-        static_cast<const float*>(out), static_cast<const float*>(dy), nq, ns,
-        c, k, df32);
-  }
+  if (is_bf16)
+    launch_bwd<__nv_bfloat16>(f, idx, mask, out, dy, b, nq, ns, c, k, tiles,
+                              offsets, entries, raw, counters, g, df, stream);
+  else
+    launch_bwd<float>(f, idx, mask, out, dy, b, nq, ns, c, k, tiles, offsets,
+                      entries, raw, counters, g, df, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Backward gathers that recompute each slot's term from dy (K1b in
-// pospool_xyz.cu, K5b in pospool_sincos.cu, K9b in moments.cu), in two
+// pospool_xyz.cu, K5b in pospool_sincos.cu, K9b in moments.cu; K8b in
+// neighborhood_max.cu, whose launch 1 writes g from the ties), in two
 // launches over a reverse neighbor index (reverse_index.cuh) built in
 // query tiles:
 //
@@ -96,6 +97,23 @@ __device__ void scale_rows(const bool* __restrict__ mask,
   }
 }
 
+// An index block of a launch 1 (blockIdx.x < B * tiles): the index of
+// tile blockIdx.x % tiles of cloud blockIdx.x / tiles (see the header).
+template <bool kShared>
+__device__ __forceinline__ void index_tile(
+    const int32_t* __restrict__ idx, const bool* __restrict__ mask, int nq,
+    int ns, int k, int tiles, int per, int* s_cnt,
+    int32_t* __restrict__ offsets, int32_t* __restrict__ slots,
+    int32_t* __restrict__ raw, int* __restrict__ counters) {
+  const int b = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - b * tiles) * per;
+  const size_t first = (static_cast<size_t>(b) * nq + q0) * k;
+  const size_t counts = static_cast<size_t>(blockIdx.x) * (ns + 1);
+  build_reverse_index<kIndexThreads, kShared, true>(
+      idx + first, mask + first, max(0, min(per, nq - q0)), ns, k, 0, s_cnt,
+      offsets + counts, slots + first, raw + first, counters + counts);
+}
+
 // Launch 1 (see the header): blocks [0, B * tiles) build the tiles'
 // indexes, the rest (avg only) scale `per_block` rows of dy each.
 template <typename T, bool kShared, bool kVec>
@@ -110,14 +128,8 @@ __global__ void __launch_bounds__(kIndexThreads, 2)
   extern __shared__ int s_cnt[];
   const int index_blocks = clouds * tiles;
   if (blockIdx.x < index_blocks) {
-    const int b = blockIdx.x / tiles;
-    const int q0 = (blockIdx.x - b * tiles) * per;
-    const size_t first = (static_cast<size_t>(b) * nq + q0) * k;
-    const size_t counts = static_cast<size_t>(blockIdx.x) * (ns + 1);
-    build_reverse_index<kIndexThreads, kShared, true>(
-        idx + first, mask + first, max(0, min(per, nq - q0)), ns, k, 0,
-        s_cnt, offsets + counts, slots + first, raw + first,
-        counters + counts);
+    index_tile<kShared>(idx, mask, nq, ns, k, tiles, per, s_cnt, offsets,
+                        slots, raw, counters);
     return;
   }
   const long long r0 = (blockIdx.x - index_blocks) * per_block;

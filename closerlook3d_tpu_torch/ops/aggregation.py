@@ -30,8 +30,7 @@ from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets, reduction_grad,
     scatter_to_support)
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
-from closerlook3d_tpu_torch.ops.reverse_index import (
-    index_buffers, index_tiles)
+from closerlook3d_tpu_torch.ops.reverse_index import launch_backward_gather
 
 SINCOS_ALPHA = 100.0  # angle scale of the sin/cos embedding
 SINCOS_BETA = 1000.0  # frequency base ("temperature")
@@ -204,35 +203,6 @@ def _pospool_fwd(mode: str, what: str, query_xyz, support_xyz, features,
                                (b, nq, ns, c, k), radius, reduction,
                                features.dtype == torch.bfloat16, out)
     return out
-
-
-def launch_backward_gather(source: str, what: str, inputs, shape, dy,
-                           radius: float, reduction: str) -> torch.Tensor:
-    """Call ``cl3d_<source>_bwd`` of ``csrc/<source>.cu``, a backward that
-    gathers per support row over a reverse neighbor index built in query
-    tiles (``csrc/row_terms.cuh``): ``inputs`` (the points and tables, then
-    idx, mask and dy), (B, Nq, Ns, C, K), the tiles a cloud
-    (``index_tiles``), radius, avg and is_bf16, then the index buffers
-    (``ops/reverse_index.py``), g (for avg a buffer that the first launch
-    fills with dy / max(count, 1); for sum dy itself), the output and the
-    stream. Returns d out / d features [B, Ns, C] in dy's dtype, every
-    element written by the gather; raises if the launch fails."""
-    b, nq, ns, c, k = shape
-    kernels.require(nq * k < 2 ** 31 - 1, f"{what}: need Nq * K < 2^31 - 1")
-    tiles = index_tiles(b, nq, k, dy.device)
-    index = index_buffers(b * tiles, -(-nq // tiles), ns, k, dy.device)
-    g = torch.empty_like(dy) if reduction == "avg" else dy
-    df = torch.empty((b, ns, c), dtype=dy.dtype, device=dy.device)
-    lib, fn = kernels.entry(
-        source, f"cl3d_{source}_bwd", [kernels.P] * len(inputs)
-        + [kernels.I] * 6 + [kernels.F] + [kernels.I] * 2 + [kernels.P] * 7)
-    with torch.cuda.device(dy.device):
-        err = fn(*[t.data_ptr() for t in inputs], *shape, tiles, radius,
-                 int(reduction == "avg"), int(dy.dtype == torch.bfloat16),
-                 *[t.data_ptr() for t in index], g.data_ptr(), df.data_ptr(),
-                 kernels.stream_of(df))
-    kernels.check(lib, err, what)
-    return df
 
 
 def pospool_xyz_cuda(query_xyz, support_xyz, features, idx, mask,

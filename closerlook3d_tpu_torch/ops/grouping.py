@@ -18,6 +18,7 @@ import torch
 from closerlook3d_tpu_torch.ops import kernels
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
+from closerlook3d_tpu_torch.ops.reverse_index import launch_backward_gather
 
 
 def group_features(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -93,7 +94,10 @@ def neighborhood_max_bwd_plain(features, idx, mask, out, dy):
     dy / n (n = valid slots whose value equals ``out``), rounded to dy's
     dtype as amax's backward rounds it, goes to each such slot's support
     row; the scatter (``index_add_``) is f32 and rounded once, as the
-    kernel does. Empty neighborhoods send nothing.
+    kernel does: on CPU tensors it adds in (q, t) order, the kernel's
+    order. Empty neighborhoods send nothing. Every slot adds g * tie, so an
+    inf or NaN in dy reaches every row the query's slots name, where the
+    kernel adds only at ties.
     """
     ties = (group_features(features, idx) == out[:, :, None, :]) \
         & mask[..., None]
@@ -179,26 +183,25 @@ neighborhood_max_cuda.launches = 0
 
 def neighborhood_max_bwd_cuda(features, idx, mask, out, dy):
     """Launch the backward of ``csrc/neighborhood_max.cu``: d out / d
-    features [B, Ns, C]; ``out`` is the forward's output for ``features``.
+    features [B, Ns, C] in the features' dtype; ``out`` is the forward's
+    output for ``features``. Two device kernels: the reverse index of
+    idx/mask in query tiles beside g = dy / (tying slots) by query, then a
+    gather per support row that adds g where the row ties and writes the
+    row once (``launch_backward_gather``); equal to
+    ``neighborhood_max_bwd_plain`` on CPU copies to the bit for finite dy.
     Raises on anything it does not take."""
     what = "neighborhood_max_bwd_cuda"
     b, nq, ns, c, k = _check_call(what, features, idx, mask, out=out,
                                   dy=dy)
-    df = torch.zeros((b, ns, c), dtype=torch.float32,
-                     device=features.device)
     if b * nq == 0:
-        return df.to(features.dtype)
-    lib, fn = kernels.entry(
-        "neighborhood_max", "cl3d_neighborhood_max_bwd",
-        [kernels.P] * 5 + [kernels.I] * 6 + [kernels.P] * 2)
-    with torch.cuda.device(features.device):
-        err = fn(features.data_ptr(), idx.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), dy.data_ptr(), b, nq, ns, c, k,
-                 int(features.dtype == torch.bfloat16), df.data_ptr(),
-                 kernels.stream_of(df))
-    kernels.check(lib, err, what)
+        return torch.zeros((b, ns, c), dtype=features.dtype,
+                           device=features.device)
+    # radius is unused; "avg" has g allocated for launch 1's quotients
+    df = launch_backward_gather(
+        "neighborhood_max", what, (features, out, idx, mask, dy),
+        (b, nq, ns, c, k), dy, 0.0, "avg")
     neighborhood_max_bwd_cuda.launches += 1
-    return df.to(features.dtype)
+    return df
 
 
 neighborhood_max_bwd_cuda.launches = 0

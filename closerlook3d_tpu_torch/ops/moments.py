@@ -20,12 +20,12 @@ import torch
 
 from closerlook3d_tpu_torch.ops import kernels
 from closerlook3d_tpu_torch.ops.aggregation import (
-    check_neighborhood_call, launch_backward_gather,
-    launch_neighborhood_kernel)
+    check_neighborhood_call, launch_neighborhood_kernel)
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets, reduction_grad,
     scatter_to_support)
+from closerlook3d_tpu_torch.ops.reverse_index import launch_backward_gather
 
 
 def neighborhood_moments_plain(query_xyz, support_xyz, features, idx, mask,

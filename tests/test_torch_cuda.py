@@ -7,13 +7,15 @@ with one:
 
 ``chip_smoke.py`` checks the kernels at the shapes of the flagship
 forward and of the ModelNet40 train step; these cases cover what those
-paths do not reach: FPS beyond 1024 points (several points per thread),
+paths do not reach: FPS beyond 1024 points (several points per thread)
+and up to 16384 at 1 and 32 clouds, on ties, masked and all-masked
+clouds and npoint > nvalid, and its launch plan,
 query counts off the block size, supports across shared-memory tile
 edges, K at its bound and above Ns, channel counts off the thread block
 (C = 3, 8, 300, 1152), masked queries and empty neighborhoods, f32 and
 bf16, the backward kernels (PosPool xyz and sin/cos, the neighborhood
 moments, the neighborhood max and the point-wise MLP's min/max kernels,
-ties included), the masked neighborhood sum (K13, repeated support rows)
+ties included; the gathers equal to their CPU twins to the bit), the masked neighborhood sum (K13, repeated support rows)
 and the point-wise MLP's route through it on either side of 64 queries, the pseudo-grid kernels at every influence mode with Kp
 beyond one register chunk, the k-NN kernel (k = 1 and above, k > Ns,
 ties, all-masked supports) and its routing, the grid subsampling on the
@@ -276,6 +278,60 @@ def test_fps_kernel_ties_and_no_mask():
     assert torch.equal(ki, pi) and torch.equal(km, pm)
 
 
+FPS_SIZES = [1, 33, 1025, 5000, 10000, 16384]
+
+
+def _fps_case(n, b):
+    """A grid cloud (duplicated points, exact ties) with 30% of its points
+    masked, cloud 0 holding only a few valid points (npoint > nvalid) and,
+    for b > 1, the last cloud all masked; npoint past N for the smallest
+    clouds."""
+    xyz, mask = _cloud(40 + n, b, n, masked_frac=0.3, grid=True)
+    keep = torch.rand((n,), generator=torch.Generator().manual_seed(n))
+    mask[0] &= (keep < 0.01).cuda()
+    return xyz, mask, min(n + 7, 300)
+
+
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("n", FPS_SIZES)
+def test_fps_kernel_equals_plain_at_every_size(n, b):
+    """The picks and sample mask equal the plain version's at every cloud
+    size, on ties, masked points, an all-masked cloud, npoint > nvalid and
+    N off the warp."""
+    xyz, mask, npoint = _fps_case(n, b)
+    ki, km = furthest_point_sample_cuda(xyz, npoint, mask)
+    pi, pm = furthest_point_sample_plain(xyz, npoint, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(km, pm)
+    if b > 1:
+        assert (ki[-1] == 0).all() and not km[-1].any()
+
+
+def test_fps_launch_plan():
+    """``cl3d_fps_plan``, the kernel's own launch plan, at the plans that
+    ``tests/test_torch_fps.py``'s mirror holds at the models' calls, and
+    its limits at every N: enough points a thread, at most 32 warps, one
+    warp up to 128 points, 8 points a thread or more past it."""
+    import ctypes
+
+    from closerlook3d_tpu_torch.ops import kernels
+
+    lib = kernels.load("fps")
+    ppt, threads = ctypes.c_int(), ctypes.c_int()
+
+    def plan(n):
+        lib.cl3d_fps_plan(n, ctypes.byref(ppt), ctypes.byref(threads))
+        return ppt.value, threads.value
+
+    assert plan(5000) == (8, 640) and plan(1250) == (8, 160)
+    assert plan(1024) == (8, 128) and plan(312) == (8, 64)
+    assert plan(78) == (4, 32) and plan(16384) == (16, 1024)
+    for n in range(1, lib.cl3d_fps_max_points() + 1, 7):
+        p, t = plan(n)
+        assert p * t >= n and t % 32 == 0 and t <= 1024, (n, p, t)
+        assert (t == 32) if n <= 128 else (p >= 8), (n, p, t)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reduction", ["avg", "sum"])
 @pytest.mark.parametrize("nq,ns,c,k", [
@@ -376,11 +432,82 @@ def test_neighborhood_max_kernels_match_plain(dtype, values, nq, ns, c, k):
     assert torch.equal(out, neighborhood_max_plain(f, idx, nmask))
     assert (out[-1] == 0).all()  # empty neighborhoods give 0
     dy = torch.randn((3, nq, c), generator=gen, device="cuda").to(dtype)
-    got = neighborhood_max_bwd_cuda(f, idx, nmask, out, dy)
-    twin = neighborhood_max_bwd_plain(f, idx, nmask, out, dy)
-    tol = (dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32
-           else dict(rtol=8e-3, atol=1e-5))
-    torch.testing.assert_close(got.float(), twin.float(), **tol)
+    args = (f, idx, nmask, out, dy)
+    got = neighborhood_max_bwd_cuda(*args)
+    again = neighborhood_max_bwd_cuda(*args)
+    # the twin on CPU copies adds in (q, t) order, as the gather does
+    twin = neighborhood_max_bwd_plain(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (3, ns, c)
+    assert torch.equal(_bits(got.cpu()), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()  # the all-masked cloud gets nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 12, 144, 300, 1152])
+@pytest.mark.parametrize("name", ["ball", "ties", "strided",
+                                  "masked_queries", "unreached", "one_row"])
+def test_neighborhood_max_bwd_gather_equals_twin_to_the_bit(name, c, dtype):
+    """K8b (the tiled reverse index beside the tie quotients, then a
+    gather per support row) on post-ReLU values on a 0.25 grid that are a
+    function of the point's position (duplicated points carry equal rows,
+    exact ties within neighborhoods): equal to its twin on CPU copies to
+    the bit, and the same bits on a second launch; C off the 16-byte vector
+    (3, 12 and 300 in bf16) takes the scalar units."""
+    q, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(69)
+    w = torch.randn((3, c), generator=gen, device="cuda")
+    f = torch.relu(torch.round(4 * (s @ w)) / 4).to(dtype)
+    out = neighborhood_max_cuda(f, idx, nmask)
+    dy = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    args = (f, idx, nmask, out, dy)
+    got = neighborhood_max_bwd_cuda(*args)
+    again = neighborhood_max_bwd_cuda(*args)
+    twin = neighborhood_max_bwd_plain(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.cpu()), _bits(twin))
+    assert torch.equal(_bits(got), _bits(again))
+    assert (got[-1] == 0).all()
+
+
+def test_neighborhood_max_bwd_takes_unaligned_views_and_keeps_nan_at_ties():
+    """f, out and dy as views at an odd element offset give the bits of
+    their aligned copies; a NaN in dy reaches only the rows that tie for
+    its (query, channel), every other element as with that dy set to 0
+    (the twin's g * 0 would spread it to every row the query names)."""
+    q, s, idx, nmask = _gather_case("ties")
+    c = 72
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    w = torch.randn((3, c), generator=gen, device="cuda")
+    f0 = torch.relu(torch.round(4 * (s @ w)) / 4).bfloat16()
+    out0 = neighborhood_max_cuda(f0, idx, nmask)
+    dy0 = torch.randn(out0.shape, generator=gen, device="cuda").bfloat16()
+
+    def odd(t):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        base[1:] = t.reshape(-1)
+        return base[1:].view(t.shape)
+
+    f, out, dy = odd(f0), odd(out0), odd(dy0)
+    assert f.data_ptr() % 16 != 0
+    ref = neighborhood_max_bwd_cuda(f0, idx, nmask, out0, dy0)
+    assert torch.equal(_bits(neighborhood_max_bwd_cuda(f, idx, nmask, out,
+                                                       dy)), _bits(ref))
+    q0 = int(nmask[0].sum(-1).argmax())
+    ch = 5
+    nan = dy0.clone()
+    nan[0, q0, ch] = float("nan")
+    zero = dy0.clone()
+    zero[0, q0, ch] = 0
+    got = neighborhood_max_bwd_cuda(f0, idx, nmask, out0, nan)
+    base = neighborhood_max_bwd_cuda(f0, idx, nmask, out0, zero)
+    rows = idx[0, q0][nmask[0, q0]].long()
+    ties = rows[f0[0, rows, ch] == out0[0, q0, ch]]
+    want = torch.zeros_like(got, dtype=torch.bool)
+    want[0, ties, ch] = True
+    assert torch.equal(torch.isnan(got), want) and len(ties) > 0
+    assert torch.equal(_bits(got[~want]), _bits(base[~want]))
 
 
 @pytest.mark.parametrize("op", ["pospool", "max"])
@@ -1371,7 +1498,7 @@ _BWD_OPS = """
 import json, torch
 from torch.profiler import ProfilerActivity, profile
 from closerlook3d_tpu_torch.ops import (
-    aggregation, gather_reduce, moments, pseudo_grid)
+    aggregation, gather_reduce, grouping, moments, pseudo_grid, sampling)
 from closerlook3d_tpu_torch.ops.neighbors import ball_query_cuda
 g = torch.Generator(device="cuda").manual_seed(0)
 x = torch.rand((4, 2000, 3), generator=g, device="cuda")
@@ -1394,7 +1521,11 @@ calls = {"pwmlp_stats_bwd": lambda: gather_reduce.pwmlp_minmax_stats_bwd_cuda(
          "pospool_sincos_bwd": lambda: aggregation.pospool_sincos_bwd_cuda(
              x, x, idx, nmask, dy5, 0.1, "avg"),
          "moments_bwd": lambda: moments.neighborhood_moments_bwd_cuda(
-             x, x, idx, nmask, dy9, 0.1, "avg")}
+             x, x, idx, nmask, dy9, 0.1, "avg"),
+         "neighborhood_max_bwd": lambda: grouping.neighborhood_max_bwd_cuda(
+             f, idx, nmask, out8, dy5),
+         "fps": lambda: sampling.furthest_point_sample_cuda(x, 500, m)}
+out8 = grouping.neighborhood_max_cuda(f, idx, nmask)
 fn = calls[__import__("sys").argv[1]]
 fn()
 torch.cuda.synchronize()
@@ -1410,13 +1541,15 @@ print(json.dumps([e.name for e in prof.events()
 
 @pytest.mark.parametrize("kernel", ["pwmlp_stats_bwd", "pseudo_grid_bwd",
                                     "pospool_xyz_bwd", "pospool_sincos_bwd",
-                                    "moments_bwd"])
+                                    "moments_bwd", "neighborhood_max_bwd",
+                                    "fps"])
 def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
-    """K6b, K10b, K1b, K5b and K9b each run two device kernels once a call
-    (the reverse index beside the per-slot terms, or for K1b, K5b and K9b
-    beside avg's dy / max(count, 1); then the gather) and nothing else on the
-    device: no fill, no cast. Profiled in a process of its own (see
-    ``test_ball_query_device_ops_run_once_a_call``)."""
+    """K6b, K10b, K1b, K5b, K9b and K8b each run two device kernels once a
+    call (the reverse index beside the per-slot terms, or for K1b, K5b and
+    K9b beside avg's dy / max(count, 1), for K8b beside the tie quotients;
+    then the gather) and nothing else on the device: no fill, no cast. FPS
+    runs one. Profiled in a process of its
+    own (see ``test_ball_query_device_ops_run_once_a_call``)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
                            if p)
@@ -1425,14 +1558,14 @@ def test_backward_gathers_run_their_device_ops_once_a_call(kernel):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     names = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(set(names)) == 2, names
+    assert len(set(names)) == (1 if kernel == "fps" else 2), names
     assert all(names.count(n) == 4 for n in names), names
 
 
 def test_backward_gathers_count_in_global_memory_past_shared_memory():
     """Ns = 60000 outgrows the shared memory of the index's block, whose
     counters then live in global memory: the index alone still equals its
-    plain version, K6b, K1b and K9b their twins on CPU copies to the bit,
+    plain version, K6b, K1b, K9b and K8b their twins on CPU copies to the bit,
     K10b its twin within tolerance and K5b its twin with the sums on CPU
     copies (``_sums_on_cpu``) within tolerance."""
     s, smask = _cloud(63, 2, 60000)
@@ -1476,6 +1609,11 @@ def test_backward_gathers_count_in_global_memory_past_shared_memory():
             _bits(pospool_xyz_bwd_plain(
                 *(a.cpu() if isinstance(a, torch.Tensor) else a
                   for a in xargs))))
+    out = neighborhood_max_cuda(g, idx, nmask)
+    nargs = (g, idx, nmask, out, cot[3])
+    assert torch.equal(_bits(neighborhood_max_bwd_cuda(*nargs).cpu()),
+                       _bits(neighborhood_max_bwd_plain(
+                           *(a.cpu() for a in nargs))))
 
 
 @pytest.mark.parametrize("nq,ns,k,grid", [

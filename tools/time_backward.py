@@ -1,9 +1,10 @@
-"""The redesigned neighborhood kernels, backward (K6b,
+"""The redesigned kernels, backward (K6b,
 ``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``; K5b,
 ``pospool_sincos_bwd_cuda``; K9b, ``neighborhood_moments_bwd_cuda``; K1b,
-``pospool_xyz_bwd_cuda``) and forward (K10f, ``pseudo_grid_cuda``; K5f,
-``pospool_sincos_cuda``; K1f, ``pospool_xyz_cuda``; K9f,
-``neighborhood_moments_cuda``; K6f, ``pwmlp_minmax_stats_cuda``): device time
+``pospool_xyz_bwd_cuda``; K8b, ``neighborhood_max_bwd_cuda``) and forward
+(K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``; K1f,
+``pospool_xyz_cuda``; K9f, ``neighborhood_moments_cuda``; K6f,
+``pwmlp_minmax_stats_cuda``; K4, ``furthest_point_sample_cuda``): device time
 per call and per train step or request, the bits of every call's
 output, and each train config's device busy time a step and each
 serving config's a request, on the card; optionally against the same
@@ -24,22 +25,25 @@ holds:
   of ``seg-train:shapenetpart_pwmlp`` (8 clouds; its last stage takes
   the K13 + K7 route), K10b at every call of the ModelNet40 pseudo-grid
   train step, K5b and K9b at every call of the sin/cos and the
-  adaptive-weight steps, K1b at every call of the xyz step and of
+  adaptive-weight steps, K1b and K8b (``neighborhood_max_bwd_cuda``, at
+  the strided calls) at every call of the xyz step and of
   ``seg-train:s3dis`` (8 x 15000 points); with ``forward`` or ``all``:
   K10f at every call of the pseudo-grid step, K5f at every call of the
   sin/cos step, K1f at every call of the xyz step and of a flagship
   request (16 x 1024 points, ``chip_smoke.flagship_config()``: the
   serving path), K9f at every call of the adaptive-weight step and K6f
   at every call of the point-wise MLP step and at the K6 calls of
-  ``seg-train:shapenetpart_pwmlp``. bf16,
+  ``seg-train:shapenetpart_pwmlp``, and FPS (K4,
+  ``furthest_point_sample_cuda``, f32 points) at the 4 calls of the xyz
+  step and of a flagship request, held equal to its plain version. bf16,
   inputs from three seeded batches as ``chip_smoke.py`` makes them; each
   call first held to its plain version or twin run on the card, the
   SHA-256 of its output bytes taken on the first set in bf16 and again
   with every bf16 input cast to f32, then timed by
   ``chip_smoke._device_time`` (the profiler's mean per device op, summed
   over the call's ops: the reverse index, fills, casts and kernels) and
-  by CUDA events over eager launches, beside its bound; K5b, K9b and K1b
-  also hashed on a second launch (the same bits run to run) and held to
+  by CUDA events over eager launches, beside its bound; K5b, K9b, K1b and
+  K8b also hashed on a second launch (the same bits run to run) and held to
   their twins run on CPU copies (whether the bits are equal, and the
   largest difference);
 * each train config of ``chip_smoke.py`` (the five ModelNet40 configs
@@ -55,8 +59,8 @@ readings go parent, this, this, parent, and the summary gives each
 checkout's mean of two: per call (device ms and ops, events ms, bound,
 the parent's device ms, and whether the output bits equal the parent's
 in bf16 and f32, as for every forward, whose sums run in slot order;
-for K5b, K9b and K1b, whose parents add with atomics, the bits run to run
-and against the CPU twin instead), per step or request, and per config
+for K5b, K9b, K1b and K8b, whose parents add with atomics, the bits run to
+run and against the CPU twin instead), per step or request, and per config
 the busy time beside the timed kernels' saving (per-call device times
 times calls a step or request). The card's name and power limit are
 printed first; everything goes to
@@ -91,20 +95,24 @@ TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                       ("sincos", "pospool_sincos_bwd"),
                       ("adaptive", "moments_bwd"),
                       ("xyz", "pospool_xyz_bwd"),
-                      ("s3dis", "pospool_xyz_bwd")),
+                      ("s3dis", "pospool_xyz_bwd"),
+                      ("xyz", "neighborhood_max_bwd"),
+                      ("s3dis", "neighborhood_max_bwd")),
          "forward": (("pgrid", "pseudo_grid"),
                      ("sincos", "pospool_sincos"),
                      ("xyz", "pospool_xyz"),
                      (FLAGSHIP, "pospool_xyz"),
                      ("adaptive", "moments"),
                      ("pwmlp", "pwmlp_stats"),
-                     ("shapenetpart_pwmlp", "pwmlp_stats"))}
+                     ("shapenetpart_pwmlp", "pwmlp_stats"),
+                     ("xyz", "fps"),
+                     (FLAGSHIP, "fps"))}
 TIMED["all"] = TIMED["backward"] + TIMED["forward"]
 # backward kernels whose parents scattered with f32 atomics, so that their
 # bits varied run to run: held to themselves and to their CPU twins
 # instead of the parent's bits; the config kind whose tolerance holds each
 RECOMPUTED = {"pospool_sincos_bwd": "sincos", "moments_bwd": "adaptive",
-              "pospool_xyz_bwd": "xyz"}
+              "pospool_xyz_bwd": "xyz", "neighborhood_max_bwd": "xyz"}
 
 
 def _cases(step: str, kernel: str, gen) -> list:
@@ -138,16 +146,24 @@ def _cases(step: str, kernel: str, gen) -> list:
                 g = compute_geometry(tcfg, torch.from_numpy(b["xyz"]).to(dev),
                                      torch.from_numpy(b["mask"]).to(dev))
             pp = chip_smoke.seg_calls(tcfg, g)[1]
+            if kernel.startswith("neighborhood_max"):
+                calls.append(pp)
+                continue
             if kind == "pwmlp":
                 k13 = {c[0] for c in chip_smoke._k13_calls(pp)}
                 pp = [c for c in pp if c[0] not in k13]
             calls.append((None, None, pp))
+    if kernel.startswith("neighborhood_max") and step not in (
+            chip_smoke.TRAIN_KINDS):  # the strided calls of a seg step
+        return chip_smoke._max_cases(tcfg, calls, gen)[kernel]
     return chip_smoke._kernel_cases(tcfg, calls, gen, kind)[kernel]
 
 
 def _tol(kernel: str, dtype):
     """The tolerance ``chip_smoke.py`` holds the kernel to (the timing
     inputs reduce by avg)."""
+    if kernel == "fps":  # picks and sample mask equal
+        return dict(rtol=0, atol=0)
     if kernel.startswith("pseudo_grid"):
         return chip_smoke._pgrid_tol(dtype)
     if kernel in ("pospool_sincos", "pospool_xyz", "moments"):

@@ -1,9 +1,9 @@
-"""Source variants of the redesigned neighborhood kernels, timed against
-each other call by call in one process, on the card: the forwards K10f
+"""Source variants of the redesigned kernels, timed against each other
+call by call in one process, on the card: the forwards K10f
 (``csrc/pseudo_grid.cu``), K5f (``csrc/pospool_sincos.cu``), K1f
-(``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``) and K6f
-(``csrc/gather_reduce.cu``), or the backwards K6b, K10b, K5b, K9b and
-K1b.
+(``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``), K6f
+(``csrc/gather_reduce.cu``) and FPS (K4, ``csrc/fps.cu``), or the
+backwards K6b, K10b, K5b, K9b, K1b and K8b (``csrc/neighborhood_max.cu``).
 
     python3 tools/time_variants.py VARIANTS.json [--kernels forward]
 
@@ -14,8 +14,8 @@ repository"}`` for another design's sources, whose C entries must take
 this checkout's wrappers' arguments; ``{}`` is this checkout as it
 stands. ``--kernels`` takes the choices of ``tools/time_backward.py``
 (``forward``, the default; ``backward``; ``all``), or kernel names there
-joined by commas (``pospool_sincos_bwd,moments_bwd``). Needs a CUDA card
-and ``nvcc``. Each variant builds the sources of the chosen kernels into
+joined by commas (``pospool_sincos_bwd,moments_bwd``; ``fps``). Needs a
+CUDA card and ``nvcc``. Each variant builds the sources of the chosen kernels into
 the git-ignored ``csrc/_build/variants/``, all at once, and prints their
 kernels' registers and spills. Then, at every call of the ModelNet40 bf16 train
 steps that ``tools/time_backward.py`` times them at, on its inputs, each
@@ -28,7 +28,9 @@ call's mean per variant and its ratio to the first variant, ``STEP`` the
 sums a step; the records go to
 ``chiprun_out/time_variants/<VARIANTS>.json``. A design's variants are
 edits of its own sources, so a spec applies to the tree it was written
-for.
+for; ``tools/variants/`` keeps those that apply to this tree
+(``fps_cluster.json``: FPS over 1, 2 and 4 CTAs of a thread block
+cluster, which ``tests/test_torch_fps.py`` checks still applies).
 """
 
 from __future__ import annotations
@@ -55,12 +57,14 @@ SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
            "pwmlp_stats_bwd": "gather_reduce",
            "pseudo_grid_bwd": "pseudo_grid",
            "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments",
-           "pwmlp_stats": "gather_reduce", "pospool_xyz_bwd": "pospool_xyz"}
+           "pwmlp_stats": "gather_reduce", "pospool_xyz_bwd": "pospool_xyz",
+           "fps": "fps", "neighborhood_max_bwd": "neighborhood_max"}
 # parts of the device functions' names whose registers are printed
 KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
                 "pospool_xyz_kernel", "moments_kernel", "sincos_gather",
                 "moments_gather", "index_scale", "pwstats_terms",
-                "csr_gather", "pwstats_fwd", "xyz_gather")
+                "csr_gather", "pwstats_fwd", "xyz_gather", "fps_kernel",
+                "nmax_index_ties", "nmax_gather")
 
 
 def build(name: str, spec: dict, src: str):
