@@ -1864,7 +1864,8 @@ def _timing_calls(tcfg) -> list:
 # device ops a call of the redesigned kernels: the forwards and FPS one
 # kernel, the backward gathers two (the reverse index, then the gather)
 DEVICE_OPS = {"pospool_xyz": 1, "pospool_sincos": 1, "moments": 1,
-              "pwmlp_stats": 1, "pseudo_grid": 1, "pospool_xyz_bwd": 2,
+              "pwmlp_stats": 1, "pseudo_grid": 1, "neighborhood_max": 1,
+              "gather_sub_minmax": 1, "pospool_xyz_bwd": 2,
               "pospool_sincos_bwd": 2, "moments_bwd": 2,
               "pwmlp_stats_bwd": 2, "pseudo_grid_bwd": 2, "fps": 1,
               "neighborhood_max_bwd": 2}
@@ -2980,6 +2981,7 @@ REPLACES = {
     "pospool_xyz_bwd": ("closerlook3d_tpu_torch/csrc/pospool_xyz.cu",
                         "closerlook3d_tpu/ops/pallas/aggregation.py:337",
                         None),
+    # K8f and K7f (gather_sub_minmax): query groups (csrc/query_groups.cuh)
     "neighborhood_max": ("closerlook3d_tpu_torch/csrc/neighborhood_max.cu",
                          "closerlook3d_tpu/ops/pallas/gather_reduce.py:568",
                          None),

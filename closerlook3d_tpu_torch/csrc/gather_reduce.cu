@@ -54,17 +54,18 @@
 // each query tile's partial to the output dtype; at the caller's shapes
 // there is one tile, so it too rounds once.
 //
-// Layout. K6's forward (query_groups.cuh): a group of 8-32 lanes a query
-// (and slice of its channels where queries are few), several groups a
-// block and no block-wide barrier; the group compacts the query's valid
-// slots in slot order and stages their support rows in its own shared
-// memory, then each lane takes units of 4 channels of g and gsq (8 bytes
-// of bf16), loads 4 valid slots' rows of both at once and writes its
-// unit of each of the four f32 outputs once (one 16-byte store each). C
-// off 4, or views off the vector, take scalar units. K7 (query_blocks.cuh):
+// Layout. K6's and K7's forwards (query_groups.cuh, one body:
+// group_extrema): a group of 8-32 lanes a query (and slice of its
+// channels where queries are few), several groups a block and no
+// block-wide barrier; the group compacts the query's valid slots in slot
+// order and stages their support rows in its own shared memory, then each
+// lane takes units of 4 channels of g (and gsq; 8 bytes of bf16), loads 4
+// valid slots' rows at once and writes its unit of each f32 output once
+// (one 16-byte store each; K7 loads its unit of d once). C off 4, or views
+// off the vector, take scalar units. K7's backward (query_blocks.cuh):
 // one block per kQPB consecutive queries of one cloud stages the K slot
 // rows in shared memory; threads stride over the C channels, so a warp's
-// loads (and atomics) of one support row are coalesced. K6's backward:
+// loads and atomics of one support row are coalesced. K6's backward:
 // two launches over a reverse neighbor index (reverse_index.cuh,
 // row_gather.cuh); see pwstats_terms_kernel. K13 has its own, below:
 // forward a warp per (query, 256-channel bf16 slice; 128 in f32), a block
@@ -108,49 +109,34 @@
 
 namespace {
 
-// Running max and min of f32 values; a NaN wins and stays, as amax and
-// amin propagate it (x != x is the NaN test; nvcc does not assume finite
-// math by default).
-struct MinMax {
-  float hi = 0.f, lo = 0.f;
-  bool any = false;
-  __device__ __forceinline__ void add(float v) {
-    if (!any) {
-      hi = v;
-      lo = v;
-      any = true;
-      return;
-    }
-    if (hi == hi && (v != v || v > hi)) hi = v;
-    if (lo == lo && (v != v || v < lo)) lo = v;
-  }
-};
-
-// ---- K6 forward: query groups (query_groups.cuh) ---------------------------
+// ---- K6 and K7 forwards: query groups (query_groups.cuh) ------------------
 
 constexpr int kStatsChannels = 4;  // channels of a lane's unit
 constexpr int kStatsBatch = 4;     // valid slots' rows a lane loads at once
 constexpr int kStatsLanes = 8;     // the narrowest group
 
-// K6 forward in query groups: a group of kG lanes per item, a query and a
-// slice of its passes; the group stages its query's valid slots' rows in
-// slot order (stage_valid_rows). Unit e * kG + lg of pass e belongs to
-// lane lg: channels [unit * 4, unit * 4 + 4) of g and gsq (8 bytes of
-// bf16, 16 of f32), whose rows it loads kStatsBatch valid slots at once.
-// Per channel, over the valid slots in slot order: the first sets hi and
-// lo, the others update them as MinMax does (a NaN wins and stays); a1
-// and a2 add g and gsq in f64 from +0 and round once to f32. So each
-// output has the bits of a loop over all K slots that skips the invalid
-// ones; each is written once, a 16-byte f32 store a unit where the rows
-// allow vectors. 0 where no slot is valid.
-template <typename T, bool kVec, int kG>
-__global__ void __launch_bounds__(kGroupThreads)
-    pwstats_fwd_kernel(const T* __restrict__ g, const T* __restrict__ gsq,
-                       const int32_t* __restrict__ idx,
-                       const bool* __restrict__ mask, int nq, int ns, int c,
-                       int k, long long items, int slices, int per,
-                       float* __restrict__ gmax, float* __restrict__ gmin,
-                       float* __restrict__ s1, float* __restrict__ s2) {
+// The body of K6's and K7's forwards in query groups: a group of kG lanes
+// per item, a query and a slice of its passes; the group stages its
+// query's valid slots' rows in slot order (stage_valid_rows). Unit e * kG
+// + lg of pass e belongs to lane lg: channels [unit * 4, unit * 4 + 4) of
+// g (8 bytes of bf16, 16 of f32), whose rows it loads kStatsBatch valid
+// slots at once. Per channel, over the valid slots in slot order, of x =
+// g (K6) or x = g - d[q] in f32 (kSub, K7: `other` is d, its unit loaded
+// once): the first sets hi and lo, each later x sets hi where hi == hi &&
+// (x != x || x > hi) and lo alike, so a NaN wins and stays, as amax and
+// amin propagate it (x != x is the NaN test; nvcc does not assume finite
+// math by default). K6 also adds g and `other` (gsq) in f64 from +0
+// into a1 and a2 and rounds them once to f32. So each output has the bits
+// of a loop over all K slots that skips the invalid ones; each is written
+// once, a 16-byte f32 store a unit where the rows allow vectors. 0 where
+// no slot is valid.
+template <typename T, bool kVec, int kG, bool kSub>
+__device__ __forceinline__ void group_extrema(
+    const T* __restrict__ g, const T* __restrict__ other,
+    const int32_t* __restrict__ idx, const bool* __restrict__ mask, int nq,
+    int ns, int c, int k, long long items, int slices, int per,
+    float* __restrict__ hi_out, float* __restrict__ lo_out,
+    float* __restrict__ s1, float* __restrict__ s2) {
   using U = ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>;
   using Out = ChannelUnit<float, kVec, kStatsChannels * sizeof(float)>;
   constexpr int kW = U::kW;
@@ -169,7 +155,13 @@ __global__ void __launch_bounds__(kGroupThreads)
   for (int unit = it.slice * per * kG + lg; unit < u_end; unit += kG) {
     const int ch0 = unit * kW;
     const T* g0 = g + b * ns * c + ch0;  // the unit's channels of row 0
-    const T* q0 = gsq + b * ns * c + ch0;
+    const T* q0 = kSub ? nullptr : other + b * ns * c + ch0;  // gsq's
+    float dv[kW];  // K7: the unit of d[q]
+    if constexpr (kSub) {
+      const typename U::Raw dr = U::load(other + o + ch0, c - ch0);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) dv[i] = to_f32(dr.v[i]);
+    }
     float hi[kW] = {}, lo[kW] = {};
     double a1[kW] = {}, a2[kW] = {};
     for (int i0 = 0; i0 < n; i0 += kStatsBatch) {
@@ -178,14 +170,16 @@ __global__ void __launch_bounds__(kGroupThreads)
       for (int v = 0; v < kStatsBatch; ++v) {
         const int j = st.j[min(i0 + v, n - 1)];
         r[v] = U::load(row_at(g0, j, row_bytes), c - ch0);
-        rq[v] = U::load(row_at(q0, j, row_bytes), c - ch0);
+        if constexpr (!kSub)
+          rq[v] = U::load(row_at(q0, j, row_bytes), c - ch0);
       }
 #pragma unroll
       for (int v = 0; v < kStatsBatch; ++v) {
         if (i0 + v < n) {
 #pragma unroll
           for (int i = 0; i < kW; ++i) {
-            const float x = to_f32(r[v].v[i]);
+            float x = to_f32(r[v].v[i]);
+            if constexpr (kSub) x = __fsub_rn(x, dv[i]);
             if (i0 + v == 0) {
               hi[i] = x;
               lo[i] = x;
@@ -193,56 +187,95 @@ __global__ void __launch_bounds__(kGroupThreads)
               if (hi[i] == hi[i] && (x != x || x > hi[i])) hi[i] = x;
               if (lo[i] == lo[i] && (x != x || x < lo[i])) lo[i] = x;
             }
-            a1[i] += x;
-            a2[i] += to_f32(rq[v].v[i]);
+            if constexpr (!kSub) {
+              a1[i] += x;
+              a2[i] += to_f32(rq[v].v[i]);
+            }
           }
         }
       }
     }
-    float x1[kW], x2[kW];
+    Out::store(hi_out + o + ch0, c - ch0, hi);
+    Out::store(lo_out + o + ch0, c - ch0, lo);
+    if constexpr (!kSub) {
+      float x1[kW], x2[kW];
 #pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      x1[i] = __double2float_rn(a1[i]);
-      x2[i] = __double2float_rn(a2[i]);
+      for (int i = 0; i < kW; ++i) {
+        x1[i] = __double2float_rn(a1[i]);
+        x2[i] = __double2float_rn(a2[i]);
+      }
+      Out::store(s1 + o + ch0, c - ch0, x1);
+      Out::store(s2 + o + ch0, c - ch0, x2);
     }
-    Out::store(gmax + o + ch0, c - ch0, hi);
-    Out::store(gmin + o + ch0, c - ch0, lo);
-    Out::store(s1 + o + ch0, c - ch0, x1);
-    Out::store(s2 + o + ch0, c - ch0, x2);
   }
 }
 
+// K6 forward: (gmax, gmin, s1, s2) of g and gsq (group_extrema).
+template <typename T, bool kVec, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    pwstats_fwd_kernel(const T* __restrict__ g, const T* __restrict__ gsq,
+                       const int32_t* __restrict__ idx,
+                       const bool* __restrict__ mask, int nq, int ns, int c,
+                       int k, long long items, int slices, int per,
+                       float* __restrict__ gmax, float* __restrict__ gmin,
+                       float* __restrict__ s1, float* __restrict__ s2) {
+  group_extrema<T, kVec, kG, false>(g, gsq, idx, mask, nq, ns, c, k, items,
+                                    slices, per, gmax, gmin, s1, s2);
+}
+
+// K7 forward: (hmax, hmin) of g - d (group_extrema).
+template <typename T, bool kVec, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    mm_fwd_kernel(const T* __restrict__ g, const T* __restrict__ d,
+                  const int32_t* __restrict__ idx,
+                  const bool* __restrict__ mask, int nq, int ns, int c,
+                  int k, long long items, int slices, int per,
+                  float* __restrict__ hmax, float* __restrict__ hmin) {
+  group_extrema<T, kVec, kG, true>(g, d, idx, mask, nq, ns, c, k, items,
+                                   slices, per, hmax, hmin, nullptr, nullptr);
+}
+
+// K6's forward (gsq and the sums given) or K7's (d given, sums null) at
+// the group width group_lanes_for picks for 4-channel units.
 template <typename T, bool kVec>
-int launch_pwstats_fwd_as(const T* g, const T* gsq, const int32_t* idx,
-                          const bool* mask, int b, int nq, int ns, int c,
-                          int k, float* gmax, float* gmin, float* s1,
-                          float* s2, cudaStream_t stream) {
+int launch_extrema_as(const T* g, const T* other, const int32_t* idx,
+                      const bool* mask, int b, int nq, int ns, int c, int k,
+                      float* hi, float* lo, float* s1, float* s2,
+                      cudaStream_t stream) {
   return launch_query_groups(
       static_cast<long long>(b) * nq,
       ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>::units(c),
       kStatsLanes,
       [&](auto lanes, unsigned blocks, long long items, PassSplit sp) {
-        pwstats_fwd_kernel<T, kVec, decltype(lanes)::value>
-            <<<blocks, kGroupThreads, 0, stream>>>(
-                g, gsq, idx, mask, nq, ns, c, k, items, sp.slices, sp.per,
-                gmax, gmin, s1, s2);
+        constexpr int kG = decltype(lanes)::value;
+        if (s1)
+          pwstats_fwd_kernel<T, kVec, kG>
+              <<<blocks, kGroupThreads, 0, stream>>>(
+                  g, other, idx, mask, nq, ns, c, k, items, sp.slices,
+                  sp.per, hi, lo, s1, s2);
+        else
+          mm_fwd_kernel<T, kVec, kG><<<blocks, kGroupThreads, 0, stream>>>(
+              g, other, idx, mask, nq, ns, c, k, items, sp.slices, sp.per,
+              hi, lo);
       });
 }
 
-// K6's forward in vector units where C and the pointers allow them.
+// K6's or K7's forward in vector units where C and the pointers allow
+// them (`other`: gsq [B, Ns, C] for K6, d [B, Nq, C] for K7).
 template <typename T>
-int launch_pwstats_fwd(const void* g, const void* gsq, const int32_t* idx,
-                       const bool* mask, int b, int nq, int ns, int c, int k,
-                       float* gmax, float* gmin, float* s1, float* s2,
-                       cudaStream_t stream) {
+int launch_extrema(const void* g, const void* other, const int32_t* idx,
+                   const bool* mask, int b, int nq, int ns, int c, int k,
+                   float* hi, float* lo, float* s1, float* s2,
+                   cudaStream_t stream) {
   const T* gp = static_cast<const T*>(g);
-  const T* qp = static_cast<const T*>(gsq);
-  if (runs_ok<T, kStatsChannels>(c, g, gsq) &&
-      runs_ok<float, kStatsChannels>(c, gmax, gmin, s1, s2))
-    return launch_pwstats_fwd_as<T, true>(gp, qp, idx, mask, b, nq, ns, c,
-                                          k, gmax, gmin, s1, s2, stream);
-  return launch_pwstats_fwd_as<T, false>(gp, qp, idx, mask, b, nq, ns, c, k,
-                                         gmax, gmin, s1, s2, stream);
+  const T* op = static_cast<const T*>(other);
+  if (runs_ok<T, kStatsChannels>(c, g, other) &&
+      runs_ok<float, kStatsChannels>(c, hi, lo) &&
+      (!s1 || runs_ok<float, kStatsChannels>(c, s1, s2)))
+    return launch_extrema_as<T, true>(gp, op, idx, mask, b, nq, ns, c, k, hi,
+                                      lo, s1, s2, stream);
+  return launch_extrema_as<T, false>(gp, op, idx, mask, b, nq, ns, c, k, hi,
+                                     lo, s1, s2, stream);
 }
 
 // (dmax / n, dmin / m) for one (query, channel): n (m) = valid slots whose
@@ -250,37 +283,6 @@ int launch_pwstats_fwd(const void* g, const void* gsq, const int32_t* idx,
 // twins clamp.
 __device__ __forceinline__ float share(float dy, int n) {
   return __fdiv_rn(dy, static_cast<float>(max(n, 1)));
-}
-
-template <typename T>
-__global__ void mm_fwd_kernel(const T* __restrict__ g, const T* __restrict__ d,
-                              const int32_t* __restrict__ idx,
-                              const bool* __restrict__ mask, int nq, int ns,
-                              int c, int k, float* __restrict__ hmax,
-                              float* __restrict__ hmin) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  const T* gb = g + static_cast<size_t>(b) * ns * c;
-
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const size_t o = row * c + ch;
-      const float dv = to_f32(d[o]);
-      MinMax mm;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) mm.add(to_f32(gb[static_cast<size_t>(j) * c + ch]) - dv);
-      }
-      hmax[o] = mm.any ? mm.hi : 0.f;
-      hmin[o] = mm.any ? mm.lo : 0.f;
-    }
-  }
 }
 
 template <typename T>
@@ -873,11 +875,11 @@ extern "C" int cl3d_pwmlp_stats(const void* g, const void* gsq,
       static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  return is_bf16 ? launch_pwstats_fwd<__nv_bfloat16>(g, gsq, idx, mask, b,
-                                                     nq, ns, c, k, gmax, gmin,
-                                                     s1, s2, stream)
-                 : launch_pwstats_fwd<float>(g, gsq, idx, mask, b, nq, ns, c,
-                                             k, gmax, gmin, s1, s2, stream);
+  return is_bf16 ? launch_extrema<__nv_bfloat16>(g, gsq, idx, mask, b, nq,
+                                                 ns, c, k, gmax, gmin, s1, s2,
+                                                 stream)
+                 : launch_extrema<float>(g, gsq, idx, mask, b, nq, ns, c, k,
+                                         gmax, gmin, s1, s2, stream);
 }
 
 // Outputs: dg, dgsq [B, Ns, C] in g's dtype, written in full (no zeroing
@@ -914,20 +916,16 @@ extern "C" int cl3d_gather_sub_minmax(const void* g, const void* d,
                                       int b, int nq, int ns, int c, int k,
                                       int is_bf16, float* hmax, float* hmin,
                                       cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, ns, c, k) ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    mm_fwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(g),
-            static_cast<const __nv_bfloat16*>(d), idx, mask, nq, ns, c, k,
-            hmax, hmin);
-  } else {
-    mm_fwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(g), static_cast<const float*>(d), idx, mask,
-        nq, ns, c, k, hmax, hmin);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_extrema<__nv_bfloat16>(g, d, idx, mask, b, nq, ns,
+                                                 c, k, hmax, hmin, nullptr,
+                                                 nullptr, stream)
+                 : launch_extrema<float>(g, d, idx, mask, b, nq, ns, c, k,
+                                         hmax, hmin, nullptr, nullptr,
+                                         stream);
 }
 
 // dg32 must be zeroed [B, Ns, C] float32; dd [B, Nq, C] in d's dtype is

@@ -31,13 +31,14 @@
 // every row its query's slots name (masked ones too) and the kernel only
 // to the tying rows, as the atomic scatter before this design did.
 //
-// Forward layout (query_blocks.cuh): one block per kQPB consecutive
-// queries of one cloud stages the K slot rows in shared memory; threads
-// stride over the C channels. Backward: two launches (row_terms.cuh), as
-// K1b's: launch 1 builds the reverse index in query tiles, and beside it
-// query groups (query_groups.cuh, stage_valid_rows: a group of 8-32 lanes
-// a query and slice of its channels, the valid slots' rows compacted in
-// slot order, no block barrier) count each channel's ties over the valid
+// Layout. Forward: query groups (query_groups.cuh, stage_valid_rows: a
+// group of 8-32 lanes a query and slice of its channels, several groups a
+// block, no block barrier, the valid slots' rows compacted in slot order
+// in the group's own shared memory); each lane takes units of 16 bytes of
+// channels, loads kMaxBatch valid slots' rows at once and writes its unit
+// of out once. Backward: two launches (row_terms.cuh), as K1b's: launch 1
+// builds the reverse index in query tiles, and beside it query groups (as
+// the forward's) count each channel's ties over the valid
 // slots' rows of f, 8 bytes of channels a lane (kTieBytes: 16 spilled at
 // the 64 registers of the index's launch bounds, and ran 5% slower) and
 // kTieBatch rows at once, and write g (0 where n = 0; a query with no
@@ -58,42 +59,90 @@
 
 namespace {
 
-template <typename T>
-__global__ void nmax_fwd_kernel(const T* __restrict__ f,
-                                const int32_t* __restrict__ idx,
-                                const bool* __restrict__ mask, int nq, int ns,
-                                int c, int k, T* __restrict__ out) {
-  __shared__ int s_idx[kMaxK];  // support row, or -1 for a masked slot
-  const int b = blockIdx.y;
-  const T* fb = f + static_cast<size_t>(b) * ns * c;
+constexpr int kMaxBytes = 16;  // bytes of channels a forward lane's unit
+constexpr int kMaxBatch = 4;   // valid slots' rows a forward lane loads at once
+constexpr int kMaxLanes = 8;   // the forward's narrowest group
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;  // uniform across the block
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();  // previous query's slots fully consumed
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      float acc = 0.f;
-      bool any = false;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const float v = to_f32(fb[static_cast<size_t>(j) * c + ch]);
-          // a NaN wins and stays, as amax propagates it (x != x is the
-          // NaN test; nvcc does not assume finite math by default)
-          if (!any) {
-            acc = v;
-          } else if (acc == acc && (v != v || v > acc)) {
-            acc = v;
+// K8 forward in query groups (query_groups.cuh): a group of kG lanes per
+// item, a query and a slice of its passes; the group stages its query's
+// valid slots' rows in slot order (stage_valid_rows). Unit e * kG + lg of
+// pass e belongs to lane lg: channels [unit * kW, unit * kW + kW) (16
+// bytes: 8 bf16 or 4 f32), whose rows it loads kMaxBatch valid slots at
+// once. Per channel, over the valid slots in slot order: the first sets
+// acc, each later one sets it to v where acc == acc && (v != v || v >
+// acc), so a NaN wins and stays, as amax propagates it (x != x is the NaN
+// test; nvcc does not assume finite math by default), and of -0 and +0
+// the first slot's stays: the bits of a loop over all K slots that skips
+// the invalid ones. Each unit of out is written once (one 16-byte store
+// where the rows allow vectors), 0 where no slot is valid.
+template <typename T, bool kVec, int kG>
+__global__ void __launch_bounds__(kGroupThreads)
+    nmax_fwd_kernel(const T* __restrict__ f, const int32_t* __restrict__ idx,
+                    const bool* __restrict__ mask, int nq, int ns, int c,
+                    int k, long long items, int slices, int per,
+                    T* __restrict__ out) {
+  using U = ChannelUnit<T, kVec, kMaxBytes>;
+  constexpr int kW = U::kW;
+  __shared__ GroupRows s_rows[kGroupThreads / kG];
+  GroupRows& st = s_rows[threadIdx.x / kG];
+  const int lg = threadIdx.x % kG;
+  const GroupItem it = group_item<kG>(items, slices);
+  const int n = stage_valid_rows<kG>(idx + it.row * k, mask + it.row * k,
+                                     k, it.live, st);
+  __syncwarp();
+  if (!it.live) return;
+  const size_t b = it.row / nq;
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  const int u_end = min(U::units(c), (it.slice + 1) * per * kG);
+  for (int unit = it.slice * per * kG + lg; unit < u_end; unit += kG) {
+    const int ch0 = unit * kW;
+    const T* f0 = f + b * ns * c + ch0;  // the unit's channels of row 0
+    float acc[kW] = {};
+    for (int i0 = 0; i0 < n; i0 += kMaxBatch) {
+      typename U::Raw r[kMaxBatch];
+#pragma unroll
+      for (int v = 0; v < kMaxBatch; ++v)
+        r[v] = U::load(row_at(f0, st.j[min(i0 + v, n - 1)], row_bytes),
+                       c - ch0);
+#pragma unroll
+      for (int v = 0; v < kMaxBatch; ++v) {
+        if (i0 + v < n) {
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            const float x = to_f32(r[v].v[i]);
+            if (i0 + v == 0 || (acc[i] == acc[i] && (x != x || x > acc[i])))
+              acc[i] = x;
           }
-          any = true;
         }
       }
-      out[row * c + ch] = from_f32<T>(any ? acc : 0.f);
     }
+    U::store(out + it.row * c + ch0, c - ch0, acc);
   }
+}
+
+template <typename T, bool kVec>
+int launch_fwd_as(const T* f, const int32_t* idx, const bool* mask, int b,
+                  int nq, int ns, int c, int k, T* out,
+                  cudaStream_t stream) {
+  return launch_query_groups(
+      static_cast<long long>(b) * nq, ChannelUnit<T, kVec, kMaxBytes>::units(c),
+      kMaxLanes,
+      [&](auto lanes, unsigned blocks, long long items, PassSplit sp) {
+        nmax_fwd_kernel<T, kVec, decltype(lanes)::value>
+            <<<blocks, kGroupThreads, 0, stream>>>(
+                f, idx, mask, nq, ns, c, k, items, sp.slices, sp.per, out);
+      });
+}
+
+// The forward in 16-byte units where C and the pointers allow them.
+template <typename T>
+int launch_fwd(const void* f, const int32_t* idx, const bool* mask, int b,
+               int nq, int ns, int c, int k, void* out, cudaStream_t stream) {
+  const T* fp = static_cast<const T*>(f);
+  T* op = static_cast<T*>(out);
+  if (runs_ok<T, ChannelUnit<T, true, kMaxBytes>::kW>(c, f, out))
+    return launch_fwd_as<T, true>(fp, idx, mask, b, nq, ns, c, k, op, stream);
+  return launch_fwd_as<T, false>(fp, idx, mask, b, nq, ns, c, k, op, stream);
 }
 
 constexpr int kTieBatch = 4;   // valid slots' rows a lane loads at once
@@ -335,19 +384,14 @@ extern "C" int cl3d_neighborhood_max(const void* f, const int32_t* idx,
                                      const bool* mask, int b, int nq, int ns,
                                      int c, int k, int is_bf16, void* out,
                                      cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(b, ns, c, k) ||
+      static_cast<long long>(c) * (is_bf16 ? 2 : 4) >= kMaxRowBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    nmax_fwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(f), idx, mask, nq, ns, c, k,
-            static_cast<__nv_bfloat16*>(out));
-  } else {
-    nmax_fwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(f), idx, mask, nq, ns, c, k,
-        static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_fwd<__nv_bfloat16>(f, idx, mask, b, nq, ns, c, k,
+                                             out, stream)
+                 : launch_fwd<float>(f, idx, mask, b, nq, ns, c, k, out,
+                                     stream);
 }
 
 // df [B, Ns, C] in the features' dtype, written in full (no zeroing

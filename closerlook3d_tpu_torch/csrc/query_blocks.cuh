@@ -1,11 +1,11 @@
-// The older launch layout of the neighborhood kernels, kept by K7
-// (gather_reduce.cu) and K8 (neighborhood_max.cu): one block per kQPB
+// The older launch layout of the neighborhood kernels, kept by K7's
+// backward alone (mm_bwd_kernel in gather_reduce.cu): one block per kQPB
 // consecutive queries of one cloud (grid.y = cloud), which stages its
 // query's K <= kMaxK slots in shared memory with one thread per slot
 // behind __syncthreads, then strides its threads over the C channels. The
-// forwards K1f, K5f, K6f, K9f and K10f moved to query_groups.cuh, the
-// backward K1b to row_terms.cuh; kMaxK serves every kernel (row_gather.cuh
-// includes this header).
+// forwards K1f, K5f, K6f, K7f, K8f, K9f and K10f moved to
+// query_groups.cuh, the backwards K1b, K5b, K8b and K9b to row_terms.cuh;
+// kMaxK serves every kernel (row_gather.cuh includes this header).
 #pragma once
 
 #include "common.cuh"

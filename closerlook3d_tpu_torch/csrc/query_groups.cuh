@@ -1,6 +1,7 @@
 // Query-group layout of the forward neighborhood kernels (K10f in
 // pseudo_grid.cu, K5f in pospool_sincos.cu, K1f in pospool_xyz.cu, K9f in
-// moments.cu, K6f in gather_reduce.cu): a group of kG lanes of one warp
+// moments.cu, K6f and K7f in gather_reduce.cu, K8f and K8b's launch 1 in
+// neighborhood_max.cu): a group of kG lanes of one warp
 // (8, 16 or 32) owns one work item, a query and a slice of its output,
 // and several groups share a block with no block-wide barrier:
 // each group stages its query in its own slice of shared memory behind
@@ -14,15 +15,15 @@
 //      skips the masked ones;
 //   3. position staging: for valid slots only, the support row and a
 //      position term per coordinate, pos(s[idx, d], q[d]), are written to
-//      the group's GroupSlots (K6f, which needs no positions, stages the
-//      rows alone in GroupRows: stage_valid_rows).
+//      the group's GroupSlots (K6f, K7f and K8f, which need no positions,
+//      stage the rows alone in GroupRows: stage_valid_rows).
 //
 // A query's output is cut into `passes` of kG lanes' units (channel
 // vectors, pairs, kernel-point chunks: the kernel's own); where queries are
 // few (deep stages: 608 queries at C = 1152) the passes are split into
 // slices, one item each, so that the launch still fills the card.
-// query_blocks.cuh keeps the older layout of K7 and K8 (one block per 4
-// queries behind __syncthreads).
+// query_blocks.cuh keeps the older layout for K7's backward alone (one
+// block per 4 queries behind __syncthreads).
 #pragma once
 
 #include <climits>
@@ -183,8 +184,8 @@ __device__ __forceinline__ GroupItem group_item(long long items,
           live ? static_cast<int>(item % slices) : 0};
 }
 
-// A unit of kW = kBytes / sizeof(T) consecutive channels of a row (K1f's,
-// K9f's and K6f's lanes; kBytes 8 or 16). Vectorized (kVec): one load of
+// A unit of kW = kBytes / sizeof(T) consecutive channels of a row (the
+// forwards' lanes and K8b's launch 1; kBytes 8 or 16). Vectorized (kVec): one load of
 // kBytes through the read-only path and one store; needs rows of a
 // multiple of kW channels aligned to kBytes (runs_ok<T, kW>). Scalar:
 // element by element, any C and any alignment, `left` channels of the row

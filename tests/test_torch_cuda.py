@@ -444,6 +444,148 @@ def test_neighborhood_max_kernels_match_plain(dtype, values, nq, ns, c, k):
     assert (got[-1] == 0).all()  # the all-masked cloud gets nothing
 
 
+# K8f and K7f in query groups: (B, Nq, Ns, K, C), K 1-64 and C in {1, 13,
+# 72, 144, 1152}; the ModelNet40 strided calls' shapes (s1, s4), Nq off the
+# groups a block, 1-4 queries at C = 1152 and the point-wise MLP's K13
+# route (8 clouds of 8 queries)
+EXTREMA_CASES = {"k1_c1": (3, 70, 300, 1, 1), "k13_c13": (3, 37, 120, 13, 13),
+                 "k26_c72": (4, 125, 500, 26, 72),
+                 "s1_c144": (4, 125, 500, 26, 144),
+                 "k64_c144": (3, 40, 90, MAX_K, 144),
+                 "s4_c1152": (8, 19, 78, 41, 1152),
+                 "q1_c1152": (1, 1, 78, 41, 1152),
+                 "q2_c1152": (1, 2, 78, 41, 1152),
+                 "q3_c1152": (2, 3, 78, 41, 1152),
+                 "q4_c1152": (1, 4, 78, 41, 1152),
+                 "route_c1152": (8, 8, 32, 41, 1152)}
+
+
+def _extrema_case(name, dtype, values, seed=95):
+    """(f, d, idx, nmask) of an ``EXTREMA_CASES`` case: ball-query
+    neighborhoods (past one cloud, the last all masked) with slots naming
+    row -1 under a set mask and under a clear one; f on a 0.5 grid (ties,
+    and -0 beside +0 where a rounding crosses zero from below), with NaNs
+    at a few support rows for ``values`` "nan"; d [B, Nq, C] in f's
+    dtype."""
+    b, nq, ns, k, c = EXTREMA_CASES[name]
+    s, smask = _cloud(seed, b, ns, masked_frac=0.2)
+    q, qmask = _cloud(seed + 1, b, nq, masked_frac=0.1)
+    idx, nmask = ball_query_cuda(q, s, 0.5, k, qmask, smask)
+    idx = idx.clone()
+    idx[..., 2::7] = torch.where(nmask[..., 2::7], -1, idx[..., 2::7])
+    idx[..., 3::7] = torch.where(nmask[..., 3::7], idx[..., 3::7], -1)
+    assert (nmask & (idx >= 0)).any()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    f = torch.round(2 * torch.randn((b, ns, c), generator=gen,
+                                    device="cuda")) / 2
+    if values == "nan":  # the rows of cloud 0's first valid slots
+        rows = idx[0][nmask[0] & (idx[0] >= 0)][:3].long()
+        f[0, rows, ::5] = float("nan")
+    d = torch.round(2 * torch.randn((b, nq, c), generator=gen,
+                                    device="cuda")) / 2
+    return f.to(dtype), d.to(dtype), idx, nmask
+
+
+def _extrema_slot_order(x, valid):
+    """The parents' loop over all K slots, in PyTorch on the card: over x
+    [B, Nq, K, C] f32, for t = 0 .. K-1 each valid slot sets hi and lo if
+    it is the first, else raises hi where hi == hi and (v != v or v > hi)
+    (lo alike); 0 where no slot is valid. (hi, lo) f32."""
+    hi = torch.zeros_like(x[:, :, 0])
+    lo = torch.zeros_like(hi)
+    seen = torch.zeros_like(valid[:, :, :1])
+    for t in range(x.shape[2]):
+        v, live = x[:, :, t], valid[:, :, t, None]
+        first = live & ~seen
+        up = live & (hi == hi) & ((v != v) | (v > hi))
+        dn = live & (lo == lo) & ((v != v) | (v < lo))
+        hi = torch.where(first | up, v, hi)
+        lo = torch.where(first | dn, v, lo)
+        seen = seen | live
+    return hi, lo
+
+
+def _equal_nan_by_position(got, ref, bits=True):
+    """NaNs at the same places; elsewhere the same bits (or, ``bits``
+    False, the same values: -0 == +0)."""
+    nan = got.isnan()
+    assert torch.equal(nan, ref.isnan())
+    a, b = got.masked_fill(nan, 0), ref.masked_fill(nan, 0)
+    assert torch.equal(_bits(a), _bits(b)) if bits else torch.equal(a, b)
+
+
+@pytest.mark.parametrize("values", ["grid", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(EXTREMA_CASES))
+@pytest.mark.parametrize("op", ["max", "minmax"])
+def test_extrema_forwards_in_query_groups(op, name, dtype, values):
+    """K8f and K7f: equal to their plain versions (given the mask set only
+    where idx >= 0) and bit for bit to the parents' slot loop, NaNs by
+    position; one launch counted a call, the same bits on a second one; 0
+    where no slot is valid. K8b's backward on K8f's output still equals
+    its twin on CPU copies to the bit (finite values)."""
+    f, d, idx, nmask = _extrema_case(name, dtype, values)
+    valid = nmask & (idx >= 0)
+    safe = torch.where(valid, idx, torch.zeros_like(idx))
+    x = grouping.group_features(f.float(), safe)
+    empty = ~valid.any(-1)
+    if op == "max":
+        fn, before = neighborhood_max_cuda, neighborhood_max_cuda.launches
+        got = (fn(f, idx, nmask),)
+        again = (fn(f, idx, nmask),)
+        ref = (neighborhood_max_plain(f, idx.clamp(min=0), valid),)
+        slot = (_extrema_slot_order(x, valid)[0].to(dtype),)
+    else:
+        if name == "route_c1152":  # the K13 route's call, against zeros
+            d = torch.zeros_like(d)
+        fn = gather_reduce.gather_sub_minmax_cuda
+        before = fn.launches
+        got, again = fn(f, d, idx, nmask), fn(f, d, idx, nmask)
+        ref = gather_reduce.gather_sub_minmax_plain(f, d, idx.clamp(min=0),
+                                                    valid)
+        slot = _extrema_slot_order(x - d.float()[:, :, None, :], valid)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for o, o2, r, sl in zip(got, again, ref, slot):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        _equal_nan_by_position(o, r, bits=False)
+        _equal_nan_by_position(o, sl)
+        assert torch.equal(_bits(o), _bits(o2))
+        assert (o[empty] == 0).all()
+    assert got[0].isnan().any() == (values == "nan")
+    if op == "max" and values == "grid":
+        gen = torch.Generator(device="cuda").manual_seed(96)
+        dy = torch.randn(got[0].shape, generator=gen,
+                         device="cuda").to(dtype)
+        # the backward takes the valid slots (the twin gathers every row)
+        args = (f, idx.clamp(min=0), valid, got[0], dy)
+        df = neighborhood_max_bwd_cuda(*args)
+        twin = neighborhood_max_bwd_plain(*(a.cpu() for a in args))
+        assert torch.equal(_bits(df.cpu()), _bits(twin))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["k13_c13", "s1_c144", "q3_c1152"])
+def test_extrema_forwards_take_unaligned_views(name, dtype):
+    """f (K8f), and g and d (K7f), as views one element into a buffer (off
+    16 bytes: the scalar units) give the bits of their aligned copies."""
+    f, d, idx, nmask = _extrema_case(name, dtype, "grid", seed=97)
+
+    def odd(t):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        base[1:] = t.reshape(-1)
+        return base[1:].view(t.shape)
+
+    fv, dv = odd(f), odd(d)
+    assert fv.data_ptr() % 16 != 0 and dv.data_ptr() % 16 != 0
+    assert torch.equal(_bits(neighborhood_max_cuda(fv, idx, nmask)),
+                       _bits(neighborhood_max_cuda(f, idx, nmask)))
+    got = gather_reduce.gather_sub_minmax_cuda(fv, dv, idx, nmask)
+    ref = gather_reduce.gather_sub_minmax_cuda(f, d, idx, nmask)
+    for o, r in zip(got, ref):
+        assert torch.equal(_bits(o), _bits(r))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [3, 12, 144, 300, 1152])
 @pytest.mark.parametrize("name", ["ball", "ties", "strided",

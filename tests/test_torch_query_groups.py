@@ -736,8 +736,8 @@ def test_unit_emulation_matches_the_pallas_kernel(cloud, op, reduction):
 # ---- K6f: units of 4 channels of g and gsq, f64 slot sums -------------------
 
 def _minmax_add(hi, lo, x):
-    """MinMax's update (gather_reduce.cu) of running extrema by x, after
-    the first value: a NaN wins and stays."""
+    """The update of running extrema by x after the first value
+    (``group_extrema`` in gather_reduce.cu): a NaN wins and stays."""
     up = (hi == hi) & ((x != x) | (x > hi))
     dn = (lo == lo) & ((x != x) | (x < lo))
     return torch.where(up, x, hi), torch.where(dn, x, lo)
@@ -771,8 +771,9 @@ def pwstats_emulated(g, gsq, idx, mask, lanes):
 
 def pwstats_parent_loop(g, gsq, idx, mask):
     """The parent kernel's loop: slots t = 0 .. K-1, a slot counting where
-    its mask is set and its row >= 0 (the staged s_idx[t] >= 0); MinMax
-    takes the first such value, then updates; the sums add in f64 from +0
+    its mask is set and its row >= 0 (the staged s_idx[t] >= 0); the
+    first such value sets the extrema, the others update them
+    (``_minmax_add``); the sums add in f64 from +0
     and round once; ``any ? hi : 0``."""
     b, nq, k = idx.shape
     c = g.shape[-1]

@@ -4,7 +4,8 @@
 ``pospool_xyz_bwd_cuda``; K8b, ``neighborhood_max_bwd_cuda``) and forward
 (K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``; K1f,
 ``pospool_xyz_cuda``; K9f, ``neighborhood_moments_cuda``; K6f,
-``pwmlp_minmax_stats_cuda``; K4, ``furthest_point_sample_cuda``): device time
+``pwmlp_minmax_stats_cuda``; K4, ``furthest_point_sample_cuda``; K8f,
+``neighborhood_max_cuda``; K7f, ``gather_sub_minmax_cuda``): device time
 per call and per train step or request, the bits of every call's
 output, and each train config's device busy time a step and each
 serving config's a request, on the card; optionally against the same
@@ -35,7 +36,11 @@ holds:
   at every call of the point-wise MLP step and at the K6 calls of
   ``seg-train:shapenetpart_pwmlp``, and FPS (K4,
   ``furthest_point_sample_cuda``, f32 points) at the 4 calls of the xyz
-  step and of a flagship request, held equal to its plain version. bf16,
+  step and of a flagship request, held equal to its plain version, K8f
+  (``neighborhood_max_cuda``) at the strided calls of the xyz step, of
+  ``seg-train:s3dis`` and of a flagship request, and K7f
+  (``gather_sub_minmax_cuda``) at the 14 calls of the point-wise MLP's
+  eval-mode forward, both held equal to their plain versions. bf16,
   inputs from three seeded batches as ``chip_smoke.py`` makes them; each
   call first held to its plain version or twin run on the card, the
   SHA-256 of its output bytes taken on the first set in bf16 and again
@@ -106,7 +111,11 @@ TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                      ("pwmlp", "pwmlp_stats"),
                      ("shapenetpart_pwmlp", "pwmlp_stats"),
                      ("xyz", "fps"),
-                     (FLAGSHIP, "fps"))}
+                     (FLAGSHIP, "fps"),
+                     ("xyz", "neighborhood_max"),
+                     ("s3dis", "neighborhood_max"),
+                     (FLAGSHIP, "neighborhood_max"),
+                     ("pwmlp", "gather_sub_minmax"))}
 TIMED["all"] = TIMED["backward"] + TIMED["forward"]
 # backward kernels whose parents scattered with f32 atomics, so that their
 # bits varied run to run: held to themselves and to their CPU twins
@@ -154,7 +163,7 @@ def _cases(step: str, kernel: str, gen) -> list:
                 pp = [c for c in pp if c[0] not in k13]
             calls.append((None, None, pp))
     if kernel.startswith("neighborhood_max") and step not in (
-            chip_smoke.TRAIN_KINDS):  # the strided calls of a seg step
+            chip_smoke.TRAIN_KINDS + (FLAGSHIP,)):  # a seg step's strided
         return chip_smoke._max_cases(tcfg, calls, gen)[kernel]
     return chip_smoke._kernel_cases(tcfg, calls, gen, kind)[kernel]
 
@@ -162,8 +171,8 @@ def _cases(step: str, kernel: str, gen) -> list:
 def _tol(kernel: str, dtype):
     """The tolerance ``chip_smoke.py`` holds the kernel to (the timing
     inputs reduce by avg)."""
-    if kernel == "fps":  # picks and sample mask equal
-        return dict(rtol=0, atol=0)
+    if kernel in ("fps", "neighborhood_max", "gather_sub_minmax"):
+        return dict(rtol=0, atol=0)  # picks and extrema equal
     if kernel.startswith("pseudo_grid"):
         return chip_smoke._pgrid_tol(dtype)
     if kernel in ("pospool_sincos", "pospool_xyz", "moments"):

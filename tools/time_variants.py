@@ -1,8 +1,9 @@
 """Source variants of the redesigned kernels, timed against each other
 call by call in one process, on the card: the forwards K10f
 (``csrc/pseudo_grid.cu``), K5f (``csrc/pospool_sincos.cu``), K1f
-(``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``), K6f
-(``csrc/gather_reduce.cu``) and FPS (K4, ``csrc/fps.cu``), or the
+(``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``), K6f and K7f
+(``csrc/gather_reduce.cu``), K8f (``csrc/neighborhood_max.cu``) and FPS
+(K4, ``csrc/fps.cu``), or the
 backwards K6b, K10b, K5b, K9b, K1b and K8b (``csrc/neighborhood_max.cu``).
 
     python3 tools/time_variants.py VARIANTS.json [--kernels forward]
@@ -58,13 +59,15 @@ SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
            "pseudo_grid_bwd": "pseudo_grid",
            "pospool_sincos_bwd": "pospool_sincos", "moments_bwd": "moments",
            "pwmlp_stats": "gather_reduce", "pospool_xyz_bwd": "pospool_xyz",
-           "fps": "fps", "neighborhood_max_bwd": "neighborhood_max"}
+           "fps": "fps", "neighborhood_max_bwd": "neighborhood_max",
+           "neighborhood_max": "neighborhood_max",
+           "gather_sub_minmax": "gather_reduce"}
 # parts of the device functions' names whose registers are printed
 KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
                 "pospool_xyz_kernel", "moments_kernel", "sincos_gather",
                 "moments_gather", "index_scale", "pwstats_terms",
                 "csr_gather", "pwstats_fwd", "xyz_gather", "fps_kernel",
-                "nmax_index_ties", "nmax_gather")
+                "nmax_index_ties", "nmax_gather", "nmax_fwd", "mm_fwd")
 
 
 def build(name: str, spec: dict, src: str):
