@@ -906,8 +906,10 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
     and bf16, on grid values with ties and on distinct values; {kernel:
     max abs err}. Max and min must be equal; K6's backward must give the
     same bits on a second run and, with ties, equal its twin run on CPU
-    copies to the bit; the reverse index (its first launch's, launched
-    alone) must equal its plain version at each call."""
+    copies to the bit, and K7's backward, on both, to the bit (against
+    its twin run on the card, whose index_add_ adds with atomics, within
+    the backward tolerance); the reverse index (its first launch's,
+    launched alone) must equal its plain version at each call."""
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
 
     errs = dict.fromkeys(("pwmlp_stats", "pwmlp_stats_bwd",
@@ -974,11 +976,17 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
                     (g, d), cot[:2])
                 k = f"gather_sub_minmax {what}"
                 note("gather_sub_minmax", k, list(zip(hm, ref)), None)
-                got = gr.gather_sub_minmax_bwd_cuda(g, d, idx, nmask, *hm,
-                                                    *cot[:2])
+                args = (g, d, idx, nmask, *hm, *cot[:2])
+                got = gr.gather_sub_minmax_bwd_cuda(*args)
+                # the same bits on a second run and those of its twin on
+                # CPU copies, which adds in the kernel's (q, t) order
+                _same_bits(k + " bwd, two runs", got,
+                           gr.gather_sub_minmax_bwd_cuda(*args))
+                _same_bits(k + " bwd vs twin on the CPU", got,
+                           gr.gather_sub_minmax_bwd_plain(
+                               *(a.cpu() for a in args)))
                 e_t7 = note("gather_sub_minmax_bwd", k + " bwd vs twin", zip(
-                    got, gr.gather_sub_minmax_bwd_plain(g, d, idx, nmask,
-                                                        *hm, *cot[:2])), tol)
+                    got, gr.gather_sub_minmax_bwd_plain(*args)), tol)
                 e_a7 = note("gather_sub_minmax_bwd", k + " bwd vs autograd",
                             zip(got, ref_grads), tol)
                 log(phase, f"{what}: pwmlp_stats max/min equal, sums max abs "
@@ -1868,7 +1876,7 @@ DEVICE_OPS = {"pospool_xyz": 1, "pospool_sincos": 1, "moments": 1,
               "gather_sub_minmax": 1, "pospool_xyz_bwd": 2,
               "pospool_sincos_bwd": 2, "moments_bwd": 2,
               "pwmlp_stats_bwd": 2, "pseudo_grid_bwd": 2, "fps": 1,
-              "neighborhood_max_bwd": 2}
+              "neighborhood_max_bwd": 2, "gather_sub_minmax_bwd": 2}
 
 
 def phase_device_timing() -> dict:
@@ -1908,11 +1916,19 @@ def phase_device_timing() -> dict:
                         f"{kind} {kernel}: {r['device_ops_per_call']:g} "
                         f"device ops a call at {r['call']}, expected {want}")
         torch.cuda.empty_cache()
+    from closerlook3d_tpu_torch.ops.neighbors import knn_device_ops
+
     for name in SEG_NAMES:  # the k-NN, per upsample call of a request
         ups = _knn_calls(seg_config(name))
-        out[f"knn:{name}"] = [
-            _device_time(_knn_route(*a), [u[i][1] for u in ups], 20)[0]
-            for i, (_, a) in enumerate(ups[0])]
+        out[f"knn:{name}"] = []
+        for i, (call, a) in enumerate(ups[0]):
+            ms, ops = _device_time(_knn_route(*a), [u[i][1] for u in ups], 20)
+            want = knn_device_ops(a[1].shape[1], a[2])
+            if ops != want:
+                raise AssertionError(
+                    f"knn {name} {call}: {ops:g} device ops a call, its "
+                    f"route launches {want}")
+            out[f"knn:{name}"].append(ms)
         log("device-timing", f"knn {name}: "
             + ", ".join(f"{ms:.5f}" for ms in out[f"knn:{name}"])
             + " ms a call")
@@ -2265,6 +2281,21 @@ def _knn_calls(cfg) -> list:
     return ups
 
 
+def knn_bound(q, s, k, smask) -> dict:
+    """The k-NN's bound for one call: its bytes (points and mask read
+    once, idx and d2 written once) over the HBM rate. The 1-NN prunes
+    (``csrc/knn.cu``), so the all-pairs work is no longer the least the
+    card must do; beside the bound, ``all_pairs_ms``: 9 f32 operations (3
+    subtractions, 3 multiplies, 2 adds and the compare) per (query, valid
+    support) pair over the f32 peak, the work of a scan that prunes
+    nothing."""
+    nbytes = _nbytes(q, s, smask) + q.shape[0] * q.shape[1] * k * 8
+    pairs = float((smask.sum(1) * q.shape[1]).sum())
+    bound_ms, bound_by = _bound(nbytes, 0.0)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "all_pairs": pairs, "all_pairs_ms": 9 * pairs / F32_FLOPS * 1e3}
+
+
 def phase_seg_timing(cfg, name: str, device: list) -> dict:
     """The k-NN kernel per request (its 4 upsample calls) against its
     plain version, PyTorch's cdist + topk and its bound, with its device
@@ -2280,24 +2311,19 @@ def phase_seg_timing(cfg, name: str, device: list) -> dict:
         ms, plain_ms = _time(fn, ins, 20), _time(knn_plain, ins, 3)
         device_ms = device[i]
         lib_ms = _time(knn_library, ins, 3)
-        # 9 f32 operations per (query, valid support) pair: 3
-        # subtractions, 3 multiplies, 2 adds and the compare
-        pairs = float((sm.sum(1) * q.shape[1]).sum())
-        nbytes = _nbytes(q, s, sm) + q.shape[0] * q.shape[1] * k * 8
-        bound_ms, bound_by = _bound(nbytes, 9 * pairs)
+        bound = knn_bound(q, s, k, sm)
         rows.append({"call": call, "route": fn.__name__, "ms": ms,
                      "device_ms": device_ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "flops": 9 * pairs})
+                     "plain_ms": plain_ms, "library_ms": lib_ms, **bound})
         log(f"seg-timing:{name}", f"knn {call} ({fn.__name__}) "
             f"q{tuple(q.shape)} s{tuple(s.shape)}: kernel {ms:.4f} ms "
             f"(device {device_ms:.5f}), plain "
             f"{plain_ms:.4f} ms, cdist+topk {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), all pairs "
+            f"{bound['all_pairs_ms']:.4f} ms")
     tot = {key: sum(r[key] for r in rows)
            for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                       "bound_ms")}
+                       "bound_ms", "all_pairs_ms")}
     by = {}
     for r in rows:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
@@ -3058,6 +3084,10 @@ def knn_row(record) -> dict:
             "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "all_pairs_ms": t["all_pairs_ms"],
+            "bound_note": "bytes once; all_pairs_ms: 9 f32 operations per "
+                          "(query, valid support) pair, a scan that prunes "
+                          "nothing",
             # two calls, cdist then topk, plus the square and the bias
             "library_ms": t["library_ms"],
             "config": "s3dis (per request)",
@@ -3069,7 +3099,8 @@ def knn_row(record) -> dict:
                 for name, run in seg.items()},
             "shapenetpart_per_request": {
                 k: seg["shapenetpart"]["timing"][k]
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}
+                for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "all_pairs_ms", "library_ms")}}
 
 
 def nsum_row(record, name: str) -> dict:

@@ -41,8 +41,14 @@
 // on CPU tensors, so the two are equal to the bit (the twin's masked
 // slots add +-0, which never changes a sum started at +0 under
 // round-to-nearest), and every run gives the same bits. K7's backward
-// still scatters in f32 with atomics (order varies run to run) into zeroed
-// f32 scratch that the wrapper casts once to g's dtype.
+// forms each tying slot's term sh_hi * [h == hmax] + sh_lo * [h == hmin]
+// (h = g - d in f32, sh_hi = dmax / n_hi, sh_lo = dmin / n_lo) in that
+// grouping and adds a support row's terms in (q, t) order from +0,
+// rounding once to g's dtype: equal to its twin on CPU copies to the bit,
+// the same bits on every run. A slot that ties neither adds nothing,
+// where the twin adds sh_hi * 0 + sh_lo * 0: the same for finite shares,
+// but a non-finite dmax or dmin puts NaN at every valid slot of its query
+// in the twin and only at the tying ones here.
 // K13 sums in f32 and rounds once to f's dtype: forward slot by slot in
 // slot order, as the TPU kernel writes it (its caller, the
 // pwmlp_minmax_stats route for at most 64 folded queries, takes the
@@ -62,10 +68,15 @@
 // lane takes units of 4 channels of g (and gsq; 8 bytes of bf16), loads 4
 // valid slots' rows at once and writes its unit of each f32 output once
 // (one 16-byte store each; K7 loads its unit of d once). C off 4, or views
-// off the vector, take scalar units. K7's backward (query_blocks.cuh):
-// one block per kQPB consecutive queries of one cloud stages the K slot
-// rows in shared memory; threads stride over the C channels, so a warp's
-// loads and atomics of one support row are coalesced. K6's backward:
+// off the vector, take scalar units. K7's backward: row_terms.cuh's two
+// launches, as K8b's (neighborhood_max.cu): launch 1 builds the reverse
+// index in query tiles beside query groups that count each channel's max
+// and min ties over the valid slots' rows (4 channels a lane, 4 rows at
+// once), and write the two shares as f32 rows and dd; launch 2, a gather
+// per support row: a lane holds 4 channels of g[s] and, entry by entry in
+// (q, t) order, two at once, loads those of d[q], hmax[q], hmin[q] and the
+// shares, and adds the tying terms. No float atomics, no zeroed scratch,
+// no cast: 2 device ops a call. K6's backward:
 // two launches over a reverse neighbor index (reverse_index.cuh,
 // row_gather.cuh); see pwstats_terms_kernel. K13 has its own, below:
 // forward a warp per (query, 256-channel bf16 slice; 128 in f32), a block
@@ -76,7 +87,8 @@
 // operations per gathered value and writes f32 outputs (K6 four, K7 two),
 // which dominate the bytes; the K-fold re-reads of support rows hit L2.
 // K6's forward takes 0.80 ms a ModelNet40 bf16 step (NVIDIA H100 80GB
-// HBM3, 700 W), twice its byte bound, against 2.24 for the kQPB layout:
+// HBM3, 700 W), twice its byte bound, against 2.24 for a block per 4
+// queries behind block barriers, its parent:
 // each valid slot costs a lane two dependent row loads (g and gsq) from
 // L2. Hence groups as narrow as 8 lanes at C = 72 (at least 16 ran 1.08x
 // slower), 4 slots' rows in flight (2: 1.02x, 8: 1.13x), and 92
@@ -87,12 +99,15 @@
 // channel (on ModelNet40's synthetic clouds 3-10 valid slots of 26-41 a
 // query) and re-reads ds2 once a slot; its launches are latency-bound (a
 // query or row costs two to three dependent round trips to memory).
+// K7's backward writes only two f32 shares a (query, channel) and dd, and
+// its gather reads, per entry, d[q], hmax[q], hmin[q] and the shares (18
+// bytes a channel in bf16, K8b's 4): a chain of dependent loads a row.
 // K13 does one f32 add per gathered value and writes one row in f's dtype
 // per query (per support row backward). At its one caller's shapes (8
 // clouds of 8 queries, f = [g, g^2] of 2304 bf16 channels, Ns 32 or 8,
 // K 41 or 39) its bytes (at most 1.5 MB) take 0.4 us, below the 0.9 us
 // of device time that one launch of an empty kernel takes: launch and
-// memory latency bound it, not bytes. The kQPB layout gave it 16 blocks
+// memory latency bound it, not bytes. A block per 4 queries gave it 16 blocks
 // on 132 SMs, each thread walking 39-41 dependent 2-byte loads, and a
 // backward of three launches (zeroed scratch, atomics, a cast). Here:
 // 72 blocks at each call, every lane moving 16 bytes a row; one round
@@ -105,7 +120,7 @@
 // fix the sum.
 
 #include "query_groups.cuh"
-#include "reverse_index.cuh"
+#include "row_terms.cuh"
 
 namespace {
 
@@ -285,66 +300,301 @@ __device__ __forceinline__ float share(float dy, int n) {
   return __fdiv_rn(dy, static_cast<float>(max(n, 1)));
 }
 
-template <typename T>
-__global__ void mm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ d,
-                              const int32_t* __restrict__ idx,
-                              const bool* __restrict__ mask,
-                              const float* __restrict__ hmax,
-                              const float* __restrict__ hmin,
-                              const float* __restrict__ dmax,
-                              const float* __restrict__ dmin, int nq, int ns,
-                              int c, int k, float* __restrict__ dg,
-                              T* __restrict__ dd) {
-  __shared__ int s_idx[kMaxK];
-  const int b = blockIdx.y;
-  const T* gb = g + static_cast<size_t>(b) * ns * c;
-  float* dgb = dg + static_cast<size_t>(b) * ns * c;
+// ---- K7's backward: row_terms.cuh's two launches ---------------------------
 
-  for (int qq = 0; qq < kQPB; ++qq) {
-    const int qi = blockIdx.x * kQPB + qq;
-    if (qi >= nq) break;
-    const size_t row = static_cast<size_t>(b) * nq + qi;
-    __syncthreads();
-    stage_rows(idx, mask, row, k, s_idx);
-    __syncthreads();
-    const bool empty = staged_count(s_idx, k) == 0;  // uniform
-    for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-      const size_t o = row * c + ch;
-      if (empty) {
-        dd[o] = from_f32<T>(0.f);
-        continue;
+// f32 values a (query, channel) of launch 1's scratch (ops/gather_reduce.py
+// allocates it): the two shares, sh_hi in the first C values of a query's
+// scratch row and sh_lo in the next C.
+constexpr int kShareFloats = 2;
+
+// Launch 1's query-group part, for the item (query row = b * Nq + q,
+// slice) of the calling lane's group: the query's valid slots' rows staged
+// in `st`, then for each unit of 4 channels of the slice, with h = g[j] -
+// d[q] in f32 over the valid slots j,
+//   n_hi = #{h == hmax[q]},  n_lo = #{h == hmin[q]},
+//   shares[q] = (share(dmax, n_hi), share(dmin, n_lo)) in f32,
+//   dd[q] = -(dmax + dmin) in T,
+// and dd[q] = 0 where the query has no valid slot (its shares are not
+// written: no entry of the index reads them). Rows are loaded kStatsBatch
+// valid slots at once.
+template <typename T, bool kVec, int kG>
+__device__ __forceinline__ void minmax_shares(
+    const T* __restrict__ g, const T* __restrict__ d,
+    const int32_t* __restrict__ idx, const bool* __restrict__ mask,
+    const float* __restrict__ hmax, const float* __restrict__ hmin,
+    const float* __restrict__ dmax, const float* __restrict__ dmin, int nq,
+    int ns, int c, int k, bool live, size_t row, int slice, int per,
+    GroupRows& st, float* __restrict__ shares, T* __restrict__ dd) {
+  using U = ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>;
+  using F = ChannelUnit<float, kVec, kStatsChannels * sizeof(float)>;
+  constexpr int kW = U::kW;
+  const int nv = stage_valid_rows<kG>(idx + row * k, mask + row * k, k, live,
+                                      st);
+  __syncwarp();
+  if (!live) return;
+  const int lg = (threadIdx.x & 31) % kG;
+  const T* gb = g + row / nq * ns * c;
+  const unsigned row_bytes = static_cast<unsigned>(c) * sizeof(T);
+  const size_t o = row * c;
+  float* sh_row = shares + row * kShareFloats * c;
+  const int end = min(U::units(c), (slice + 1) * per * kG);
+  for (int u = slice * per * kG + lg; u < end; u += kG) {
+    const int ch = u * kW;
+    const int left = c - ch;
+    float out[kW] = {};
+    if (nv > 0) {
+      const typename U::Raw dv = U::load(d + o + ch, left);
+      const typename F::Raw hi = F::load(hmax + o + ch, left);
+      const typename F::Raw lo = F::load(hmin + o + ch, left);
+      const typename F::Raw dx = F::load(dmax + o + ch, left);
+      const typename F::Raw dn = F::load(dmin + o + ch, left);
+      int n[kW] = {};  // ties of the max, plus 256 x those of the min
+      for (int a = 0; a < nv; a += kStatsBatch) {
+        typename U::Raw v[kStatsBatch];
+#pragma unroll
+        for (int h = 0; h < kStatsBatch; ++h)
+          if (a + h < nv)
+            v[h] = U::load(row_at(gb, st.j[a + h], row_bytes) + ch, left);
+#pragma unroll
+        for (int h = 0; h < kStatsBatch; ++h)
+          if (a + h < nv)
+#pragma unroll
+            for (int i = 0; i < kW; ++i) {
+              const float x = __fsub_rn(to_f32(v[h].v[i]), to_f32(dv.v[i]));
+              n[i] += (x == hi.v[i]) + ((x == lo.v[i]) << 8);
+            }
       }
-      const float dv = to_f32(d[o]);
-      const float hi = hmax[o], lo = hmin[o];
-      int n_hi = 0, n_lo = 0;
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const float h = to_f32(gb[static_cast<size_t>(j) * c + ch]) - dv;
-          n_hi += h == hi;
-          n_lo += h == lo;
-        }
+      float sh[kW], sl[kW];
+#pragma unroll
+      for (int i = 0; i < kW; ++i) {
+        sh[i] = share(dx.v[i], n[i] & 255);
+        sl[i] = share(dn.v[i], n[i] >> 8);
+        out[i] = -__fadd_rn(dx.v[i], dn.v[i]);
       }
-      const float sh_hi = share(dmax[o], n_hi), sh_lo = share(dmin[o], n_lo);
-      for (int t = 0; t < k; ++t) {
-        const int j = s_idx[t];
-        if (j >= 0) {
-          const size_t off = static_cast<size_t>(j) * c + ch;
-          const float h = to_f32(gb[off]) - dv;
-          if (h == hi || h == lo) {
-            float sh = 0.f;
-            if (h == hi) sh += sh_hi;
-            if (h == lo) sh += sh_lo;
-            atomicAdd(dgb + off, sh);
-          }
-        }
-      }
-      dd[o] = from_f32<T>(-(dmax[o] + dmin[o]));
+      F::store(sh_row + ch, left, sh);
+      F::store(sh_row + c + ch, left, sl);
     }
+    U::store(dd + o + ch, left, out);
   }
 }
 
-// ---- K13: own launch geometry (not query_blocks.cuh's) ----------------------
+// K7 backward, launch 1: blocks [0, B * tiles) build the tiles' reverse
+// indexes (row_terms.cuh), the rest hold kIndexThreads / kG query groups
+// that write the shares and dd (minmax_shares) for `items` items of
+// `slices` slices a query, `per` passes of kG units a slice.
+template <typename T, bool kShared, bool kVec, int kG>
+__global__ void __launch_bounds__(kIndexThreads, 2)
+    mm_index_shares_kernel(
+        const T* __restrict__ g, const T* __restrict__ d,
+        const int32_t* __restrict__ idx, const bool* __restrict__ mask,
+        const float* __restrict__ hmax, const float* __restrict__ hmin,
+        const float* __restrict__ dmax, const float* __restrict__ dmin,
+        int clouds, int nq, int ns, int c, int k, int tiles,
+        int tile_queries, long long items, int slices, int per,
+        int32_t* __restrict__ offsets, int32_t* __restrict__ entries,
+        int32_t* __restrict__ raw, int* __restrict__ counters,
+        float* __restrict__ shares, T* __restrict__ dd) {
+  extern __shared__ int s_cnt[];
+  __shared__ GroupRows s_rows[kIndexThreads / kG];
+  const int index_blocks = clouds * tiles;
+  if (blockIdx.x < index_blocks) {
+    index_tile<kShared>(idx, mask, nq, ns, k, tiles, tile_queries, s_cnt,
+                        offsets, entries, raw, counters);
+    return;
+  }
+  const long long item =
+      static_cast<long long>(blockIdx.x - index_blocks) * (kIndexThreads / kG)
+      + threadIdx.x / kG;
+  const bool live = item < items;
+  minmax_shares<T, kVec, kG>(
+      g, d, idx, mask, hmax, hmin, dmax, dmin, nq, ns, c, k, live,
+      live ? static_cast<size_t>(item / slices) : 0,
+      live ? static_cast<int>(item % slices) : 0, per,
+      s_rows[threadIdx.x / kG], shares, dd);
+}
+
+constexpr int kGatherBlocks = 4;  // launch 2's blocks an SM, at least
+
+// One entry's loads in K7's gather: its query's units of d, hmax, hmin
+// and the two shares.
+template <typename T, int kW>
+struct MinmaxEntry {
+  T d[kW];
+  float hi[kW], lo[kW], sh[kW], sl[kW];
+  __device__ __forceinline__ void load(const T* __restrict__ db,
+                                       const float* __restrict__ hb,
+                                       const float* __restrict__ lb,
+                                       const float* __restrict__ sb,
+                                       size_t q, int c) {
+    load_run<T, kW>(db + q * c, d);
+    load_run<float, kW>(hb + q * c, hi);
+    load_run<float, kW>(lb + q * c, lo);
+    load_run<float, kW>(sb + q * kShareFloats * c, sh);
+    load_run<float, kW>(sb + q * kShareFloats * c + c, sl);
+  }
+  // acc += sh * [h == hi] + sl * [h == lo] where h ties either, h = g -
+  // d[q], grouped as the twin groups it (_extremal_shares)
+  __device__ __forceinline__ void add(const float (&gv)[kW],
+                                      float (&acc)[kW]) const {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const float h = __fsub_rn(gv[i], to_f32(d[i]));
+      const bool th = h == hi[i], tl = h == lo[i];
+      if (th || tl)
+        acc[i] = __fadd_rn(acc[i],
+                           __fadd_rn(__fmul_rn(sh[i], th ? 1.f : 0.f),
+                                     __fmul_rn(sl[i], tl ? 1.f : 0.f)));
+    }
+  }
+};
+
+// K7 backward, launch 2: the lane of unit `unit` of support row s holds
+// channels [unit * kW, unit * kW + kW) of g[s]; for each entry (q, t) of
+// the row, in (q, t) order, two at once, it adds the entry's term
+// (MinmaxEntry::add) in f32 from +0 and writes dg once in T. An entry
+// holds its query (row_terms.cuh). Capped at 64 registers, 4 blocks an
+// SM: uncapped (78 registers in f32), it ran 1.06x slower a bf16 pwmlp
+// eval backward on the H100 (a few spilled bytes cost less than the lost
+// warps).
+template <typename T, int kW>
+__global__ void __launch_bounds__(kRowThreads, kGatherBlocks)
+    mm_gather_kernel(const T* __restrict__ g, const T* __restrict__ d,
+                     const float* __restrict__ hmax,
+                     const float* __restrict__ hmin,
+                     const float* __restrict__ shares,
+                     const int32_t* __restrict__ offsets,
+                     const int32_t* __restrict__ entries, int nq, int ns,
+                     int c, int k, int tiles, int per, int lanes, int slices,
+                     T* __restrict__ dg) {
+  const RowItem it = row_item(ns, c / kW, lanes, slices);
+  if (!it.live) return;
+  const size_t b = blockIdx.y;
+  const int ch = it.unit * kW;
+  float gv[kW];
+  {
+    T raw[kW];
+    load_run<T, kW>(g + (b * ns + it.row) * c + ch, raw);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) gv[i] = to_f32(raw[i]);
+  }
+  const size_t o = b * nq * c + ch;
+  const T* db = d + o;
+  const float* hb = hmax + o;
+  const float* lb = hmin + o;
+  const float* sb = shares + b * nq * kShareFloats * c + ch;
+  float acc[kW] = {};
+  for_each_entry_tile(
+      offsets, entries, b, nq, ns, k, tiles, per, it.row,
+      [&](const int32_t* eb, int start, int end, int q0) {
+        int e = start;
+        for (; e + 1 < end; e += 2) {
+          MinmaxEntry<T, kW> a, z;
+          a.load(db, hb, lb, sb, q0 + eb[e], c);
+          z.load(db, hb, lb, sb, q0 + eb[e + 1], c);
+          a.add(gv, acc);
+          z.add(gv, acc);
+        }
+        if (e < end) {
+          MinmaxEntry<T, kW> a;
+          a.load(db, hb, lb, sb, q0 + eb[e], c);
+          a.add(gv, acc);
+        }
+      });
+  store_run<T, kW>(dg + (b * ns + it.row) * c + ch, acc);
+}
+
+// Launch 1 at the group width group_lanes_for picks for 4-channel units,
+// with the counters of the index in shared memory where Ns allows.
+template <typename T, bool kVec>
+void launch_index_shares(const T* g, const T* d, const int32_t* idx,
+                         const bool* mask, const float* hmax,
+                         const float* hmin, const float* dmax,
+                         const float* dmin, int b, int nq, int ns, int c,
+                         int k, int tiles, int32_t* offsets,
+                         int32_t* entries, int32_t* raw, int* counters,
+                         float* shares, T* dd, cudaStream_t stream) {
+  const int units =
+      ChannelUnit<T, kVec, kStatsChannels * sizeof(T)>::units(c);
+  const long long queries = static_cast<long long>(b) * nq;
+  const int tile_queries = (nq + tiles - 1) / tiles;
+  const int smem = (ns + 1) * static_cast<int>(sizeof(int));
+  const auto at = [&](auto lanes) {
+    constexpr int kG = decltype(lanes)::value;
+    constexpr int kGroups = kIndexThreads / kG;
+    static const int room =
+        dynamic_smem_room(mm_index_shares_kernel<T, true, kVec, kG>);
+    const PassSplit sp = split_passes(queries, (units + kG - 1) / kG, kG);
+    const long long items = queries * sp.slices;
+    const int blocks =
+        b * tiles + static_cast<int>((items + kGroups - 1) / kGroups);
+    if (smem <= room)
+      mm_index_shares_kernel<T, true, kVec, kG>
+          <<<blocks, kIndexThreads, smem, stream>>>(
+              g, d, idx, mask, hmax, hmin, dmax, dmin, b, nq, ns, c, k,
+              tiles, tile_queries, items, sp.slices, sp.per, offsets,
+              entries, raw, counters, shares, dd);
+    else
+      mm_index_shares_kernel<T, false, kVec, kG>
+          <<<blocks, kIndexThreads, 0, stream>>>(
+              g, d, idx, mask, hmax, hmin, dmax, dmin, b, nq, ns, c, k,
+              tiles, tile_queries, items, sp.slices, sp.per, offsets,
+              entries, raw, counters, shares, dd);
+  };
+  switch (group_lanes_for(units, kStatsLanes)) {
+    case 8:
+      return at(std::integral_constant<int, 8>{});
+    case 16:
+      return at(std::integral_constant<int, 16>{});
+    default:
+      return at(std::integral_constant<int, 32>{});
+  }
+}
+
+template <typename T, int kW>
+void launch_mm_gather_as(const T* g, const T* d, const float* hmax,
+                         const float* hmin, const float* shares,
+                         const int32_t* offsets, const int32_t* entries,
+                         int b, int nq, int ns, int c, int k, int tiles,
+                         T* dg, cudaStream_t stream) {
+  const RowSplit sp = row_split(c / kW);
+  mm_gather_kernel<T, kW><<<row_grid(b, ns, sp), kRowThreads, 0, stream>>>(
+      g, d, hmax, hmin, shares, offsets, entries, nq, ns, c, k, tiles,
+      (nq + tiles - 1) / tiles, sp.lanes, sp.slices, dg);
+}
+
+// K7's backward: its two launches, in 4-channel units where C and the
+// pointers allow them, else channel by channel.
+template <typename T>
+void launch_mm_bwd(const void* g, const void* d, const int32_t* idx,
+                   const bool* mask, const float* hmax, const float* hmin,
+                   const float* dmax, const float* dmin, int b, int nq,
+                   int ns, int c, int k, int tiles, int32_t* offsets,
+                   int32_t* entries, int32_t* raw, int* counters,
+                   float* shares, void* dg, void* dd, cudaStream_t stream) {
+  const T* gp = static_cast<const T*>(g);
+  const T* dp = static_cast<const T*>(d);
+  T* dgp = static_cast<T*>(dg);
+  T* ddp = static_cast<T*>(dd);
+  const bool vec = runs_ok<T, kStatsChannels>(c, gp, dp, dgp, ddp) &&
+                   runs_ok<float, kStatsChannels>(c, hmax, hmin, dmax, dmin,
+                                                  shares);
+  if (vec) {
+    launch_index_shares<T, true>(gp, dp, idx, mask, hmax, hmin, dmax, dmin,
+                                 b, nq, ns, c, k, tiles, offsets, entries,
+                                 raw, counters, shares, ddp, stream);
+    launch_mm_gather_as<T, kStatsChannels>(gp, dp, hmax, hmin, shares,
+                                           offsets, entries, b, nq, ns, c, k,
+                                           tiles, dgp, stream);
+  } else {
+    launch_index_shares<T, false>(gp, dp, idx, mask, hmax, hmin, dmax, dmin,
+                                  b, nq, ns, c, k, tiles, offsets, entries,
+                                  raw, counters, shares, ddp, stream);
+    launch_mm_gather_as<T, 1>(gp, dp, hmax, hmin, shares, offsets, entries,
+                              b, nq, ns, c, k, tiles, dgp, stream);
+  }
+}
+
+// ---- K13: own launch geometry ----------------------------------------------
 
 // forward: queries (one a warp) a block; support rows staged in shared
 // memory (up to kStageRows; more are read from global memory); rows a
@@ -357,7 +607,7 @@ constexpr int kSumUnroll = 16;
 // and stages up to kChunkQueries dy rows, which a walk loads kWalkUnroll
 // at a time
 constexpr int kRowWarps = 8;
-constexpr int kRowThreads = kRowWarps * 32;
+static_assert(kRowThreads == kRowWarps * 32, "row_terms.cuh's blocks");
 constexpr int kChunkSlots = 512;
 constexpr int kChunkQueries = 16;
 constexpr int kWalkUnroll = 8;
@@ -928,28 +1178,37 @@ extern "C" int cl3d_gather_sub_minmax(const void* g, const void* d,
                                          stream);
 }
 
-// dg32 must be zeroed [B, Ns, C] float32; dd [B, Nq, C] in d's dtype is
-// written in full. hmax/hmin are this op's forward outputs for (g, d).
-extern "C" int cl3d_gather_sub_minmax_bwd(const void* g, const void* d,
-                                          const int32_t* idx, const bool* mask,
-                                          const float* hmax, const float* hmin,
-                                          const float* dmax, const float* dmin,
-                                          int b, int nq, int ns, int c, int k,
-                                          int is_bf16, float* dg32, void* dd,
-                                          cudaStream_t stream) {
-  if (bad_args(b, ns, c, k)) return static_cast<int>(cudaErrorInvalidValue);
+// Outputs: dg [B, Ns, C] in g's dtype and dd [B, Nq, C] in d's (the
+// same), both written in full (no zeroing needed). hmax/hmin are this op's
+// forward outputs for (g, d), dmax/dmin the f32 cotangents. The index in
+// `tiles` query tiles a cloud (1 .. kMaxTiles, at most Nq); scratch, none
+// zeroed: offsets and counters [B * tiles, Ns + 1] (counters used where Ns
+// outgrows shared memory), entries and raw [B, Nq * K], shares [B, Nq,
+// 2 * C] f32. Two launches. The argument list is that of the
+// backwards on row_terms.cuh (cl3d_pospool_xyz_bwd) with dd after dg, so
+// that one host launcher serves them all: radius is unused and avg must
+// be 1 (the shares are always a buffer).
+extern "C" int cl3d_gather_sub_minmax_bwd(
+    const void* g, const void* d, const int32_t* idx, const bool* mask,
+    const float* hmax, const float* hmin, const float* dmax,
+    const float* dmin, int b, int nq, int ns, int c, int k, int tiles,
+    float radius, int avg, int is_bf16, int32_t* offsets, int32_t* entries,
+    int32_t* raw, int* counters, float* shares, void* dg, void* dd,
+    cudaStream_t stream) {
+  (void)radius;
+  if (bad_args(b, ns, c, k) || static_cast<long long>(nq) * k > INT_MAX - 1 ||
+      static_cast<long long>(c) * kShareFloats * 4 >= kMaxRowBytes ||
+      tiles < 1 || tiles > kMaxTiles || (nq > 0 && tiles > nq) || avg != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaSuccess);
-  if (is_bf16) {
-    mm_bwd_kernel<__nv_bfloat16>
-        <<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(g),
-            static_cast<const __nv_bfloat16*>(d), idx, mask, hmax, hmin, dmax,
-            dmin, nq, ns, c, k, dg32, static_cast<__nv_bfloat16*>(dd));
-  } else {
-    mm_bwd_kernel<float><<<grid_for(b, nq), threads_for(c), 0, stream>>>(
-        static_cast<const float*>(g), static_cast<const float*>(d), idx, mask,
-        hmax, hmin, dmax, dmin, nq, ns, c, k, dg32, static_cast<float*>(dd));
-  }
+  if (is_bf16)
+    launch_mm_bwd<__nv_bfloat16>(g, d, idx, mask, hmax, hmin, dmax, dmin, b,
+                                 nq, ns, c, k, tiles, offsets, entries, raw,
+                                 counters, shares, dg, dd, stream);
+  else
+    launch_mm_bwd<float>(g, d, idx, mask, hmax, hmin, dmax, dmin, b, nq, ns,
+                         c, k, tiles, offsets, entries, raw, counters, shares,
+                         dg, dd, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

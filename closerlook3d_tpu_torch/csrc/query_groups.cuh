@@ -1,7 +1,7 @@
 // Query-group layout of the forward neighborhood kernels (K10f in
 // pseudo_grid.cu, K5f in pospool_sincos.cu, K1f in pospool_xyz.cu, K9f in
-// moments.cu, K6f and K7f in gather_reduce.cu, K8f and K8b's launch 1 in
-// neighborhood_max.cu): a group of kG lanes of one warp
+// moments.cu, K6f, K7f and K7b's launch 1 in gather_reduce.cu, K8f and
+// K8b's launch 1 in neighborhood_max.cu): a group of kG lanes of one warp
 // (8, 16 or 32) owns one work item, a query and a slice of its output,
 // and several groups share a block with no block-wide barrier:
 // each group stages its query in its own slice of shared memory behind
@@ -22,8 +22,6 @@
 // vectors, pairs, kernel-point chunks: the kernel's own); where queries are
 // few (deep stages: 608 queries at C = 1152) the passes are split into
 // slices, one item each, so that the launch still fills the card.
-// query_blocks.cuh keeps the older layout for K7's backward alone (one
-// block per 4 queries behind __syncthreads).
 #pragma once
 
 #include <climits>

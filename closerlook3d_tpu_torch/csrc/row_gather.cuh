@@ -9,10 +9,11 @@
 
 #include <type_traits>
 
-#include "query_blocks.cuh"
+#include "common.cuh"
 
 namespace {
 
+constexpr int kMaxK = 64;  // slots per query (ops/neighbors.py MAX_K)
 constexpr unsigned kFull = 0xffffffffu;
 
 // The channels one lane of a group of kG covers in a slice of kG x kW

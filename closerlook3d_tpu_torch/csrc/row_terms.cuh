@@ -1,8 +1,9 @@
 // Backward gathers that recompute each slot's term from dy (K1b in
 // pospool_xyz.cu, K5b in pospool_sincos.cu, K9b in moments.cu; K8b in
-// neighborhood_max.cu, whose launch 1 writes g from the ties), in two
-// launches over a reverse neighbor index (reverse_index.cuh) built in
-// query tiles:
+// neighborhood_max.cu, whose launch 1 writes g from the ties, and K7b in
+// gather_reduce.cu, whose launch 1 writes the shares of the max and min
+// ties and dd), in two launches over a reverse neighbor index
+// (reverse_index.cuh) built in query tiles:
 //
 //   1. index_scale_kernel: each cloud's queries are cut into `tiles`
 //      tiles of `per` consecutive queries (the last may hold fewer), and

@@ -56,7 +56,8 @@ from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     group_features, masked_max, masked_min, masked_sum, scatter_to_support)
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
-from closerlook3d_tpu_torch.ops.reverse_index import index_buffers
+from closerlook3d_tpu_torch.ops.reverse_index import (
+    index_buffers, launch_backward_gather)
 
 SOURCE = "gather_reduce"
 # pwmlp_minmax_stats takes the K13 + K7 route up to this many queries in
@@ -115,8 +116,14 @@ def pwmlp_minmax_stats_bwd_plain(g, idx, mask, gmax, gmin, dmax, dmin, ds1,
 def gather_sub_minmax_bwd_plain(g, d, idx, mask, hmax, hmin, dmax, dmin):
     """Plain twin of the backward kernel: (dg [B, Ns, C] in g's dtype, dd
     [B, Nq, C] in d's dtype). Each valid slot adds its even share of dmax
-    and of dmin to its g row (f32 scatter, rounded once); dd = -(dmax +
-    dmin) where the neighborhood has a valid slot, else 0."""
+    and of dmin to its g row, grouped as ``_extremal_shares`` groups it
+    (f32 scatter in (b, q, t) order, rounded once: the kernel's order, so
+    the two are equal to the bit); dd = -(dmax + dmin) where the
+    neighborhood has a valid slot, else 0. The twin multiplies each share
+    by its tie indicator at every valid slot, where the kernel adds only
+    at tying slots: the same for finite cotangents, but a non-finite dmax
+    or dmin gives NaN at the non-tying slots' rows here and not in the
+    kernel."""
     h = group_features(g.float(), idx) - d.float()[:, :, None, :]
     contrib = _extremal_shares(h, mask, hmax, hmin, dmax, dmin)
     dg = scatter_to_support(contrib, idx, g.shape[1]).to(g.dtype)
@@ -270,20 +277,28 @@ gather_sub_minmax_cuda.launches = 0
 def gather_sub_minmax_bwd_cuda(g, d, idx, mask, hmax, hmin, dmax, dmin):
     """Launch the backward of K7: (dg [B, Ns, C] in g's dtype, dd
     [B, Nq, C] in d's dtype), from the forward's hmax/hmin and the two f32
-    cotangents. Raises on anything it does not take."""
+    cotangents. Two device kernels (``launch_backward_gather``): the
+    reverse index of idx/mask in query tiles beside query groups that
+    count the ties and write each query's two shares and dd, then a gather
+    per support row that writes each row once; equal to
+    ``gather_sub_minmax_bwd_plain`` on CPU copies to the bit where the
+    cotangents are finite. Raises on anything it does not take."""
     what = "gather_sub_minmax_bwd_cuda"
     f32 = torch.float32
     b, nq, ns, c, k = _check_call(
         what, g, idx, mask,
         query=[(d, g.dtype)] + [(t, f32) for t in (hmax, hmin, dmax, dmin)])
-    dg = torch.zeros((b, ns, c), dtype=f32, device=g.device)
+    if b * nq == 0:
+        return g.new_zeros(g.shape), torch.empty_like(d)
+    # launch 1's two f32 shares a (query, channel): csrc kShareFloats
+    shares = torch.empty((b, nq, 2 * c), dtype=f32, device=g.device)
     dd = torch.empty((b, nq, c), dtype=d.dtype, device=g.device)
-    if b * nq > 0:
-        _launch("cl3d_gather_sub_minmax_bwd", what,
-                (g, d, idx, mask, hmax, hmin, dmax, dmin), (b, nq, ns, c, k),
-                g.dtype == torch.bfloat16, (dg, dd), g)
-        gather_sub_minmax_bwd_cuda.launches += 1
-    return dg.to(g.dtype), dd
+    dg = launch_backward_gather(
+        SOURCE, what, (g, d, idx, mask, hmax, hmin, dmax, dmin),
+        (b, nq, ns, c, k), d, 0.0, "avg", name="gather_sub_minmax",
+        scratch=shares, out_dtype=g.dtype, extra_outputs=(dd,))
+    gather_sub_minmax_bwd_cuda.launches += 1
+    return dg, dd
 
 
 gather_sub_minmax_bwd_cuda.launches = 0

@@ -11,7 +11,8 @@ semantics, layouts and dtypes as ``closerlook3d_tpu/ops/neighbors.py``'s
 
 ``ball_query`` runs the CUDA kernel of ``csrc/ball_query.cu`` and ``knn``
 that of ``csrc/knn.cu`` on CUDA tensors, the plain PyTorch versions on
-CPU tensors.
+CPU tensors. The ball query and the 1-NN from 1024 supports up share one
+exact pruned nearest-support search (``csrc/support_tiles.cuh``).
 """
 
 from __future__ import annotations
@@ -270,20 +271,39 @@ def _knn_launch(what: str, query_xyz, support_xyz, k: int, support_mask):
                      device=query_xyz.device)
     if b * nq == 0:
         return idx, d2
+    # the pruned 1-NN's scratch (packed supports, tile and chunk boxes;
+    # none for the all-pairs kernels), 512-byte aligned as torch.empty's
+    # blocks are
+    _, ws_floats = kernels.entry("knn", "cl3d_knn_workspace_floats",
+                                 [kernels.I] * 3, kernels.L)
+    n_ws = ws_floats(b, ns, k)
+    work = (torch.empty(n_ws, dtype=torch.float32, device=query_xyz.device)
+            if n_ws else None)
     lib, fn = kernels.entry("knn", "cl3d_knn",
                             [kernels.P] * 3 + [kernels.I] * 4
-                            + [kernels.P] * 3)
+                            + [kernels.P] * 3 + [kernels.L, kernels.P])
     with torch.cuda.device(query_xyz.device):
         err = fn(query_xyz.data_ptr(), support_xyz.data_ptr(),
                  support_mask.data_ptr(), b, nq, ns, k, idx.data_ptr(),
-                 d2.data_ptr(), kernels.stream_of(idx))
+                 d2.data_ptr(), work.data_ptr() if n_ws else None, n_ws,
+                 kernels.stream_of(idx))
     kernels.check(lib, err, what)
     return idx, d2
 
 
+def knn_device_ops(ns: int, k: int) -> int:
+    """Device ops one call of ``csrc/knn.cu`` launches over ``ns``
+    supports at this ``k``, as its C entry reports them: 2 for the pruned
+    1-NN (the preparation, then the search), 1 for the all-pairs
+    kernels."""
+    _, fn = kernels.entry("knn", "cl3d_knn_device_ops", [kernels.I] * 2)
+    return fn(ns, k)
+
+
 def knn1_cuda(query_xyz, support_xyz, k: int = 1, support_mask=None):
     """The 1-NN over large supports (the route of the JAX package's
-    chunked 1-NN kernel): ``csrc/knn.cu`` with k = 1."""
+    chunked 1-NN kernel): ``csrc/knn.cu`` with k = 1, its exact pruned
+    search over tile boxes (2 device ops a call, ``knn_device_ops``)."""
     kernels.require(k == 1, f"knn1_cuda: k must be 1, got {k}")
     out = _knn_launch("knn1_cuda", query_xyz, support_xyz, 1, support_mask)
     knn1_cuda.launches += 1

@@ -18,7 +18,8 @@ a group of lanes owning a support row reads that row's terms in (q, t)
 order, the order of their plain twins' ``index_add_``. Those of PosPool
 xyz and sin/cos (K1, K5, ``ops/aggregation.py``), of the neighborhood
 moments (K9, ``ops/moments.py``) and of the neighborhood max (K8,
-``ops/grouping.py``) build it in ``index_tiles`` tiles of
+``ops/grouping.py``) and of the point-wise MLP's gather-subtract
+min/max (K7, ``ops/gather_reduce.py``) build it in ``index_tiles`` tiles of
 consecutive queries a cloud, a block each (``csrc/row_terms.cuh``): tile
 i's offsets index its own entries, each holding its query, and a row's
 entries, tile after tile, are again in (q, t) order. No TPU kernel
@@ -57,8 +58,8 @@ def reverse_index_plain(idx, mask, ns: int):
     return offsets.to(torch.int32), slots
 
 
-# csrc/row_terms.cuh: the reverse index of K1b, K5b, K9b and K8b in query
-# tiles
+# csrc/row_terms.cuh: the reverse index of K1b, K5b, K9b, K8b and K7b in
+# query tiles
 MAX_TILES = 16  # kMaxTiles
 TILE_MIN_SLOTS = 16384
 
@@ -69,9 +70,9 @@ def _sm_count(device: int) -> int:
 
 
 def index_tiles(b: int, nq: int, k: int, device) -> int:
-    """Query tiles a cloud in the reverse index of K1b, K5b, K9b and K8b,
-    each built by a block of its own: at most one block an SM over the B
-    clouds (4 at B = 32 on 132 SMs) and MAX_TILES, each of at least
+    """Query tiles a cloud in the reverse index of K1b, K5b, K9b, K8b and
+    K7b, each built by a block of its own: at most one block an SM over
+    the B clouds (4 at B = 32 on 132 SMs) and MAX_TILES, each of at least
     TILE_MIN_SLOTS slots (the gather reads a row's entries tile by tile,
     which costs more the more tiles hold them)."""
     return max(1, min(MAX_TILES, _sm_count(torch.device(device).index) // b,
@@ -93,29 +94,38 @@ def index_buffers(b: int, nq: int, ns: int, k: int, device):
 
 
 def launch_backward_gather(source: str, what: str, inputs, shape, dy,
-                           radius: float, reduction: str) -> torch.Tensor:
-    """Call ``cl3d_<source>_bwd`` of ``csrc/<source>.cu``, a backward that
-    gathers per support row over a reverse neighbor index built in query
-    tiles (``csrc/row_terms.cuh``): ``inputs`` (the points and tables, then
-    idx, mask and dy), (B, Nq, Ns, C, K), the tiles a cloud
-    (``index_tiles``), radius, avg and is_bf16, then the index buffers
-    (``index_buffers``), g (for avg a buffer that the first launch fills
-    with dy / max(count, 1), or for the neighborhood max with dy / (tying
-    slots); for sum dy itself), the output and the stream. Returns d out / d features [B, Ns, C] in dy's dtype, every
-    element written by the gather; raises if the launch fails."""
+                           radius: float, reduction: str, *,
+                           name: str = "", scratch=None, out_dtype=None,
+                           extra_outputs=()) -> torch.Tensor:
+    """Call ``cl3d_<name or source>_bwd`` of ``csrc/<source>.cu``, a
+    backward that gathers per support row over a reverse neighbor index
+    built in query tiles (``csrc/row_terms.cuh``): ``inputs`` (the points
+    and tables, then idx, mask and dy), (B, Nq, Ns, C, K), the tiles a
+    cloud (``index_tiles``), radius, avg and is_bf16, then the index
+    buffers (``index_buffers``), g (for avg a buffer that the first launch
+    fills with dy / max(count, 1), or for the neighborhood max with dy /
+    (tying slots); for sum dy itself; ``scratch`` where given, such as the
+    point-wise MLP's f32 shares), the output, ``extra_outputs`` and the
+    stream. Returns d out / d features [B, Ns, C] in ``out_dtype`` (dy's
+    dtype by default), every element written by the gather; raises if the
+    launch fails."""
     b, nq, ns, c, k = shape
     kernels.require(nq * k < 2 ** 31 - 1, f"{what}: need Nq * K < 2^31 - 1")
     tiles = index_tiles(b, nq, k, dy.device)
     index = index_buffers(b * tiles, -(-nq // tiles), ns, k, dy.device)
-    g = torch.empty_like(dy) if reduction == "avg" else dy
-    df = torch.empty((b, ns, c), dtype=dy.dtype, device=dy.device)
+    if scratch is None:
+        scratch = torch.empty_like(dy) if reduction == "avg" else dy
+    df = torch.empty((b, ns, c), dtype=out_dtype or dy.dtype,
+                     device=dy.device)
+    outputs = (scratch, df, *extra_outputs)
     lib, fn = kernels.entry(
-        source, f"cl3d_{source}_bwd", [kernels.P] * len(inputs)
-        + [kernels.I] * 6 + [kernels.F] + [kernels.I] * 2 + [kernels.P] * 7)
+        source, f"cl3d_{name or source}_bwd", [kernels.P] * len(inputs)
+        + [kernels.I] * 6 + [kernels.F] + [kernels.I] * 2
+        + [kernels.P] * (len(index) + len(outputs) + 1))
     with torch.cuda.device(dy.device):
         err = fn(*[t.data_ptr() for t in inputs], *shape, tiles, radius,
-                 int(reduction == "avg"), int(dy.dtype == torch.bfloat16),
-                 *[t.data_ptr() for t in index], g.data_ptr(), df.data_ptr(),
+                 int(reduction == "avg"), int(df.dtype == torch.bfloat16),
+                 *[t.data_ptr() for t in (*index, *outputs)],
                  kernels.stream_of(df))
     kernels.check(lib, err, what)
     return df

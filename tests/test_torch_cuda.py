@@ -29,6 +29,7 @@ its two device kernels once.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -929,15 +930,168 @@ def test_gather_sub_minmax_kernels_match_plain(dtype, values, nq, ns, c, k):
     ref = gather_reduce.gather_sub_minmax_plain(g, d, idx, nmask)
     assert torch.equal(hm[0], ref[0]) and torch.equal(hm[1], ref[1])
     assert (hm[0][-1] == 0).all() and (hm[1][-1] == 0).all()
-    dg, dd = gather_reduce.gather_sub_minmax_bwd_cuda(g, d, idx, nmask, *hm,
-                                                      *cot[:2])
-    tdg, tdd = gather_reduce.gather_sub_minmax_bwd_plain(g, d, idx, nmask,
-                                                         *hm, *cot[:2])
+    # K7b adds each support row's terms in the (q, t) order of its twin's
+    # index_add_ on CPU tensors: the twin's bits, the same on every launch
+    args = (g, d, idx, nmask, *hm, *cot[:2])
+    dg, dd = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    again = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    twin = gather_reduce.gather_sub_minmax_bwd_plain(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
     assert dg.dtype == dd.dtype == dtype and dd.shape == d.shape
-    tol = _pwmlp_bwd_tol(dtype)
-    torch.testing.assert_close(dg.float(), tdg.float(), **tol)
-    torch.testing.assert_close(dd.float(), tdd.float(), **tol)
+    for o, a, r in zip((dg, dd), again, twin):
+        assert torch.equal(_bits(o.cpu()), _bits(r))
+        assert torch.equal(_bits(o), _bits(a))
     assert (dg[-1] == 0).all() and (dd[-1] == 0).all()
+
+
+def _minmax_bwd_case(name, c, dtype, seed=71):
+    """K7b's inputs on a ``_gather_case``: g on the supports and d on the
+    queries, values on a 0.5 grid that are a function of the point's
+    position (duplicated points carry equal rows; a neighborhood's h
+    often ties its max, its min or both), the forward's extrema, f32
+    cotangents."""
+    q, s, idx, nmask = _gather_case(name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((3, c), generator=gen, device="cuda")
+    g = (torch.round(2 * (s @ w)) / 2).to(dtype)
+    d = (torch.round(2 * (q @ w.flip(1))) / 2).to(dtype)
+    hm = gather_reduce.gather_sub_minmax_cuda(g, d, idx, nmask)
+    cot = [torch.randn(hm[0].shape, generator=gen, device="cuda")
+           for _ in range(2)]
+    return g, d, idx, nmask, *hm, *cot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 12, 144, 300, 1152])
+@pytest.mark.parametrize("name", ["ball", "ties", "strided",
+                                  "masked_queries", "unreached", "one_row"])
+def test_gather_sub_minmax_bwd_gather_equals_twin_to_the_bit(name, c, dtype):
+    """K7b (the tiled reverse index beside the shares, then a gather per
+    support row) at ties, masked queries, unreached rows, one row named by
+    every slot and strided shapes: dg and dd equal to the twin on CPU
+    copies to the bit and the same on a second launch; C off the 4-channel
+    unit (3) takes scalar units."""
+    args = _minmax_bwd_case(name, c, dtype)
+    got = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    again = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    twin = gather_reduce.gather_sub_minmax_bwd_plain(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    for o, a, r in zip(got, again, twin):
+        assert o.dtype == dtype and o.shape == r.shape
+        assert torch.equal(_bits(o.cpu()), _bits(r))
+        assert torch.equal(_bits(o), _bits(a))
+    assert (got[0][-1] == 0).all() and got[0].float().abs().max() > 0.1
+
+
+def test_gather_sub_minmax_bwd_takes_unaligned_views():
+    """g, d, the extrema and the cotangents as views at an odd element
+    offset (off 16 bytes: the scalar units) give the bits of their aligned
+    copies."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _minmax_bwd_case("ties", 72, dtype, seed=72)
+
+        def odd(t):
+            base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+            base[1:] = t.reshape(-1)
+            return base[1:].view(t.shape)
+
+        views = [a if i in (2, 3) else odd(a) for i, a in enumerate(args)]
+        assert all(v.data_ptr() % 16 != 0 for i, v in enumerate(views)
+                   if i not in (2, 3))
+        got = gather_reduce.gather_sub_minmax_bwd_cuda(*views)
+        ref = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+        for o, r in zip(got, ref):
+            assert torch.equal(_bits(o), _bits(r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns,k", [(32, 41), (8, 39)])
+def test_gather_sub_minmax_bwd_at_the_k13_route(dtype, ns, k):
+    """K7b at the shapes of the ShapeNetPart point-wise MLP's K13-route
+    calls (8 clouds of 8 queries, C = 1152, K 41 or 39 over 32 or 8
+    supports, d = 0 as that route passes it): the twin's bits, every
+    launch."""
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    s = torch.rand((8, ns, 3), generator=gen, device="cuda")
+    smask = torch.ones((8, ns), dtype=torch.bool, device="cuda")
+    smask[-1, ns // 2:] = False
+    idx, nmask = ball_query_cuda(s[:, :8].contiguous(), s, 0.6, k,
+                                 smask[:, :8].contiguous(), smask)
+    g = (torch.round(2 * torch.randn((8, ns, 1152), generator=gen,
+                                     device="cuda")) / 2).to(dtype)
+    d = torch.zeros((8, 8, 1152), dtype=dtype, device="cuda")
+    hm = gather_reduce.gather_sub_minmax_cuda(g, d, idx, nmask)
+    cot = [torch.randn(hm[0].shape, generator=gen, device="cuda")
+           for _ in range(2)]
+    args = (g, d, idx, nmask, *hm, *cot)
+    got = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    twin = gather_reduce.gather_sub_minmax_bwd_plain(*(a.cpu() for a in args))
+    again = gather_reduce.gather_sub_minmax_bwd_cuda(*args)
+    for o, a, r in zip(got, again, twin):
+        assert torch.equal(_bits(o.cpu()), _bits(r))
+        assert torch.equal(_bits(o), _bits(a))
+
+
+_OPS_A_CALL = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from closerlook3d_tpu_torch.ops import gather_reduce, neighbors
+g = torch.Generator(device="cuda").manual_seed(0)
+x = torch.rand((4, 4096, 3), generator=g, device="cuda")
+m = torch.rand((4, 4096), generator=g, device="cuda") > 0.1
+idx, nm = neighbors.ball_query_cuda(x[:, :500].contiguous(), x, 0.1, 26,
+                                    m[:, :500].contiguous(), m)
+f = torch.randn((4, 4096, 72), generator=g, device="cuda").bfloat16()
+d = torch.randn((4, 500, 72), generator=g, device="cuda").bfloat16()
+hm = gather_reduce.gather_sub_minmax_cuda(f, d, idx, nm)
+cot = [torch.randn(hm[0].shape, generator=g, device="cuda") for _ in hm]
+q = torch.rand((4, 9000, 3), generator=g, device="cuda")
+x5, m5 = x[:, :500].contiguous(), m[:, :500].contiguous()
+calls = [lambda: gather_reduce.gather_sub_minmax_bwd_cuda(f, d, idx, nm,
+                                                          *hm, *cot),
+         lambda: neighbors.knn(q, x, 1, m),
+         lambda: neighbors.knn(q, x5, 1, m5),
+         lambda: neighbors.knn(q, x, 3, m)]
+for c in calls:
+    c()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for _ in range(4):
+        for c in calls:
+            c()
+    torch.cuda.synchronize()
+print(json.dumps({"names": [e.name for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA],
+                  "ops": [neighbors.knn_device_ops(n, k)
+                          for n, k in ((4096, 1), (500, 1), (4096, 3))]}))
+"""
+
+
+def test_k7b_and_knn_device_ops_a_call():
+    """K7b runs its two launches once a call (the index with the shares,
+    then the gather) and nothing else on the device: no fill, no cast;
+    the 1-NN over 4096 supports runs the preparation and the pruned
+    search, over 500 supports the all-pairs kernel alone, and the k-NN at
+    k = 3 its kernel alone, as ``knn_device_ops`` reports. Profiled in a
+    process of its own (see the ball query's test)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH"))
+                           if p)
+    out = subprocess.run([sys.executable, "-c", _OPS_A_CALL], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=path),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    names = got["names"]
+    assert got["ops"] == [2, 1, 1]
+    assert len(set(names)) == 6 and all(names.count(n) == 4
+                                        for n in names), names
+    short = sorted(re.search(r"(\w+)(<[^(]*>)?\(", n).group(1)
+                   for n in set(names))
+    assert short == sorted(["mm_index_shares_kernel", "mm_gather_kernel",
+                            "prep_kernel", "knn1_pruned_kernel",
+                            "knn1_kernel", "knn_kernel"]), short
 
 
 @pytest.mark.parametrize("op", ["stats", "minmax"])
@@ -1777,6 +1931,30 @@ def test_knn_kernel_equals_plain(nq, ns, k, grid):
     ki, kd = knn_cuda(q, s, k)  # no mask: the wrapper supplies one
     pi, pd = knn_plain(q, s, k)
     assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def test_knn1_equals_plain_at_every_support_size():
+    """The 1-NN at every Ns from 1 to 16384 (below 1024 the all-pairs
+    kernel, from 1024 on the pruned search over tile boxes), on uniform
+    clouds and on 0.25-grid clouds whose duplicated points tie across
+    tiles, 20% of the supports masked and the last cloud all masked:
+    indices and d2 equal to ``knn_plain``'s, bit for bit (lowest index on
+    ties, masked supports tied at 1e10 where a cloud has no valid one)."""
+    bad = []
+    for grid in (False, True):
+        s_all, m_all = _cloud(46 + grid, 3, 16384, masked_frac=0.2,
+                              grid=grid)
+        q, _ = _cloud(48 + grid, 3, 40, grid=grid)
+        flags = []
+        for ns in range(1, 16385):
+            s = s_all[:, :ns].contiguous()
+            sm = m_all[:, :ns].contiguous()
+            ki, kd = neighbors.knn(q, s, 1, sm)
+            pi, pd = knn_plain(q, s, 1, sm)
+            flags.append((ki == pi).all() & (_bits(kd) == _bits(pd)).all())
+        ok = torch.stack(flags).cpu()
+        bad += [(grid, i + 1) for i in torch.nonzero(~ok).flatten().tolist()]
+    assert not bad, bad[:20]
 
 
 def test_knn_routes_as_the_jax_package():

@@ -1,18 +1,20 @@
 """The redesigned kernels, backward (K6b,
 ``pwmlp_minmax_stats_bwd_cuda``; K10b, ``pseudo_grid_bwd_cuda``; K5b,
 ``pospool_sincos_bwd_cuda``; K9b, ``neighborhood_moments_bwd_cuda``; K1b,
-``pospool_xyz_bwd_cuda``; K8b, ``neighborhood_max_bwd_cuda``) and forward
-(K10f, ``pseudo_grid_cuda``; K5f, ``pospool_sincos_cuda``; K1f,
-``pospool_xyz_cuda``; K9f, ``neighborhood_moments_cuda``; K6f,
-``pwmlp_minmax_stats_cuda``; K4, ``furthest_point_sample_cuda``; K8f,
-``neighborhood_max_cuda``; K7f, ``gather_sub_minmax_cuda``): device time
+``pospool_xyz_bwd_cuda``; K8b, ``neighborhood_max_bwd_cuda``; K7b,
+``gather_sub_minmax_bwd_cuda``) and forward (K10f, ``pseudo_grid_cuda``;
+K5f, ``pospool_sincos_cuda``; K1f, ``pospool_xyz_cuda``; K9f,
+``neighborhood_moments_cuda``; K6f, ``pwmlp_minmax_stats_cuda``; K4,
+``furthest_point_sample_cuda``; K8f, ``neighborhood_max_cuda``; K7f,
+``gather_sub_minmax_cuda``; the k-NN, ``knn``; the ball query,
+``ball_query_cuda``): device time
 per call and per train step or request, the bits of every call's
 output, and each train config's device busy time a step and each
 serving config's a request, on the card; optionally against the same
 readings of another checkout, taken in turns.
 
     python3 tools/time_backward.py [--parent DIR] [--reps 20]
-                                   [--kernels backward|forward|all]
+                                   [--kernels backward|forward|all|NAMES]
 
 Needs a CUDA card and ``nvcc``. Each reading runs in a process of its
 own that imports ``closerlook3d_tpu_torch`` from one checkout (this one,
@@ -28,7 +30,13 @@ holds:
   train step, K5b and K9b at every call of the sin/cos and the
   adaptive-weight steps, K1b and K8b (``neighborhood_max_bwd_cuda``, at
   the strided calls) at every call of the xyz step and of
-  ``seg-train:s3dis`` (8 x 15000 points); with ``forward`` or ``all``:
+  ``seg-train:s3dis`` (8 x 15000 points), K7b at the 14 calls of the
+  point-wise MLP's eval-mode backward and at the 3 K13-route calls of
+  ``seg-train:shapenetpart_pwmlp`` (B·Nq <= 64); with ``forward`` or
+  ``all``: the k-NN (``knn``, both routes) at the 4 upsample calls of an
+  S3DIS and of a ShapeNetPart request and the ball query at the 9 calls
+  of the xyz step, of ``seg-train:s3dis`` and of a flagship request,
+  both held equal to their plain versions (run in query chunks),
   K10f at every call of the pseudo-grid step, K5f at every call of the
   sin/cos step, K1f at every call of the xyz step and of a flagship
   request (16 x 1024 points, ``chip_smoke.flagship_config()``: the
@@ -64,8 +72,9 @@ readings go parent, this, this, parent, and the summary gives each
 checkout's mean of two: per call (device ms and ops, events ms, bound,
 the parent's device ms, and whether the output bits equal the parent's
 in bf16 and f32, as for every forward, whose sums run in slot order;
-for K5b, K9b, K1b and K8b, whose parents add with atomics, the bits run to
-run and against the CPU twin instead), per step or request, and per config
+for K5b, K9b, K1b, K8b and K7b, whose parents add with atomics, the bits
+run to run and against the CPU twin instead), per step or request, and
+per config
 the busy time beside the timed kernels' saving (per-call device times
 times calls a step or request). The card's name and power limit are
 printed first; everything goes to
@@ -102,7 +111,9 @@ TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                       ("xyz", "pospool_xyz_bwd"),
                       ("s3dis", "pospool_xyz_bwd"),
                       ("xyz", "neighborhood_max_bwd"),
-                      ("s3dis", "neighborhood_max_bwd")),
+                      ("s3dis", "neighborhood_max_bwd"),
+                      ("pwmlp", "gather_sub_minmax_bwd"),
+                      ("shapenetpart_pwmlp", "gather_sub_minmax_bwd")),
          "forward": (("pgrid", "pseudo_grid"),
                      ("sincos", "pospool_sincos"),
                      ("xyz", "pospool_xyz"),
@@ -115,13 +126,52 @@ TIMED = {"backward": (("pwmlp", "pwmlp_stats_bwd"),
                      ("xyz", "neighborhood_max"),
                      ("s3dis", "neighborhood_max"),
                      (FLAGSHIP, "neighborhood_max"),
-                     ("pwmlp", "gather_sub_minmax"))}
+                     ("pwmlp", "gather_sub_minmax"),
+                     ("s3dis request", "knn"),
+                     ("shapenetpart request", "knn"),
+                     ("xyz", "ball_query"),
+                     ("s3dis", "ball_query"),
+                     (FLAGSHIP, "ball_query"))}
 TIMED["all"] = TIMED["backward"] + TIMED["forward"]
 # backward kernels whose parents scattered with f32 atomics, so that their
 # bits varied run to run: held to themselves and to their CPU twins
 # instead of the parent's bits; the config kind whose tolerance holds each
 RECOMPUTED = {"pospool_sincos_bwd": "sincos", "moments_bwd": "adaptive",
-              "pospool_xyz_bwd": "xyz", "neighborhood_max_bwd": "xyz"}
+              "pospool_xyz_bwd": "xyz", "neighborhood_max_bwd": "xyz",
+              "gather_sub_minmax_bwd": "pwmlp"}
+# kernels whose outputs must equal their plain versions' (indices, picks,
+# extrema)
+EXACT = ("fps", "neighborhood_max", "gather_sub_minmax", "knn", "ball_query")
+
+
+def _geometry_cases(step: str, kernel: str) -> list:
+    """``_cases`` of the ball query (the 9 calls of a ``chip_smoke.BQ_STEPS``
+    forward) and of the k-NN (the 4 upsample calls of a segmentation
+    request, ``chip_smoke._knn_calls``), on three seeded input sets, each
+    call once a step or request; the plain versions run in query chunks
+    (``query_chunk``), as the port's CPU path does."""
+    from closerlook3d_tpu_torch.ops import neighbors as nbr
+
+    def chunked(plain):
+        return lambda *a: plain(*a, chunk_size=nbr.query_chunk(
+            a[0].shape[1]))
+
+    if kernel == "ball_query":
+        name = "flagship" if step == FLAGSHIP else step
+        sets = [chip_smoke.bq_step_calls(name, chip_smoke.SEED + 600 + r)
+                for r in range(3)]
+        fn, plain = nbr.ball_query_cuda, chunked(nbr.ball_query_plain)
+        bound = chip_smoke.bq_bound
+    else:
+        sets = chip_smoke._knn_calls(chip_smoke.seg_config(REQUESTS[step]))
+        fn, plain = nbr.knn, chunked(nbr.knn_plain)
+        bound = lambda a: chip_smoke.knn_bound(*a)  # noqa: E731
+    rows = []
+    for i, (call, a) in enumerate(sets[0]):
+        b = bound(a)
+        rows.append((call, 1, fn, plain, [cs[i][1] for cs in sets],
+                     (b["bytes"], b.get("flops", 0.0))))
+    return rows
 
 
 def _cases(step: str, kernel: str, gen) -> list:
@@ -132,6 +182,8 @@ def _cases(step: str, kernel: str, gen) -> list:
 
     from closerlook3d_tpu_torch.models.backbone import compute_geometry
 
+    if kernel in ("ball_query", "knn"):
+        return _geometry_cases(step, kernel)
     dev = torch.device(chip_smoke.DEVICE)
     calls = []
     if step in chip_smoke.TRAIN_KINDS or step == FLAGSHIP:
@@ -158,9 +210,10 @@ def _cases(step: str, kernel: str, gen) -> list:
             if kernel.startswith("neighborhood_max"):
                 calls.append(pp)
                 continue
-            if kind == "pwmlp":
+            if kind == "pwmlp":  # K7 on the K13 route, K6 elsewhere
                 k13 = {c[0] for c in chip_smoke._k13_calls(pp)}
-                pp = [c for c in pp if c[0] not in k13]
+                on_k13 = kernel.startswith("gather_sub_minmax")
+                pp = [c for c in pp if (c[0] in k13) == on_k13]
             calls.append((None, None, pp))
     if kernel.startswith("neighborhood_max") and step not in (
             chip_smoke.TRAIN_KINDS + (FLAGSHIP,)):  # a seg step's strided
@@ -171,8 +224,10 @@ def _cases(step: str, kernel: str, gen) -> list:
 def _tol(kernel: str, dtype):
     """The tolerance ``chip_smoke.py`` holds the kernel to (the timing
     inputs reduce by avg)."""
-    if kernel in ("fps", "neighborhood_max", "gather_sub_minmax"):
-        return dict(rtol=0, atol=0)  # picks and extrema equal
+    if kernel in EXACT:
+        return dict(rtol=0, atol=0)
+    if kernel == "gather_sub_minmax_bwd":
+        return chip_smoke._pwmlp_bwd_tol(dtype)
     if kernel.startswith("pseudo_grid"):
         return chip_smoke._pgrid_tol(dtype)
     if kernel in ("pospool_sincos", "pospool_xyz", "moments"):
@@ -194,17 +249,21 @@ def twin_check(fn, twin, inputs) -> dict:
     difference."""
     import torch
 
-    got = fn(*inputs)
-    ref = twin(*(a.cpu() if isinstance(a, torch.Tensor) else a
-                 for a in inputs))
-    again = fn(*inputs)
+    def outs(x):
+        return [t.cpu() for t in (x if isinstance(x, tuple) else (x,))]
+
+    got = outs(fn(*inputs))
+    ref = outs(twin(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                      for a in inputs)))
+    again = outs(fn(*inputs))
     torch.cuda.synchronize()
-    got = got.cpu()
-    return {"same_bits_run_to_run": bool(torch.equal(_bits(got),
-                                                      _bits(again.cpu()))),
-            "equal_to_cpu_twin": bool(torch.equal(_bits(got), _bits(ref))),
-            "cpu_twin_max_abs_err": float((got.float() - ref.float())
-                                          .abs().max())}
+    return {"same_bits_run_to_run": all(
+                torch.equal(_bits(a), _bits(b)) for a, b in zip(got, again)),
+            "equal_to_cpu_twin": all(
+                torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref)),
+            "cpu_twin_max_abs_err": max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, ref))}
 
 
 def output_sha256(fn, inputs) -> dict:
@@ -316,7 +375,7 @@ def reading(tree: str, reps: int, kernels: str = "all") -> dict:
     build.build_all(n[:-3] for n in os.listdir(build.CSRC)
                       if n.endswith(".cu"))
     out = {"tree": tree, "calls": {}, "steps": {}}
-    for step, kernel in TIMED[kernels]:
+    for step, kernel in timed(kernels):
         out["calls"][f"{step}:{kernel}"] = time_calls(step, kernel, reps)
         torch.cuda.empty_cache()
     for name in chip_smoke.TRAIN_KINDS + chip_smoke.SEG_TRAIN_NAMES:
@@ -410,11 +469,24 @@ def compare(parent: list, this: list) -> dict:
     return out
 
 
+def timed(choice: str):
+    """(step, kernel) pairs of a --kernels choice: a set of ``TIMED``, or
+    kernel names joined by commas (every step that times them)."""
+    if choice in TIMED:
+        return TIMED[choice]
+    names = choice.split(",")
+    unknown = set(names) - {k for _, k in TIMED["all"]}
+    if unknown:
+        raise SystemExit(f"--kernels: unknown {sorted(unknown)}")
+    return tuple(p for p in TIMED["all"] if p[1] in names)
+
+
 def main() -> int:
     return time_ball_query.tool_main(
         __file__, __doc__, reading, compare, "time_backward",
-        [("--kernels", dict(choices=sorted(TIMED), default="all",
-                            help="which kernels to time call by call"))])
+        [("--kernels", dict(default="all",
+                            help="backward, forward, all, or kernel names "
+                                 "joined by commas (knn,ball_query)"))])
 
 
 if __name__ == "__main__":

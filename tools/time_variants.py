@@ -2,9 +2,10 @@
 call by call in one process, on the card: the forwards K10f
 (``csrc/pseudo_grid.cu``), K5f (``csrc/pospool_sincos.cu``), K1f
 (``csrc/pospool_xyz.cu``), K9f (``csrc/moments.cu``), K6f and K7f
-(``csrc/gather_reduce.cu``), K8f (``csrc/neighborhood_max.cu``) and FPS
-(K4, ``csrc/fps.cu``), or the
-backwards K6b, K10b, K5b, K9b, K1b and K8b (``csrc/neighborhood_max.cu``).
+(``csrc/gather_reduce.cu``), K8f (``csrc/neighborhood_max.cu``), FPS
+(K4, ``csrc/fps.cu``), the k-NN (``csrc/knn.cu``) and the ball query, or
+the backwards K6b, K10b, K5b, K9b, K1b, K8b (``csrc/neighborhood_max.cu``)
+and K7b (``csrc/gather_reduce.cu``).
 
     python3 tools/time_variants.py VARIANTS.json [--kernels forward]
 
@@ -20,7 +21,9 @@ CUDA card and ``nvcc``. Each variant builds the sources of the chosen kernels in
 the git-ignored ``csrc/_build/variants/``, all at once, and prints their
 kernels' registers and spills. Then, at every call of the ModelNet40 bf16 train
 steps that ``tools/time_backward.py`` times them at, on its inputs, each
-variant's library takes the wrapper's place in turn (``kernels._LIBS``):
+variant's library takes the wrapper's place in turn (``kernels._LIBS``;
+the k-NN and the ball query at the requests' and forwards' calls of
+``tools/time_backward.py``):
 its output's bits against the first variant's, and its device time
 (``chip_smoke._device_time``) read twice, in the variants' order and
 then reversed. A reading whose profile window recorded no device events
@@ -61,13 +64,17 @@ SOURCES = {"pseudo_grid": "pseudo_grid", "pospool_sincos": "pospool_sincos",
            "pwmlp_stats": "gather_reduce", "pospool_xyz_bwd": "pospool_xyz",
            "fps": "fps", "neighborhood_max_bwd": "neighborhood_max",
            "neighborhood_max": "neighborhood_max",
-           "gather_sub_minmax": "gather_reduce"}
+           "gather_sub_minmax": "gather_reduce",
+           "gather_sub_minmax_bwd": "gather_reduce", "knn": "knn",
+           "ball_query": "ball_query"}
 # parts of the device functions' names whose registers are printed
 KERNEL_NAMES = ("pseudo_grid_kernel", "pseudo_grid_sums", "pospool_sincos",
                 "pospool_xyz_kernel", "moments_kernel", "sincos_gather",
                 "moments_gather", "index_scale", "pwstats_terms",
                 "csr_gather", "pwstats_fwd", "xyz_gather", "fps_kernel",
-                "nmax_index_ties", "nmax_gather", "nmax_fwd", "mm_fwd")
+                "nmax_index_ties", "nmax_gather", "nmax_fwd", "mm_fwd",
+                "mm_index_shares", "mm_gather", "knn1", "prep_",
+                "ball_query_kernel")
 
 
 def build(name: str, spec: dict, src: str):
@@ -139,15 +146,13 @@ def device_ms(fn, ins, per_op):
 
 
 def timed(choice: str):
-    """(step, kernel) pairs of a --kernels choice: a set of
-    ``time_backward.TIMED``, or kernel names joined by commas."""
-    if choice in time_backward.TIMED:
-        return time_backward.TIMED[choice]
-    names = choice.split(",")
-    unknown = set(names) - set(SOURCES)
+    """(step, kernel) pairs of a --kernels choice
+    (``time_backward.timed``) whose sources this tool edits."""
+    pairs = time_backward.timed(choice)
+    unknown = {k for _, k in pairs} - set(SOURCES)
     if unknown:
-        raise SystemExit(f"--kernels: unknown {sorted(unknown)}")
-    return tuple(p for p in time_backward.TIMED["all"] if p[1] in names)
+        raise SystemExit(f"--kernels: no source for {sorted(unknown)}")
+    return pairs
 
 
 def main() -> int:
