@@ -60,6 +60,18 @@ with every check raising on failure and no CPU fallback:
   the multi-hot count matrix, by device time (torch.profiler, kernel and
   library in turns, beside an empty kernel's launch) and by CUDA events
   over eager launches, each K13 call one device kernel;
+* the device sort: ``morton_sort`` of an 8 x 15000 batch on the card
+  equal to the CPU's, and an S3DIS request with ``spatial_sort: auto`` on
+  an unsorted batch equal, in caller order, to the request on the
+  host-sorted batch;
+* S3DIS voting evaluation at that config's full width: two test-area
+  rooms of a million points written into the processed cache,
+  ``evaluate_s3dis_voting`` through ``Predictor`` with 12 votes (the
+  config's 20 take 84 s), each sphere batch's launches counted, the
+  projection to the
+  full clouds one pruned 1-NN launch a room, held to ``knn_plain`` at
+  16384 queries a room and timed with the sub-cloud as stored and
+  Morton-sorted;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -2001,13 +2013,14 @@ SEG_NAMES = ("shapenetpart", "s3dis")
 
 
 def seg_batch(cfg, seed: int, padded=(), all_masked=(), duplicated=(),
-              batch: int = 0) -> dict:
+              batch: int = 0, sort: bool = True) -> dict:
     """Morton-sorted synthetic clouds of the config's task, as the data
-    loader feeds them: two-category part shapes (part segmentation) or
-    rooms with colors (scene segmentation), with the config's input
-    features. Clouds listed in ``padded`` keep their first 70% of points,
-    those in ``all_masked`` none, and those in ``duplicated`` repeat their
-    first 10% of points right after them (exact distance ties)."""
+    loader feeds them (in the generators' order with ``sort`` false):
+    two-category part shapes (part segmentation) or rooms with colors
+    (scene segmentation), with the config's input features. Clouds listed
+    in ``padded`` keep their first 70% of points, those in ``all_masked``
+    none, and those in ``duplicated`` repeat their first 10% of points
+    right after them (exact distance ties)."""
     from closerlook3d_tpu_torch.data.loader import build_features
     from closerlook3d_tpu_torch.data.spatial_host import morton_sort_batch
     from closerlook3d_tpu_torch.data.synthetic import (
@@ -2029,7 +2042,7 @@ def seg_batch(cfg, seed: int, padded=(), all_masked=(), duplicated=(),
             if k in out:
                 out[k][i, span:2 * span] = out[k][i, :span]
     out["features"] = build_features(out, cfg.input_features)
-    return morton_sort_batch(out)
+    return morton_sort_batch(out) if sort else out
 
 
 def seg_launches(cfg) -> dict:
@@ -2994,6 +3007,363 @@ def run_seg_training(name: str, wrappers) -> dict:
     return run
 
 
+# ---- S3DIS evaluation -----------------------------------------------------
+
+# two test-area rooms of about a million points each, the size of a real
+# S3DIS room. The config's 20 votes (configs/s3dis/pospool_xyz_avg.yaml)
+# took 427 sphere batches, 64 s of voting and 84 s for the phase on one
+# H100 machine; the host's numpy sets the pace (6.6-9.9 sphere batches a
+# second between machines), so 12 votes keep the phase within a minute
+VOTING_ROOMS = 2
+VOTING_ROOM_POINTS = 1_000_000
+VOTING_VOTES = 12
+# queries a room held to knn_plain on the card
+PROJECTION_CHECKS = 16384
+# colours by S3DIS class id (ceiling, floor, wall, ..., clutter)
+_CLASS_RGB = np.array([
+    [0.9, 0.9, 0.85], [0.55, 0.45, 0.35], [0.8, 0.78, 0.7], [0.6, 0.6, 0.6],
+    [0.7, 0.7, 0.65], [0.5, 0.7, 0.9], [0.45, 0.3, 0.2], [0.6, 0.4, 0.25],
+    [0.2, 0.2, 0.25], [0.5, 0.1, 0.1], [0.35, 0.25, 0.15], [0.95, 0.95, 0.95],
+    [0.3, 0.5, 0.3]], np.float32)
+
+
+def _box_faces(lo, size, label):
+    """The five faces (no bottom) of an axis-aligned box as rectangles
+    (corner, edge u, edge v, label)."""
+    x, y, z = np.asarray(lo, np.float64)
+    a, b, c = size
+    ex, ey, ez = np.array([a, 0, 0]), np.array([0, b, 0]), np.array([0, 0, c])
+    o = np.array([x, y, z])
+    return [(o + ez, ex, ey, label), (o, ex, ez, label),
+            (o + ey, ex, ez, label),
+            (o, ey, ez, label), (o + ex, ey, ez, label)]
+
+
+def voting_room(seed: int, n: int):
+    """A room of ``n`` points as a scanner sees it: floor, ceiling and four
+    walls with a door, a window and a board on them, a column, tables,
+    chairs, a bookcase and clutter, each a box of its S3DIS class, with
+    colours; jittered by 3 mm and placed off the origin as the areas'
+    rooms are. (xyz f32 [n, 3], rgb f32 [n, 3] in [0, 1], labels int32
+    [n]), points grouped by surface as the annotation files list them."""
+    rng = np.random.default_rng(seed)
+    lx, ly, h = rng.uniform(6.5, 9.0), rng.uniform(5.0, 7.0), 3.0
+    ex, ey, ez = (np.array([lx, 0, 0]), np.array([0, ly, 0]),
+                  np.array([0, 0, h]))
+    o = np.zeros(3)
+    rects = [(o, ex, ey, 1), (o + ez, ex, ey, 0),
+             (o, ex, ez, 2), (o + ey, ex, ez, 2), (o, ey, ez, 2),
+             (o + ex, ey, ez, 2),
+             (np.array([1.0, 0.01, 0]), np.array([0.9, 0, 0]),
+              np.array([0, 0, 2.1]), 6),  # door
+             (np.array([lx - 0.01, 1.5, 1.0]), np.array([0, 1.8, 0]),
+              np.array([0, 0, 1.2]), 5),  # window
+             (np.array([0.01, 2.0, 0.9]), np.array([0, 2.4, 0]),
+              np.array([0, 0, 1.2]), 11)]  # board
+    rects += _box_faces([lx / 2, ly - 0.6, 0], (0.5, 0.5, h), 4)  # column
+    for t in range(4):
+        tx, ty = 1.5 + 1.6 * (t % 2) + rng.uniform(0, 1), 1.2 + 2.0 * (t // 2)
+        rects += _box_faces([tx, ty, 0], (1.2, 0.8, 0.75), 7)
+        for side in (-0.55, 0.85):
+            rects += _box_faces([tx + 0.35, ty + side, 0], (0.45, 0.45, 0.9),
+                                8)
+    rects += _box_faces([lx - 2.5, 0.05, 0], (2.0, 0.4, 2.0), 10)  # bookcase
+    for _ in range(6):
+        s = rng.uniform(0.2, 0.6, 3)
+        rects += _box_faces([rng.uniform(0.5, lx - 1),
+                             rng.uniform(0.5, ly - 1), 0], s, 12)
+    areas = np.array([np.linalg.norm(u) * np.linalg.norm(v)
+                      for _, u, v, _ in rects])
+    counts = rng.multinomial(n, areas / areas.sum())
+    xyz, labels = [], []
+    for (p, u, v, label), m in zip(rects, counts):
+        ab = rng.random((m, 2))
+        xyz.append(p + ab[:, :1] * u + ab[:, 1:] * v)
+        labels.append(np.full(m, label, np.int32))
+    xyz = np.concatenate(xyz) + rng.normal(0, 0.003, (n, 3))
+    xyz += np.array([rng.uniform(-20, 20), rng.uniform(-20, 20), 0.0])
+    labels = np.concatenate(labels)
+    rgb = np.clip(_CLASS_RGB[labels] + rng.normal(0, 0.05, (n, 3)), 0, 1)
+    return xyz.astype(np.float32), rgb.astype(np.float32), labels
+
+
+def write_voting_rooms(root: str, cell: float) -> float:
+    """Prepare ``VOTING_ROOMS`` test-area rooms straight into the processed
+    cache that ``data/s3dis.py::S3DIS`` reads (raw text would make the
+    parse the bottleneck): sub-clouds by ``grid_subsample_np`` at
+    ``cell``. Returns the seconds it took."""
+    from closerlook3d_tpu_torch.data.s3dis import grid_subsample_np
+
+    t0 = time.perf_counter()
+    out = os.path.join(root, f"s3dis_processed_{cell:g}")
+    os.makedirs(out, exist_ok=True)
+    for r in range(VOTING_ROOMS):
+        xyz, rgb, labels = voting_room(SEED + 1300 + r, VOTING_ROOM_POINTS)
+        sxyz, srgb, slab = grid_subsample_np(xyz, cell, rgb, labels)
+        np.savez(os.path.join(out, f"Area_5__room_{r}.npz"), sub_xyz=sxyz,
+                 sub_rgb=srgb, sub_labels=slab, full_xyz=xyz,
+                 full_labels=labels)
+    return time.perf_counter() - t0
+
+
+def _projection_check(phase, r, sub_xyz, full_xyz, idx, d2, gen) -> dict:
+    """The projection's output at ``PROJECTION_CHECKS`` seeded queries
+    against ``knn_plain`` (k = 2, supports as stored) on the card: d2
+    equal to the bit everywhere, the index equal wherever the nearest is
+    unique. Returns the counts and the plain version's ms."""
+    from closerlook3d_tpu_torch.ops.neighbors import knn_plain
+
+    sel = np.sort(gen.choice(len(full_xyz), PROJECTION_CHECKS, replace=False))
+    q = torch.from_numpy(full_xyz[sel]).to(DEVICE)[None]
+    s = torch.from_numpy(sub_xyz).to(DEVICE)[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pi, pd = knn_plain(q, s, 2, chunk_size=512)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pi, pd = pi[0].cpu().numpy(), pd[0].cpu().numpy()
+    if not np.array_equal(d2[sel], pd[:, 0]):
+        bad = np.flatnonzero(d2[sel] != pd[:, 0])
+        raise AssertionError(f"{phase} room {r}: projection d2 differs from "
+                             f"knn_plain's at {len(bad)} of {len(sel)} "
+                             f"queries, first {sel[bad[:4]].tolist()}")
+    unique = pd[:, 0] < pd[:, 1]
+    wrong = unique & (idx[sel] != pi[:, 0])
+    if wrong.any():
+        raise AssertionError(f"{phase} room {r}: projection index differs "
+                             f"from knn_plain's at {int(wrong.sum())} "
+                             f"queries with a unique nearest")
+    return {"checked": len(sel), "unique": int(unique.sum()),
+            "ties": int((~unique).sum()),
+            "ties_other_index": int((~unique & (idx[sel] != pi[:, 0])).sum()),
+            "plain_ms_checked_queries": plain_ms}
+
+
+def phase_s3dis_voting(wrappers) -> dict:
+    """S3DIS sphere voting, the evaluation the paper reports, at the full
+    width of ``configs/s3dis/pospool_xyz_avg.yaml`` (8 x 15000 points a
+    sphere batch, in_radius 2.0, cell 0.04; set in code): two test-area
+    rooms of ``VOTING_ROOM_POINTS`` points written into the processed
+    cache, ``evaluate_s3dis_voting`` through ``Predictor`` with seeded
+    weights and ``VOTING_VOTES`` votes. Every sphere batch must launch its
+    forward's kernels (``seg_launches``), the projection to the full
+    clouds one pruned 1-NN a room; its d2 must equal ``knn_plain``'s at
+    ``PROJECTION_CHECKS`` queries a room and its index wherever the nearest
+    is unique; the metrics must be finite and ``sphere_batches`` the
+    number of forwards. Times the projection by device time with the
+    sub-cloud as stored and Morton-sorted."""
+    import shutil
+    import tempfile
+
+    from closerlook3d_tpu_torch.data.s3dis import S3DIS
+    from closerlook3d_tpu_torch.data.spatial_host import morton_keys_np
+    from closerlook3d_tpu_torch.ops.neighbors import knn1_cuda
+    from closerlook3d_tpu_torch.ops.spatial import (
+        apply_permutation, morton_sort)
+    from closerlook3d_tpu_torch.serving import Predictor
+    from closerlook3d_tpu_torch.train import evaluate as ev
+
+    phase = "s3dis-voting"
+    t_start = time.perf_counter()
+    cfg = seg_config("s3dis")
+    cfg.num_votes = VOTING_VOTES
+    root = tempfile.mkdtemp(prefix="_voting_rooms_", dir=REPO)
+    try:
+        prep_s = write_voting_rooms(root, cfg.first_subsampling_dl)
+        cfg.data_root = root
+        ds = S3DIS(cfg, "test")
+        weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 30))
+        predictor = Predictor(cfg, weights, device=DEVICE)
+        per_forward = seg_launches(cfg)
+        forwards = []
+
+        def eval_logits(state, batch):
+            before = read_counts(wrappers)
+            out = state(batch["xyz"], batch["mask"], batch["features"])
+            counts = read_counts(wrappers)
+            check_counts(f"{phase} sphere batch {len(forwards)}",
+                         {k: counts[k] - before[k] for k in counts},
+                         per_forward)
+            forwards.append(int(batch["mask"].sum()))
+            return out
+
+        projections = []
+        project = ev.project_to_full
+
+        def recording_projection(sub_xyz, full_xyz, device):
+            idx, d2 = project(sub_xyz, full_xyz, device)
+            projections.append((idx, d2))
+            return idx, d2
+
+        ev.project_to_full = recording_projection
+        try:
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            res = ev.evaluate_s3dis_voting(cfg, ds, predictor, eval_logits)
+            torch.cuda.synchronize()
+            vote_s = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+        finally:
+            ev.project_to_full = project
+        nb, rooms = res["sphere_batches"], len(ds.xyz)
+        expected = {k: v * nb for k, v in per_forward.items()}
+        expected["knn1"] += rooms
+        check_counts(phase, launches, expected)
+        if nb != len(forwards) or nb < 1:
+            raise AssertionError(f"{phase}: {nb} sphere batches, "
+                                 f"{len(forwards)} forwards")
+        metrics = [res[k] for k in ("miou", "oa", "subcloud_miou",
+                                    "subcloud_oa")] + res["iou_per_class"]
+        if not np.isfinite(metrics).all():
+            raise AssertionError(f"{phase}: metrics not finite {res}")
+        gen = np.random.default_rng(SEED + 31)
+        rows = []
+        for r, (idx, d2) in enumerate(projections):
+            full_xyz, _ = ds.full_cloud(r)
+            check = _projection_check(phase, r, ds.xyz[r], full_xyz, idx, d2,
+                                      gen)
+            # the sub-cloud as stored (scan-line) and Morton-sorted, as
+            # project_to_full sorts it on the card: the host's keys
+            # (data/spatial_host.py) give the same permutation
+            sub = ds.xyz[r]
+            q = torch.from_numpy(full_xyz).to(DEVICE)[None]
+            s_stored = torch.from_numpy(sub).to(DEVICE)[None]
+            perm = morton_sort(s_stored)[0]
+            host_perm = np.argsort(morton_keys_np(sub[None], np.ones(
+                (1, len(sub)), bool))[0], kind="stable")
+            if not np.array_equal(perm[0].cpu().numpy(), host_perm):
+                raise AssertionError(f"{phase} room {r}: the card's Morton "
+                                     f"order differs from the host's")
+            s_morton = apply_permutation(s_stored, perm)
+            smask = torch.ones(s_stored.shape[:2], dtype=torch.bool,
+                               device=DEVICE)
+
+            def one_nn(qq, ss):
+                return knn1_cuda(qq, ss, 1, smask)
+
+            def sorted_nn(qq, ss):
+                pp = morton_sort(ss)[0]
+                idx, d2 = knn1_cuda(qq, apply_permutation(ss, pp), 1, smask)
+                return torch.gather(pp, 1, idx[..., 0].long()), d2
+
+            (stored_ms, stored_ops), (morton_ms, morton_ops) = _device_pair(
+                one_nn, [(q, s_stored)], one_nn, [(q, s_morton)], 10)
+            with_sort = {}
+            sorted_ms, sorted_ops = _device_time(sorted_nn, [(q, s_stored)],
+                                                 10, per_op=with_sort)
+            bound = knn_bound(q, s_stored, 1, smask)
+
+            def stored_projection():
+                qq = torch.as_tensor(full_xyz, device=DEVICE)[None]
+                ss = torch.as_tensor(sub, device=DEVICE)[None]
+                idx, d2 = knn1_cuda(qq, ss, 1)
+                return idx[0, :, 0].cpu().numpy(), d2[0, :, 0].cpu().numpy()
+
+            # the whole call on the host's clock, copies included, in turns
+            wall = {"stored": [], "morton": []}
+            for what in ("stored", "morton", "morton", "stored") * 2:
+                fn = stored_projection if what == "stored" else (
+                    lambda: ev.project_to_full(sub, full_xyz, DEVICE))
+                fn()
+                t0 = time.perf_counter()
+                fn()
+                wall[what].append((time.perf_counter() - t0) * 1e3)
+            row = {"room": ds.room_names[r], "full_points": len(full_xyz),
+                   "sub_points": len(ds.xyz[r]),
+                   "device_ms_stored": stored_ms,
+                   "device_ms_morton": morton_ms,
+                   "device_ops": stored_ops,
+                   "device_ms_with_sort": sorted_ms,
+                   "device_ops_with_sort": sorted_ops,
+                   "ms_stored": _time(one_nn, [(q, s_stored)], 10),
+                   "ms_morton": _time(one_nn, [(q, s_morton)], 10),
+                   "kept": "morton",
+                   "wall_ms_stored": float(np.median(wall["stored"])),
+                   "wall_ms_morton": float(np.median(wall["morton"])),
+                   **bound, **check}
+            rows.append(row)
+            log(phase, f"room {r}: {len(full_xyz)} points onto "
+                f"{len(ds.xyz[r])} sub-points: projection device "
+                f"{stored_ms:.5f} ms with the sub-cloud as stored "
+                f"(scan-line), {morton_ms:.5f} ms "
+                f"Morton-sorted ({stored_ops} ops), {sorted_ms:.5f} ms with "
+                f"the sort and the map back on the card ({sorted_ops} ops; "
+                f"kept: {row['kept']}); "
+                f"events {row['ms_stored']:.4f} / {row['ms_morton']:.4f} ms; "
+                f"whole call on the host's clock (copies in) "
+                f"{row['wall_ms_stored']:.3f} / {row['wall_ms_morton']:.3f} "
+                f"ms; "
+                f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}), "
+                f"all pairs {bound['all_pairs_ms']:.3f} ms; d2 equal to "
+                f"knn_plain at {check['checked']} queries, index at the "
+                f"{check['unique']} with a unique nearest ({check['ties']} "
+                f"ties, {check['ties_other_index']} of them another tied "
+                f"sub-point; plain {check['plain_ms_checked_queries']:.1f} "
+                f"ms for those queries)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_start
+    log(phase, f"{nb} sphere batches of {cfg.batch_size} x "
+        f"{cfg.num_points} points over {rooms} rooms, {VOTING_VOTES} votes: "
+        f"{nb / vote_s:.3f} sphere batches/s ({vote_s:.2f} s voting and "
+        f"projection, {prep_s:.2f} s writing the rooms, phase {seconds:.2f} "
+        f"s); mIoU {res['miou']:.4f}, OA {res['oa']:.4f}, sub-cloud mIoU "
+        f"{res['subcloud_miou']:.4f} (random weights); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return {"result": res, "launches": launches, "sphere_batches": nb,
+            "valid_points_per_batch": float(np.mean(forwards)),
+            "votes": VOTING_VOTES, "rooms": rows,
+            "sphere_batches_per_s": nb / vote_s, "voting_s": vote_s,
+            "prep_s": prep_s, "seconds": seconds}
+
+
+def phase_device_sort(wrappers) -> dict:
+    """The model's device sort (``spatial_sort``: always, or auto above
+    2048 points): ``morton_sort`` of an 8 x 15000 batch on the card gives
+    the CPU's permutation exactly, and an f32 S3DIS request with
+    ``spatial_sort: auto`` on an unsorted batch equals, in caller order,
+    the request on the host-sorted batch (the segmentation serving
+    phase's card-vs-CPU tolerance)."""
+    from closerlook3d_tpu_torch.data.spatial_host import (
+        morton_keys_np, morton_sort_batch)
+    from closerlook3d_tpu_torch.ops.spatial import morton_sort
+    from closerlook3d_tpu_torch.serving import Predictor
+
+    phase = "device-sort"
+    cfg = seg_config("s3dis")
+    cfg.precision = "f32"
+    b = seg_batch(cfg, SEED + 1400, padded=(2,), duplicated=(5,), sort=False)
+    xyz, mask = torch.from_numpy(b["xyz"]), torch.from_numpy(b["mask"])
+    cpu = morton_sort(xyz, mask)
+    card = morton_sort(xyz.to(DEVICE), mask.to(DEVICE))
+    for what, c, g in zip(("perm", "inv"), cpu, card):
+        if not torch.equal(c, g.cpu()):
+            raise AssertionError(f"{phase}: card {what} differs from the "
+                                 f"CPU's at {int((c != g.cpu()).sum())}")
+    sort_ms = _time(morton_sort, [(xyz.to(DEVICE), mask.to(DEVICE))], 20)
+    weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 32))
+    host = morton_sort_batch(b)
+    perm = np.argsort(morton_keys_np(b["xyz"], b["mask"]), axis=1,
+                      kind="stable")
+    auto = copy.deepcopy(cfg)
+    auto.spatial_sort = "auto"
+    reset_counts(wrappers)
+    got = Predictor(auto, weights, device=DEVICE)(
+        b["xyz"], b["mask"], b["features"]).cpu()
+    check_counts(phase, read_counts(wrappers), seg_launches(cfg))
+    ref = Predictor(cfg, weights, device=DEVICE)(
+        host["xyz"], host["mask"], host["features"]).cpu()
+    inv = torch.from_numpy(np.argsort(perm, axis=1))
+    ref = torch.gather(ref, 1, inv[..., None].expand(-1, -1, ref.shape[-1]))
+    torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-4)
+    err = float((got - ref).abs().max())
+    log(phase, f"morton_sort of {tuple(xyz.shape)} on the card: perm and "
+        f"inverse equal to the CPU's ({sort_ms:.4f} ms); spatial_sort auto "
+        f"request on the unsorted batch vs host-sorted, caller order: max "
+        f"abs err {err:.3g}")
+    return {"sort_ms": sort_ms, "request_max_abs_err": err}
+
+
 # ---- main -------------------------------------------------------------------
 
 REPLACES = {
@@ -3072,12 +3442,14 @@ def home_kind(kernel: str) -> str:
 
 def knn_row(record) -> dict:
     """The kernels line's k-NN row: launches on both segmentation configs'
-    checked requests (both routes), times per S3DIS request (whose four
-    calls take both routes), ShapeNetPart's beside them."""
-    seg = record["seg"]
+    checked requests (both routes) and on the S3DIS voting run (its
+    sphere forwards and one projection a room), times per S3DIS request
+    (whose four calls take both routes), ShapeNetPart's and the
+    projection's beside them."""
+    seg, voting = record["seg"], record["s3dis_voting"]
     launches = {route: sum(run["serving"]["launches"][route]
                            for run in seg.values())
-                for route in ("knn1", "knn")}
+                + voting["launches"][route] for route in ("knn1", "knn")}
     t = seg["s3dis"]["timing"]
     return {"launches": launches["knn1"] + launches["knn"],
             "max_abs_err": max(run["parity"]["knn"] for run in seg.values()),
@@ -3097,6 +3469,17 @@ def knn_row(record) -> dict:
                 name: {r: run["serving"]["launches_per_request"][r]
                        for r in ("knn1", "knn")}
                 for name, run in seg.items()},
+            # the S3DIS voting run: its sphere forwards' upsample calls and
+            # one projection to the full cloud a room
+            "voting_launches": {r: voting["launches"][r]
+                                for r in ("knn1", "knn")},
+            "projection_per_room": [
+                {k: room[k] for k in (
+                    "full_points", "sub_points", "kept", "device_ms_stored",
+                    "device_ms_morton", "device_ms_with_sort", "ms_stored",
+                    "ms_morton", "wall_ms_stored", "wall_ms_morton",
+                    "bound_ms", "bound_by", "all_pairs_ms")}
+                for room in voting["rooms"]],
             "shapenetpart_per_request": {
                 k: seg["shapenetpart"]["timing"][k]
                 for k in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -3195,6 +3578,8 @@ def main() -> int:
                      for name in SEG_NAMES}
     record["seg_train"] = {name: run_seg_training(name, wrappers)
                            for name in SEG_TRAIN_NAMES}
+    record["device_sort"] = phase_device_sort(wrappers)
+    record["s3dis_voting"] = phase_s3dis_voting(wrappers)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}

@@ -8,10 +8,12 @@ the same module: CUDA tensors go to the kernel, CPU tensors to the plain
 version (``ops/dispatch.py``). This package imports ``torch`` and never
 ``jax``, ``flax``, ``ml_collections`` or ``closerlook3d_tpu``.
 
-Ported so far: ModelNet40 classification with PosPool (xyz, sin/cos) and
-the adaptive weight, served through ``serving.predictor.Predictor`` and
+Ported so far: classification, part and scene segmentation with every
+operator family, served through ``serving.predictor.Predictor`` and
 trained through ``train/`` (``make_optimizer``, ``create_train_state``,
-``make_train_step``).
+``make_train_step``); the evaluators (``train/evaluate.py``), the dataset
+readers and factory (``data/``) and the device Morton sort
+(``ops/spatial.py``).
 """
 
 __version__ = "0.1.0"

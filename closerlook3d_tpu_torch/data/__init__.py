@@ -1,1 +1,2 @@
-"""Host-side (numpy) data helpers the serving path and its checks need."""
+"""Host-side (numpy) data: the dataset readers and factory, augmentations,
+batching, the host Morton sort and geometry precompute."""

@@ -2,14 +2,16 @@
 
 Numpy only, as in the JAX package: ``BatchIterator`` stacks the samples of
 a len/__getitem__ dataset into fixed-shape batches; the train step moves
-them to the card. Single process: the JAX package's per-process sharding
-(data parallelism, ROADMAP A5) and its ``PrefetchIterator`` are not
-ported yet.
+them to the card. ``host_pipeline(cfg)`` gives its host-side options as
+the JAX package's ``Trainer`` sets them. Single process: the JAX
+package's per-process sharding (data parallelism) and its
+``PrefetchIterator`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import functools
+from typing import Any, Dict, Iterator
 
 import numpy as np
 
@@ -53,12 +55,13 @@ class BatchIterator:
     drops the ragged last batch (train), otherwise the last batch is
     padded by repeating its last sample and ``batch_pad`` marks the
     padding. ``spatial_sort`` Morton-sorts each batch on the host
-    (``cfg.spatial_sort == "host"``).
+    (``cfg.spatial_sort == "host"``); ``transform`` (batch dict -> batch
+    dict, host side) runs last, as the geometry precompute does.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  feature_spec: str, seed: int = 0, drop_last: bool = True,
-                 spatial_sort: bool = False):
+                 spatial_sort: bool = False, transform=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -66,6 +69,7 @@ class BatchIterator:
         self.seed = seed
         self.drop_last = drop_last
         self.spatial_sort = spatial_sort
+        self.transform = transform
         self.epoch = 0
 
     def __len__(self):
@@ -97,4 +101,21 @@ class BatchIterator:
             batch["batch_pad"] = np.arange(bs) >= (bs - pad)
             if self.spatial_sort:
                 batch = morton_sort_batch(batch)
+            if self.transform is not None:
+                batch = self.transform(batch)
             yield batch
+
+
+def host_pipeline(cfg) -> Dict[str, Any]:
+    """``BatchIterator``'s ``transform`` and ``spatial_sort`` for ``cfg``,
+    as the JAX package's ``Trainer`` sets them
+    (``closerlook3d_tpu/train/loop.py``): with ``precompute_geometry`` the
+    transform is the host geometry precompute, which sorts by itself, so
+    it replaces the host sort; otherwise ``spatial_sort: host`` sorts."""
+    transform = None
+    if getattr(cfg, "precompute_geometry", False):
+        from closerlook3d_tpu_torch.data.geometry import (
+            precompute_batch_geometry)
+        transform = functools.partial(precompute_batch_geometry, cfg=cfg)
+    return {"transform": transform,
+            "spatial_sort": cfg.spatial_sort == "host" and transform is None}

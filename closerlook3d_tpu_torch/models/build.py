@@ -1,12 +1,14 @@
 """Model factories (``closerlook3d_tpu/models/build.py``): classification,
 scene segmentation and part segmentation.
 
-``spatial_sort="host"`` (the default) means the data pipeline already
-Morton-sorted each batch (``data/spatial_host.py``), so the model does not
-sort on the device; nor does "auto" at up to 2048 points a cloud, as in
-the JAX package. The device sort of "always" and of "auto" above 2048
-points (``ops/spatial.py::morton_sort`` in the JAX package) is not
-ported yet (ROADMAP A2): ``forward`` raises there. Train or eval mode is
+``spatial_sort`` as the JAX package's ``_maybe_sort`` reads it: "host"
+(the default) means the data pipeline already Morton-sorted each batch
+(``data/spatial_host.py``) and "never" that nothing sorts, so the model
+does not; "always", and "auto" above 2048 points a cloud, sort each cloud
+on the inputs' device (``ops/spatial.py::morton_sort``), and the
+segmentation models return their per-point logits in the caller's order.
+Precomputed geometry binds indices to the caller's order: with it the
+model never sorts. Train or eval mode is
 the module's own (``model.train()`` / ``model.eval()``): BatchNorm reads
 it, and so does the head's dropout, which draws from the generator given
 to ``forward``. Each task's factory returns (model, loss_fn) as the JAX
@@ -30,19 +32,17 @@ from closerlook3d_tpu_torch.models.losses import (
     label_smoothing_cross_entropy, masked_cross_entropy,
     multi_shape_cross_entropy)
 from closerlook3d_tpu_torch.models.nn_utils import BatchNorm
+from closerlook3d_tpu_torch.ops.spatial import apply_permutation, morton_sort
 from closerlook3d_tpu_torch.utils.config import stage_plan
 
 
-def _check_sort(mode: str, n_points: int) -> None:
-    """Raise where ``mode`` would sort ``n_points``-point clouds on the
-    device, as the JAX package's ``_maybe_sort`` decides: "host" and
-    "never" never do, "auto" only above 2048 points, "always" always."""
-    if mode in ("host", "never") or (mode == "auto" and n_points <= 2048):
-        return
-    raise NotImplementedError(
-        f"spatial_sort={mode!r} at {n_points} points sorts on the device "
-        f"(ops/spatial.py::morton_sort), which is not ported yet (ROADMAP "
-        f"A2); sort on the host (spatial_sort: host)")
+def sorts_on_device(mode: str, n_points: int) -> bool:
+    """Whether ``spatial_sort`` = ``mode`` sorts ``n_points``-point clouds
+    in the model: "host" and "never" never, "auto" above 2048 points,
+    "always" always."""
+    if mode not in ("host", "never", "auto", "always"):
+        raise ValueError(f"unknown spatial_sort {mode!r}")
+    return mode == "always" or (mode == "auto" and n_points > 2048)
 
 
 class _Model(nn.Module):
@@ -51,7 +51,11 @@ class _Model(nn.Module):
 
     ``geometry`` is a precomputed ``compute_geometry`` dict (with the
     upsample indices for segmentation); ``generator`` draws the dropout
-    masks in train mode."""
+    masks in train mode. Where ``spatial_sort`` sorts (and no geometry is
+    given), the clouds are Morton-sorted first; per-point logits go back
+    through the inverse permutation."""
+
+    per_point = False  # logits [B, N, ...] follow the points' order
 
     def __init__(self, config, head: nn.Module):
         super().__init__()
@@ -60,10 +64,18 @@ class _Model(nn.Module):
         self.head = head
 
     def forward(self, xyz, mask, features, geometry=None, generator=None):
-        _check_sort(self.spatial_sort, xyz.shape[1])
-        return self.head(self.backbone(xyz, mask, features,
-                                       geometry=geometry),
-                         generator=generator)
+        inv = None
+        if geometry is None and sorts_on_device(self.spatial_sort,
+                                                xyz.shape[1]):
+            perm, inv = morton_sort(xyz, mask)
+            xyz, mask, features = (apply_permutation(t, perm)
+                                   for t in (xyz, mask, features))
+        logits = self.head(self.backbone(xyz, mask, features,
+                                         geometry=geometry),
+                           generator=generator)
+        if inv is not None and self.per_point:
+            logits = apply_permutation(logits, inv)
+        return logits
 
 
 class ClassificationModel(_Model):
@@ -77,6 +89,8 @@ class ClassificationModel(_Model):
 class SceneSegModel(_Model):
     """Per-point logits [B, N, num_classes]."""
 
+    per_point = True
+
     def __init__(self, config):
         super().__init__(config, SceneSegHead(config.num_classes, config))
 
@@ -85,21 +99,24 @@ class MultiPartSegModel(_Model):
     """Per-point part logits [B, N, sum(num_parts)] over every category's
     parts (``part_counts``)."""
 
+    per_point = True
+
     def __init__(self, config):
         super().__init__(config, MultiPartSegHead(part_counts(config),
                                                   config))
 
 
 def part_counts(config) -> list:
-    """Per-category part counts: ``num_parts``, or ShapeNetPart's table
-    for a config that names the dataset without them (the JAX package's
-    dataset factory fills them in the same way)."""
+    """Per-category part counts: ``num_parts``, as the dataset factory
+    (``data/build.py::build_dataset``) sets it, or ShapeNetPart's table
+    for a config that names that dataset without them."""
     if list(config.num_parts):
         return [int(n) for n in config.num_parts]
     if config.datasets == "shapenetpart":
         return list(NUM_PARTS)
     raise ValueError(f"part segmentation on {config.datasets!r} needs "
-                     f"num_parts in the config")
+                     f"num_parts in the config, which "
+                     f"data.build.build_dataset(cfg, split) sets")
 
 
 _MODELS = {"classification": ClassificationModel,

@@ -1,8 +1,8 @@
 """Training: schedules and optimizer, train state, train and eval steps,
-metrics.
+metrics, the evaluators (``evaluate.py``).
 
-The engine around them (``Trainer``, checkpoints, logging, CLI) and the
-voting evaluation are not ported yet (ROADMAP A).
+The engine around them (``Trainer``, checkpoints, logging, CLI) is not
+ported yet (ROADMAP A).
 """
 
 from closerlook3d_tpu_torch.train.schedules import (  # noqa: F401

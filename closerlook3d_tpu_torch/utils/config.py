@@ -126,8 +126,9 @@ def default_config() -> Config:
     # Accepted for schema compatibility and ignored: the port picks kernel
     # or plain version by the tensor's device alone (ops/dispatch.py).
     c.use_pallas = "auto"
-    # "host": the data pipeline Morton-sorts batches; the model does not
-    # sort on the device. The port implements only this mode.
+    # host|never|auto|always: "host", the data pipeline Morton-sorts
+    # batches; "always" (and "auto" above 2048 points) sorts in the model,
+    # on the device (models/build.py)
     c.spatial_sort = "host"
     c.donate_state = True
     c.data_parallel = -1

@@ -150,9 +150,10 @@ def test_eval_logits_match_jax(flagship):
 
 def test_spatial_sort_auto_is_host_up_to_2048_points(flagship):
     """As the JAX package's ``_maybe_sort``: "auto" does not sort clouds of
-    up to 2048 points, so its logits equal "host"'s to the bit; above 2048
-    points, and under "always", it would sort on the device, which is not
-    ported, and the forward raises."""
+    up to 2048 points, so its logits equal "host"'s to the bit; "always"
+    sorts on the inputs' device, which leaves this already Morton-sorted
+    batch in its order (the same logits to the bit) and gives a shuffled
+    copy of it the same logits; above 2048 points "auto" sorts too."""
     _, cfg, variables, batch, _ = flagship
     args = [torch.from_numpy(batch[k]) for k in ("xyz", "mask", "features")]
     models, logits = {}, {}
@@ -160,16 +161,35 @@ def test_spatial_sort_auto_is_host_up_to_2048_points(flagship):
         models[mode] = build_model(Config(cfg.to_dict(), spatial_sort=mode))
         models[mode].load_state_dict(
             flax_to_state_dict(variables, models[mode]))
+    shuffle = torch.from_numpy(np.stack([
+        np.random.default_rng(i).permutation(cfg.num_points)
+        for i in range(len(batch["xyz"]))]))
     with torch.inference_mode():
-        for mode in ("host", "auto"):
+        for mode in ("host", "auto", "always"):
             logits[mode] = models[mode](*args)
         assert torch.equal(logits["auto"], logits["host"])
-        with pytest.raises(NotImplementedError, match="device"):
-            models["always"](*args)
-        big = (torch.zeros((1, 2049, 3)), torch.ones((1, 2049), dtype=bool),
-               torch.zeros((1, 2049, 3)))
-        with pytest.raises(NotImplementedError, match="2049 points"):
-            models["auto"](*big)
+        assert torch.equal(logits["always"], logits["host"])
+        shuffled = [torch.gather(a, 1, shuffle[..., None].expand(
+            -1, -1, a.shape[-1])) if a.dim() == 3 else torch.gather(
+            a, 1, shuffle) for a in args]
+        np.testing.assert_allclose(models["always"](*shuffled).numpy(),
+                                   logits["host"].numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        assert not torch.equal(models["host"](*shuffled), logits["host"])
+        big = (torch.rand((1, 2049, 3), generator=torch.Generator()
+                          .manual_seed(0)),
+               torch.ones((1, 2049), dtype=bool))
+        big += (big[0],)
+        seen = []
+        hook = models["auto"].backbone.register_forward_pre_hook(
+            lambda mod, a: seen.append(a[0]))
+        models["auto"](*big)
+        hook.remove()
+        from closerlook3d_tpu_torch.ops.spatial import (
+            apply_permutation, morton_sort)
+        perm, _ = morton_sort(big[0], big[1])
+        assert torch.equal(seen[0], apply_permutation(big[0], perm))
+        assert not torch.equal(perm, torch.arange(2049)[None].int())
 
 
 def test_predictor_serves_export_forward_weights(flagship, tmp_path):
@@ -228,11 +248,18 @@ def test_port_imports_no_jax():
         "p = Predictor(seg, build_model(seg).state_dict(), device='cpu')\n"
         "out = p(x, np.ones((2, 64), bool), x)\n"
         "assert out.shape == (2, 64, 4) and torch.isfinite(out).all()\n"
+        "import closerlook3d_tpu_torch.ops.spatial\n"
+        "import closerlook3d_tpu_torch.parallel.collectives\n"
+        "import closerlook3d_tpu_torch.train.evaluate\n"
+        "for m in ('transforms', 's3dis', 'modelnet40', 'shapenetpart',\n"
+        "          'partnet', 'build', 'geometry'):\n"
+        "    __import__('closerlook3d_tpu_torch.data.' + m)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_collections',\n"
-        "                   'closerlook3d_tpu') if m in sys.modules]\n"
+        "                   'closerlook3d_tpu', 'h5py', 'scipy')\n"
+        "       if m in sys.modules]\n"
         "bad += [m for m in sys.modules\n"
         "        if m.startswith(('jax.', 'flax.', 'optax.',\n"
-        "                         'closerlook3d_tpu.'))]\n"
+        "                         'closerlook3d_tpu.', 'h5py.', 'scipy.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
