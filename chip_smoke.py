@@ -72,6 +72,12 @@ with every check raising on failure and no CPU fallback:
   full clouds one pruned 1-NN launch a room, held to ``knn_plain`` at
   16384 queries a room and timed with the sub-cloud as stored and
   Morton-sorted;
+* the training engine, as a user runs it: the train CLI on
+  ``configs/modelnet40/pospool_xyz_avg.yaml`` (read by the port's YAML
+  reader) at full width on synthetic clouds, 2 epochs with validation,
+  checkpoints and exact launch counts; a resumed ``Trainer`` whose
+  restored state equals the saved one bit for bit; the evaluate CLI on
+  the last checkpoint, equal to ``evaluate_classification``;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -3364,6 +3370,223 @@ def phase_device_sort(wrappers) -> dict:
     return {"sort_ms": sort_ms, "request_max_abs_err": err}
 
 
+# ---- the training engine ---------------------------------------------------
+
+ENGINE_CFG = "configs/modelnet40/pospool_xyz_avg.yaml"
+# full width and depth as the file stands (bf16, 5000 points, batch 32),
+# on synthetic clouds: 4 steps an epoch and 2 validation batches
+ENGINE_OVERRIDES = ["datasets=synthetic", "synthetic_train_size=128",
+                    "synthetic_val_size=64", "epochs=2", "save_interval=1",
+                    "val_interval=1", "log_interval=1", "num_workers=1"]
+
+
+def engine_config(**changes):
+    """The engine phase's config, read from ``ENGINE_CFG`` by the port's
+    YAML reader (no PyYAML on the card's machine) with its overrides."""
+    from closerlook3d_tpu_torch.utils.config import (
+        load_config, parse_overrides)
+
+    cfg = load_config(os.path.join(REPO, ENGINE_CFG),
+                      parse_overrides(ENGINE_OVERRIDES))
+    for key, value in changes.items():
+        cfg[key] = value
+    return cfg
+
+
+def engine_launches(steps: int, forwards: int) -> dict:
+    """Exact launches of ``steps`` train steps and ``forwards`` eval
+    forwards of the xyz config."""
+    train, fwd = launches_per("xyz", "train"), launches_per("xyz", "forward")
+    return {k: steps * train[k] + forwards * fwd[k] for k in train}
+
+
+def _step_seconds(scalars: list, steps_per_epoch: int) -> dict:
+    """{step: seconds} from ``train/batch_time``, logged at every step
+    (log_interval 1) as the epoch's running mean."""
+    means = {r["step"]: r["value"] for r in scalars
+             if r["tag"] == "train/batch_time"}
+    out = {}
+    for step, mean in sorted(means.items()):
+        i = (step - 1) % steps_per_epoch + 1  # the step's place in its epoch
+        out[step] = i * mean - (i - 1) * means[step - 1] if i > 1 else mean
+    return out
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state: parameters, BatchNorm buffers and
+    the optimizer's per-parameter state (momentum)."""
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    for idx, per in state.optimizer.state_dict()["state"].items():
+        out.update({f"opt/{idx}/{k}": v for k, v in per.items()})
+    return out
+
+
+def phase_engine(wrappers) -> dict:
+    """The training engine at full width, as a user runs it: the train CLI
+    on ``ENGINE_CFG`` read without PyYAML, 2 epochs on synthetic clouds
+    (checkpoints at steps 4 and 8, the best one, scalars, finite losses,
+    the exact launches of its 8 steps and 4 validation forwards); a
+    resumed ``Trainer`` to epoch 3 (step 12), and a further one whose
+    restored state must equal it bit for bit; the evaluate CLI on the
+    saved checkpoint, whose accuracy must equal ``evaluate_classification``
+    on that state. Prints the host time of each epoch, the median step
+    time from ``scalars.jsonl``, checkpoint save and restore times, and one
+    more epoch without the prefetcher beside a prefetched one."""
+    import io
+    import shutil
+    import tempfile
+
+    from closerlook3d_tpu_torch.cli import evaluate as cli_evaluate
+    from closerlook3d_tpu_torch.cli import train as cli_train
+    from closerlook3d_tpu_torch.data.build import build_dataset
+    from closerlook3d_tpu_torch.data.loader import BatchIterator
+    from closerlook3d_tpu_torch.train import loop
+    from closerlook3d_tpu_torch.train.checkpoints import CheckpointManager
+    from closerlook3d_tpu_torch.train.evaluate import evaluate_classification
+    from closerlook3d_tpu_torch.train.step import eval_logits
+
+    phase = "engine"
+    t_start = time.perf_counter()
+    cfg = engine_config()
+    spe = cfg.synthetic_train_size // cfg.batch_size
+    val_batches = -(-cfg.synthetic_val_size // cfg.batch_size)
+    epoch_s = {}
+    untimed = loop.Trainer.train_one_epoch
+
+    def timed(self, epoch):
+        # the epoch's last step reads the loss, so the card is done
+        t0 = time.perf_counter()
+        out = untimed(self, epoch)
+        epoch_s[epoch] = time.perf_counter() - t0
+        return out
+
+    root = tempfile.mkdtemp(prefix="_engine_", dir=REPO)
+    loop.Trainer.train_one_epoch = timed
+    try:
+        run = os.path.join(root, "run")
+        reset_counts(wrappers)
+        cli_train.main(["--cfg", os.path.join(REPO, ENGINE_CFG),
+                        "--log_dir", run] + ENGINE_OVERRIDES)
+        launches = read_counts(wrappers)
+        check_counts(f"{phase} cli train", launches, engine_launches(
+            cfg.epochs * spe, cfg.epochs * val_batches))
+        ckpt = CheckpointManager(os.path.join(run, "ckpt"))
+        best = CheckpointManager(os.path.join(run, "ckpt_best"))
+        if ckpt.steps() != [spe, 2 * spe] or len(best.steps()) != 1:
+            raise AssertionError(f"{phase}: checkpoints {ckpt.steps()}, "
+                                 f"best {best.steps()}")
+        with open(os.path.join(run, "scalars.jsonl")) as f:
+            scalars = [json.loads(ln) for ln in f]
+        tags = {r["tag"] for r in scalars}
+        losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
+        if not {"train/loss", "val/acc"} <= tags or not losses or not all(
+                np.isfinite(losses)):
+            raise AssertionError(f"{phase}: scalars {sorted(tags)}, "
+                                 f"losses {losses}")
+
+        resumed = loop.Trainer(engine_config(epochs=3), run, device=DEVICE)
+        if (resumed.start_epoch, resumed.state.step) != (3, 2 * spe):
+            raise AssertionError(
+                f"{phase}: resumed at epoch {resumed.start_epoch}, step "
+                f"{resumed.state.step}")
+        reset_counts(wrappers)
+        resumed.fit()
+        check_counts(f"{phase} resumed epoch", read_counts(wrappers),
+                     engine_launches(spe, val_batches))
+        if resumed.state.step != 3 * spe:
+            raise AssertionError(f"{phase}: fit ended at step "
+                                 f"{resumed.state.step}")
+        again = loop.Trainer(engine_config(epochs=3, num_workers=0), run,
+                             device=DEVICE)
+        if (again.start_epoch, again.state.step) != (4, 3 * spe):
+            raise AssertionError(
+                f"{phase}: second resume at epoch {again.start_epoch}, "
+                f"step {again.state.step}")
+        want, got = _state_tensors(resumed.state), _state_tensors(again.state)
+        differ = [k for k in want if k not in got
+                  or not torch.equal(want[k], got[k])]
+        if differ or len(want) != len(got):
+            raise AssertionError(f"{phase}: restored state differs at "
+                                 f"{differ[:5]} ({len(differ)} tensors)")
+
+        out = io.StringIO()
+        reset_counts(wrappers)
+        with contextlib.redirect_stdout(out):
+            cli_evaluate.main(["--cfg", os.path.join(REPO, ENGINE_CFG),
+                               "--load_path", os.path.join(run, "ckpt"),
+                               "--log_dir", os.path.join(root, "eval")]
+                              + ENGINE_OVERRIDES)
+        check_counts(f"{phase} cli evaluate", read_counts(wrappers),
+                     engine_launches(0, val_batches))
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        ecfg = engine_config()
+        it = BatchIterator(build_dataset(ecfg, "test"), ecfg.batch_size,
+                           shuffle=False, feature_spec=ecfg.input_features,
+                           drop_last=False,
+                           spatial_sort=ecfg.spatial_sort == "host")
+        ref = evaluate_classification(ecfg, again.state, eval_logits, it)
+        if result["accuracy"] != ref["accuracy"]:
+            raise AssertionError(f"{phase}: cli accuracy {result}, the "
+                                 f"state's {ref}")
+
+        ckpt_ms = {"save": [], "restore": []}
+        timing = CheckpointManager(os.path.join(root, "timing"), keep=2)
+        for i in range(5):
+            t0 = time.perf_counter()
+            timing.save(again.state.step, again.state, extra={"epoch": 3})
+            ckpt_ms["save"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            timing.restore(again.state)
+            torch.cuda.synchronize()
+            ckpt_ms["restore"].append((time.perf_counter() - t0) * 1e3)
+        ckpt_bytes = os.path.getsize(os.path.join(
+            root, "timing", f"ckpt_{again.state.step}.pt"))
+
+        # the host's share: assembling a training batch, no device work
+        batch_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in again.train_iter:
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+        again.train_one_epoch(4)  # one more epoch without the prefetcher
+        again.writer.close()
+        with open(os.path.join(run, "scalars.jsonl")) as f:
+            scalars = [json.loads(ln) for ln in f]
+    finally:
+        loop.Trainer.train_one_epoch = untimed
+        shutil.rmtree(root, ignore_errors=True)
+    steps = _step_seconds(scalars, spe)
+    prefetched = [v for k, v in steps.items() if k <= 3 * spe]
+    plain = [v for k, v in steps.items() if k > 3 * spe]
+    rec = {"epoch_s": epoch_s, "step_s": steps,
+           "median_step_ms_prefetch": float(np.median(prefetched) * 1e3),
+           "median_step_ms_no_prefetch": float(np.median(plain) * 1e3),
+           "ckpt_save_ms": float(np.median(ckpt_ms["save"])),
+           "ckpt_restore_ms": float(np.median(ckpt_ms["restore"])),
+           "ckpt_bytes": ckpt_bytes, "launches": launches,
+           "median_batch_assembly_ms": float(np.median(batch_ms)),
+           "tensors_compared": len(want), "accuracy": result["accuracy"],
+           "seconds": time.perf_counter() - t_start}
+    log(phase, f"{gpu_line()} | cli train {cfg.epochs} epochs x {spe} steps "
+        f"of {cfg.batch_size} x {cfg.num_points} points (width "
+        f"{cfg.width}, depth {cfg.depth}, {cfg.precision}) + {val_batches} "
+        f"validation batches an epoch: epochs on the host's clock "
+        f"{ {k: round(v, 4) for k, v in epoch_s.items()} } s (1-3 "
+        f"prefetched, 4 without); median step "
+        f"{rec['median_step_ms_prefetch']:.3f} ms prefetched (epochs 1-3), "
+        f"{rec['median_step_ms_no_prefetch']:.3f} ms without (epoch 4); "
+        f"assembling a batch on the host alone "
+        f"{rec['median_batch_assembly_ms']:.3f} ms (median of "
+        f"{len(batch_ms)}); "
+        f"checkpoint ({ckpt_bytes} bytes) save "
+        f"{rec['ckpt_save_ms']:.3f} ms, restore {rec['ckpt_restore_ms']:.3f} "
+        f"ms; resume bit-equal over {len(want)} tensors; cli evaluate "
+        f"accuracy {result['accuracy']:.4f} (random start, 12 steps) equal "
+        f"to evaluate_classification's; phase {rec['seconds']:.2f} s")
+    return rec
+
+
 # ---- main -------------------------------------------------------------------
 
 REPLACES = {
@@ -3580,6 +3803,7 @@ def main() -> int:
                            for name in SEG_TRAIN_NAMES}
     record["device_sort"] = phase_device_sort(wrappers)
     record["s3dis_voting"] = phase_s3dis_voting(wrappers)
+    record["engine"] = phase_engine(wrappers)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}

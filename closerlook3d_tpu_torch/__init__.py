@@ -11,9 +11,11 @@ version (``ops/dispatch.py``). This package imports ``torch`` and never
 Ported so far: classification, part and scene segmentation with every
 operator family, served through ``serving.predictor.Predictor`` and
 trained through ``train/`` (``make_optimizer``, ``create_train_state``,
-``make_train_step``); the evaluators (``train/evaluate.py``), the dataset
-readers and factory (``data/``) and the device Morton sort
-(``ops/spatial.py``).
+``make_train_step``) and its engine (``train/loop.py::Trainer``, with
+checkpoints, auto-resume, validation and scalar logs); the evaluators
+(``train/evaluate.py``), the dataset readers and factory (``data/``), the
+device Morton sort (``ops/spatial.py``) and the command-line entry points
+(``cli/train.py``, with ``--check_data``, and ``cli/evaluate.py``).
 """
 
 __version__ = "0.1.0"

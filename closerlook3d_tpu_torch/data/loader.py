@@ -3,14 +3,17 @@
 Numpy only, as in the JAX package: ``BatchIterator`` stacks the samples of
 a len/__getitem__ dataset into fixed-shape batches; the train step moves
 them to the card. ``host_pipeline(cfg)`` gives its host-side options as
-the JAX package's ``Trainer`` sets them. Single process: the JAX
-package's per-process sharding (data parallelism) and its
-``PrefetchIterator`` are not ported yet.
+the JAX package's ``Trainer`` sets them, and ``PrefetchIterator`` builds
+the next batches in a thread while the card runs a step. Single process:
+the JAX package's per-process sharding (data parallelism) is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import functools
+import queue
+import threading
 from typing import Any, Dict, Iterator
 
 import numpy as np
@@ -119,3 +122,75 @@ def host_pipeline(cfg) -> Dict[str, Any]:
         transform = functools.partial(precompute_batch_geometry, cfg=cfg)
     return {"transform": transform,
             "spatial_sort": cfg.spatial_sort == "host" and transform is None}
+
+
+class PrefetchIterator:
+    """Builds a batch iterable's batches in a daemon thread, ``depth``
+    ahead, through a bounded queue (the JAX package's
+    ``PrefetchIterator``): batch assembly is numpy that releases the
+    interpreter lock, so it overlaps the train step's host work and its
+    device time. ``set_epoch`` and ``__len__`` delegate, so it stands in
+    for ``BatchIterator``; an exception in the producer is raised in the
+    consumer.
+
+    Every put, the end marker's included, waits for room in the queue
+    for as long as the consumer is there: a consumer that lags behind a
+    full queue still gets the marker, and one that leaves early (a
+    ``break``, an exception, one ``next``) releases the thread.
+    """
+
+    _DONE = object()
+
+    def __init__(self, base, depth: int = 2):
+        self.base = base
+        self.depth = depth
+
+    def __len__(self):
+        return len(self.base)
+
+    def set_epoch(self, epoch: int):
+        self.base.set_epoch(epoch)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        err = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for batch in self.base:
+                    if not put(batch):
+                        return
+            except BaseException as e:  # noqa: BLE001 - raised by the consumer
+                err.append(e)
+            put(self._DONE)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is self._DONE:
+                    break
+                yield item
+        finally:
+            # on exhaustion, and when the consumer leaves early: release
+            # the producer and drop what it had queued
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=5.0)
+        if err:
+            raise err[0]

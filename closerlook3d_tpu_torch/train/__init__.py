@@ -1,8 +1,7 @@
-"""Training: schedules and optimizer, train state, train and eval steps,
-metrics, the evaluators (``evaluate.py``).
-
-The engine around them (``Trainer``, checkpoints, logging, CLI) is not
-ported yet (ROADMAP A).
+"""Training: schedules and optimizers (SGD, AdamW), train state, train
+and eval steps, metrics, the evaluators (``evaluate.py``), checkpoints
+(``checkpoints.py``) and the engine that drives them (``loop.py::Trainer``,
+behind ``cli/train.py``).
 """
 
 from closerlook3d_tpu_torch.train.schedules import (  # noqa: F401

@@ -7,11 +7,16 @@ main schedule ``step - warmup_steps``. Epoch-denominated config values are
 converted with ``steps_per_epoch``.
 
 The optimizer is optax's chain of ``clip_by_global_norm`` (when
-``grad_clip > 0``), ``add_decayed_weights`` masked to parameters with
-ndim >= 2, and ``sgd`` with non-Nesterov momentum, carried out by
-``torch.optim.SGD`` over two parameter groups (with and without decay).
-Its update equals optax's: trace = momentum * trace + g + wd * p, then
-p -= lr * trace.
+``grad_clip > 0``) and then, for ``optimizer: sgd``,
+``add_decayed_weights`` masked to parameters with ndim >= 2 and ``sgd``
+with non-Nesterov momentum, carried out by ``torch.optim.SGD`` over two
+parameter groups (with and without decay). Its update equals optax's:
+trace = momentum * trace + g + wd * p, then p -= lr * trace. For
+``optimizer: adamw`` it is ``optax.adamw(lr, weight_decay=wd,
+mask=ndim >= 2)``, carried out by ``torch.optim.AdamW`` over the same two
+groups: b1 0.9, b2 0.999, eps 1e-8 outside the square root, and the
+decay decoupled from the moments and scaled by the LR,
+p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
 """
 
 from __future__ import annotations
@@ -84,32 +89,32 @@ def make_lr_schedule(cfg, steps_per_epoch: int) -> Schedule:
     return main
 
 
-class SGD:
-    """The optimizer recipe; ``init`` binds it to a model's parameters.
+class _Recipe:
+    """An optimizer recipe; ``init`` binds it to a model's parameters.
 
     ``update`` applies one step to the gradients in ``p.grad``: clip by
     global norm, set every group's LR to ``lr_schedule(count)`` (count =
-    updates already done, optax's ``count``), then ``torch.optim.SGD``.
+    updates already done, optax's ``count``), then the torch optimizer's
+    ``step``. Weight decay goes to parameters with ndim >= 2 alone.
     """
 
-    def __init__(self, lr_schedule: Schedule, momentum: float,
-                 weight_decay: float, grad_clip: float):
+    def __init__(self, lr_schedule: Schedule, weight_decay: float,
+                 grad_clip: float):
         self.lr_schedule = lr_schedule
-        self.momentum = momentum
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
 
-    def init(self, model: nn.Module) -> torch.optim.SGD:
+    def _groups(self, model: nn.Module) -> List[dict]:
         params = list(model.parameters())
-        groups = [{"params": [p for p in params if p.ndim >= 2],
-                   "weight_decay": self.weight_decay},
-                  {"params": [p for p in params if p.ndim < 2],
-                   "weight_decay": 0.0}]
-        return torch.optim.SGD(groups, lr=self.lr_schedule(0),
-                               momentum=self.momentum, dampening=0.0,
-                               nesterov=False)
+        return [{"params": [p for p in params if p.ndim >= 2],
+                 "weight_decay": self.weight_decay},
+                {"params": [p for p in params if p.ndim < 2],
+                 "weight_decay": 0.0}]
 
-    def update(self, opt: torch.optim.SGD, count: int) -> None:
+    def init(self, model: nn.Module) -> torch.optim.Optimizer:
+        raise NotImplementedError
+
+    def update(self, opt: torch.optim.Optimizer, count: int) -> None:
         if self.grad_clip > 0:
             clip_by_global_norm_(
                 [p.grad for g in opt.param_groups for p in g["params"]
@@ -118,6 +123,30 @@ class SGD:
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+
+
+class SGD(_Recipe):
+    """optax's ``add_decayed_weights`` + ``sgd`` (momentum, no Nesterov)."""
+
+    def __init__(self, lr_schedule: Schedule, momentum: float,
+                 weight_decay: float, grad_clip: float):
+        super().__init__(lr_schedule, weight_decay, grad_clip)
+        self.momentum = momentum
+
+    def init(self, model: nn.Module) -> torch.optim.SGD:
+        return torch.optim.SGD(self._groups(model), lr=self.lr_schedule(0),
+                               momentum=self.momentum, dampening=0.0,
+                               nesterov=False)
+
+
+class AdamW(_Recipe):
+    """optax's ``adamw`` with its default betas and eps."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def init(self, model: nn.Module) -> torch.optim.AdamW:
+        return torch.optim.AdamW(self._groups(model), lr=self.lr_schedule(0),
+                                 betas=(self.b1, self.b2), eps=self.eps)
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -130,13 +159,12 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(clip, (g / norm) * max_norm, g))
 
 
-def make_optimizer(cfg, steps_per_epoch: int) -> Tuple[SGD, Schedule]:
-    """(optimizer, lr schedule), as the JAX package's ``make_optimizer``."""
+def make_optimizer(cfg, steps_per_epoch: int) -> Tuple[_Recipe, Schedule]:
+    """(optimizer recipe, lr schedule), as the JAX package's
+    ``make_optimizer``."""
     lr = make_lr_schedule(cfg, steps_per_epoch)
     if cfg.optimizer == "sgd":
         return SGD(lr, cfg.momentum, cfg.weight_decay, cfg.grad_clip), lr
     if cfg.optimizer == "adamw":
-        raise NotImplementedError(
-            "optimizer 'adamw' is not ported yet (no config uses it; "
-            "ROADMAP A4)")
+        return AdamW(lr, cfg.weight_decay, cfg.grad_clip), lr
     raise ValueError(cfg.optimizer)

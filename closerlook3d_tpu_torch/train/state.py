@@ -2,26 +2,27 @@
 
 Where the JAX package keeps params, batch_stats and the optimizer state
 in one immutable pytree, the port keeps the model (parameters and
-BatchNorm running statistics), the optimizer recipe, the bound
-``torch.optim.SGD`` and the step count in one object that the train step
-updates in place.
+BatchNorm running statistics), the optimizer recipe (``SGD`` or
+``AdamW``), the bound torch optimizer and the step count in one object
+that the train step updates in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 from torch import nn
 
-from closerlook3d_tpu_torch.train.schedules import SGD
+from closerlook3d_tpu_torch.train.schedules import SGD, AdamW
 
 
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
-    tx: SGD
-    optimizer: torch.optim.SGD
+    tx: Union[SGD, AdamW]
+    optimizer: torch.optim.Optimizer
     step: int = 0
 
     def apply_gradients(self) -> None:
@@ -30,11 +31,26 @@ class TrainState:
         self.step += 1
 
 
-def create_train_state(model: nn.Module, tx: SGD,
+def require_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises where it names a CUDA
+    device and there is none, so no entry point falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for and CUDA is not available; "
+            f"pass device='cpu' (--device cpu) to run on the CPU")
+    return device
+
+
+def create_train_state(model: nn.Module, tx: Union[SGD, AdamW],
                        device="cuda") -> TrainState:
     """Move ``model`` of any task (weights as built: the task's builder,
     e.g. ``build_classification``, seeds them with ``cfg.rng_seed``, where
     the JAX package draws them here) to ``device`` and bind the optimizer
     to its parameters."""
-    model = model.to(torch.device(device))
+    model = model.to(require_device(device))
     return TrainState(model=model, tx=tx, optimizer=tx.init(model))
+
+
+def param_count(state: TrainState) -> int:
+    return sum(p.numel() for p in state.model.parameters())

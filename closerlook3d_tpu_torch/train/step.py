@@ -74,6 +74,10 @@ def _forward(model, batch, generator=None):
                  geometry=batch_geometry(batch), generator=generator)
 
 
+def _device_of(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
 def make_train_step(loss_fn: Callable, task: str,
                     num_parts: Optional[Sequence[int]] = None):
     """The model is the state's; metrics are {"loss", "acc"} from the
@@ -81,7 +85,7 @@ def make_train_step(loss_fn: Callable, task: str,
     as ``task_metrics``')."""
     def train_step(state: TrainState, batch, seed: int):
         model = state.model
-        device = next(model.parameters()).device
+        device = _device_of(state)
         batch = _to_device(batch, device)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -98,15 +102,22 @@ def make_train_step(loss_fn: Callable, task: str,
     return train_step
 
 
+def eval_logits(state: TrainState, batch) -> torch.Tensor:
+    """The state's model's logits for ``batch`` (xyz, mask, features and
+    any ``geom_*``) in eval mode, on the model's device: the forward of
+    ``make_eval_step``'s steps, for the evaluators."""
+    state.model.eval()
+    with torch.inference_mode():
+        return _forward(state.model, _to_device(batch, _device_of(state)))
+
+
 def make_eval_step(loss_fn: Callable, task: str,
                    num_parts: Optional[Sequence[int]] = None):
     """eval_step(state, batch) -> (logits, {"loss", "acc"}), eval mode."""
     def eval_step(state: TrainState, batch):
-        model = state.model
-        batch = _to_device(batch, next(model.parameters()).device)
-        model.eval()
+        batch = _to_device(batch, _device_of(state))
+        logits = eval_logits(state, batch)
         with torch.inference_mode():
-            logits = _forward(model, batch)
             loss = apply_task_loss(task, loss_fn, logits, batch)
             return logits, {"loss": loss,
                             **task_metrics(task, logits, batch, num_parts)}

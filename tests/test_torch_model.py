@@ -252,14 +252,29 @@ def test_port_imports_no_jax():
         "import closerlook3d_tpu_torch.parallel.collectives\n"
         "import closerlook3d_tpu_torch.train.evaluate\n"
         "for m in ('transforms', 's3dis', 'modelnet40', 'shapenetpart',\n"
-        "          'partnet', 'build', 'geometry'):\n"
+        "          'partnet', 'build', 'geometry', 'check', 'loader'):\n"
         "    __import__('closerlook3d_tpu_torch.data.' + m)\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'ml_collections',\n"
-        "                   'closerlook3d_tpu', 'h5py', 'scipy')\n"
+        "for m in ('train.loop', 'train.checkpoints', 'train.schedules',\n"
+        "          'utils.logger', 'utils.tb', 'utils.profiling',\n"
+        "          'cli.train', 'cli.evaluate'):\n"
+        "    __import__('closerlook3d_tpu_torch.' + m)\n"
+        "from closerlook3d_tpu_torch.data.loader import PrefetchIterator\n"
+        "from closerlook3d_tpu_torch.train.schedules import AdamW\n"
+        "from closerlook3d_tpu_torch.utils.config import (\n"
+        "    parse_overrides, read_yaml)\n"
+        "c = load_config('configs/modelnet40/pospool_xyz_avg.yaml',\n"
+        "                parse_overrides(['epochs=3', 'nsamples=[8, 8]',\n"
+        "                                 'weight_decay=1.0e-4']))\n"
+        "assert c.num_points == 5000 and c.nsamples == [8, 8]\n"
+        "assert read_yaml('configs/s3dis/pseudo_grid.yaml')['radius'] == 0.1\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'ml_collections',\n"
+        "                   'closerlook3d_tpu', 'h5py', 'scipy', 'yaml',\n"
+        "                   'tensorflow', 'tensorboard')\n"
         "       if m in sys.modules]\n"
         "bad += [m for m in sys.modules\n"
-        "        if m.startswith(('jax.', 'flax.', 'optax.',\n"
-        "                         'closerlook3d_tpu.', 'h5py.', 'scipy.'))]\n"
+        "        if m.startswith(('jax.', 'flax.', 'optax.', 'orbax.',\n"
+        "                         'closerlook3d_tpu.', 'h5py.', 'scipy.',\n"
+        "                         'yaml.', 'tensorflow.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
