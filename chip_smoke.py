@@ -78,6 +78,13 @@ with every check raising on failure and no CPU fallback:
   checkpoints and exact launch counts; a resumed ``Trainer`` whose
   restored state equals the saved one bit for bit; the evaluate CLI on
   the last checkpoint, equal to ``evaluate_classification``;
+* serving export: for the flagship, the four other ModelNet40 operator
+  configs (depth 1, 8 clouds), ShapeNetPart and S3DIS, exports the eval
+  forward with ``serving/export.py`` (no kernel launches), saves and
+  loads the artifact, serves 3 requests with exactly the launches and
+  the logits (to the bit) of ``Predictor``'s eager requests, checks that
+  a request of the wrong shape raises, and times the artifact against
+  ``Predictor`` in turns; and the ``cl3d`` op's dispatch cost a call;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -3587,6 +3594,279 @@ def phase_engine(wrappers) -> dict:
     return rec
 
 
+# ---- export: the artifact of serving/export.py ---------------------------
+
+EXPORT_NAMES = ("flagship", "sincos", "adaptive", "pwmlp", "pgrid",
+                "shapenetpart", "s3dis")
+# the ModelNet40 operator configs export at depth 1 and 8 clouds (full
+# width and points), so that the phase stays near a minute
+EXPORT_OPERATOR_DEPTH = 1
+EXPORT_OPERATOR_BATCH = 8
+# the kernel each configuration is in the phase for (beside the ball
+# query, and FPS or the grid, the PosPool xyz and the max of every one)
+EXPORT_KERNELS = {"flagship": ("pospool_xyz", "fps"),
+                  "sincos": ("pospool_sincos",), "adaptive": ("moments",),
+                  "pwmlp": ("gather_sub_minmax",), "pgrid": ("pseudo_grid",),
+                  "shapenetpart": ("knn",), "s3dis": ("knn1", "knn")}
+
+
+def export_config(name: str):
+    """The configuration of ``phase_export``'s ``name``: the flagship, a
+    ModelNet40 operator config (``operator_config``) at depth 1 and 8
+    clouds, or a segmentation serving config as ``phase_seg_serving``
+    serves it."""
+    if name == "flagship":
+        return flagship_config()
+    if name in SEG_NAMES:
+        return seg_config(name)
+    cfg = operator_config(name)
+    cfg.depth = EXPORT_OPERATOR_DEPTH
+    cfg.batch_size = EXPORT_OPERATOR_BATCH
+    return cfg
+
+
+def export_batch(cfg, name: str, seed: int, padded: bool) -> dict:
+    """A request's batch: clouds 1 and the last padded when ``padded``."""
+    nb = cfg.batch_size
+    pad = (1, nb - 1) if padded else ()
+    if name in SEG_NAMES:
+        return seg_batch(cfg, seed, padded=pad)
+    return make_batch(seed, padded=pad, batch=nb, points=cfg.num_points)
+
+
+def _turns(fns, batches, n: int) -> list:
+    """Host-clock ms of ``n`` requests of each function of ``fns``, read in
+    turns (in order, then in reverse, ...) over ``batches``, each ending in
+    a synchronize, after a warm-up request of each per batch: a sorted
+    list per function."""
+    for bt in batches:
+        for fn in fns:
+            fn(bt["xyz"], bt["mask"], bt["features"])
+    torch.cuda.synchronize()
+    lat = [[] for _ in fns]
+    for i in range(n):
+        bt = batches[i % len(batches)]
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            t0 = time.perf_counter()
+            fns[j](bt["xyz"], bt["mask"], bt["features"])
+            torch.cuda.synchronize()
+            lat[j].append((time.perf_counter() - t0) * 1e3)
+    return [sorted(t) for t in lat]
+
+
+def _export_one(name: str, wrappers, root: str) -> dict:
+    """Export, save, load and serve one configuration (see
+    ``phase_export``)."""
+    import shutil
+
+    from closerlook3d_tpu_torch.serving import (
+        Predictor, export_forward, load_forward)
+
+    phase = f"export:{name}"
+    cfg = export_config(name)
+    weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 30))
+    predictor = Predictor(cfg, weights, device=DEVICE)
+    out_dir = os.path.join(root, name)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    export_forward(cfg, predictor.model, out_dir)
+    export_s = time.perf_counter() - t0
+    check_counts(f"{phase}: the export", read_counts(wrappers),
+                 dict.fromkeys(wrappers, 0))
+    nbytes = {f: os.path.getsize(os.path.join(out_dir, f))
+              for f in sorted(os.listdir(out_dir))}
+    t0 = time.perf_counter()
+    artifact, meta = load_forward(out_dir)
+    load_s = time.perf_counter() - t0
+    if meta["platforms"] != [torch.device(DEVICE).type]:
+        raise AssertionError(f"{phase}: platforms {meta['platforms']}")
+    graph_ops = {}
+    for node in artifact._forward.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith(
+                "cl3d."):
+            key = str(node.target)
+            graph_ops[key] = graph_ops.get(key, 0) + 1
+
+    batches = [export_batch(cfg, name, SEED + 700 + r, padded=r == 1)
+               for r in range(REQUESTS)]
+    expected = None
+    if name == "flagship":
+        expected = launches_per("xyz", "forward")
+    elif name in SEG_NAMES:
+        expected = seg_launches(cfg)
+    diffs = []
+    for i, bt in enumerate(batches):
+        args = (bt["xyz"], bt["mask"], bt["features"])
+        reset_counts(wrappers)
+        ref = predictor(*args)
+        torch.cuda.synchronize()
+        eager = read_counts(wrappers)
+        if expected is None:  # depth 1: the eager request's own count
+            expected = eager
+        check_counts(f"{phase}: Predictor request {i}", eager, expected)
+        reset_counts(wrappers)
+        got = artifact(*args)
+        torch.cuda.synchronize()
+        check_counts(f"{phase}: artifact request {i}", read_counts(wrappers),
+                     expected)
+        if (got.shape != ref.shape or got.dtype != torch.float32
+                or not torch.isfinite(got).all()):
+            raise AssertionError(f"{phase}: request {i} logits "
+                                 f"{tuple(got.shape)} {got.dtype}")
+        diffs.append(float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{phase}: request {i}: artifact logits "
+                                 f"differ from Predictor's by up to "
+                                 f"{diffs[-1]:.3g}")
+    for k in EXPORT_KERNELS[name]:
+        if not expected[k]:
+            raise AssertionError(f"{phase}: {k} not on the path")
+    bt = batches[0]
+    half = cfg.num_points // 2
+    wrong = (bt["xyz"][:, :half], bt["mask"][:, :half],
+             bt["features"][:, :half])
+    refused = {}
+    for what, fn in (("ExportedPredictor", artifact),
+                     ("the exported program", lambda *a: artifact._forward(
+                         *(torch.as_tensor(x, device=DEVICE) for x in a)))):
+        try:
+            fn(*wrong)
+        except Exception as e:  # noqa: BLE001 - any refusal will do
+            refused[what] = type(e).__name__
+        else:
+            raise AssertionError(f"{phase}: {what} served a request of "
+                                 f"{half} points")
+    # the program as saved, with torch.export's metadata asserts, which
+    # load_forward drops (serving/export.py::without_metadata_asserts)
+    kept = torch.export.load(os.path.join(out_dir, "forward.pt2")).module()
+    n_asserts = sum(1 for node in kept.graph.nodes
+                    if "_assert_tensor_metadata" in str(node.target))
+
+    def with_asserts(xyz, mask, features):
+        with torch.inference_mode():
+            return kept(*(torch.as_tensor(x, device=DEVICE)
+                          for x in (xyz, mask, features)))
+
+    if not torch.equal(with_asserts(*args), got):
+        raise AssertionError(f"{phase}: the program with its asserts "
+                             f"differs")
+    lat_p, lat_a, lat_k = _turns((predictor, artifact, with_asserts),
+                                 batches, 10)
+    med_p, med_a, med_k = (t[len(t) // 2] for t in (lat_p, lat_a, lat_k))
+    busy = {}
+    for label, fn, med in (("predictor", predictor, med_p),
+                           ("artifact", artifact, med_a)):
+        _, busy[label] = _profiled(
+            lambda fn=fn: fn(bt["xyz"], bt["mask"], bt["features"]), 3, med)
+    n_launch = sum(expected.values())
+    log(phase, f"{gpu_line()} | {cfg.batch_size} x {cfg.num_points} points, "
+        f"width {cfg.width}, depth {cfg.depth}, {cfg.precision}: export "
+        f"{export_s:.3f} s (0 launches), {sum(nbytes.values())} bytes "
+        f"{nbytes}, load {load_s:.3f} s; graph {graph_ops}; {REQUESTS} "
+        f"requests (the second padded) launched {n_launch} kernels each, "
+        f"as Predictor's: "
+        + str({k: v for k, v in expected.items() if v})
+        + f"; logits equal to Predictor's to the bit; a request of {half} "
+        f"points refused ({refused}); request median in turns over 10 "
+        f"each: artifact {med_a:.3f} ms, Predictor {med_p:.3f} ms, the "
+        f"program with its {n_asserts} metadata asserts {med_k:.3f} ms; "
+        f"device busy a request (profiler, 3 requests): artifact "
+        f"{busy['artifact']['device_busy_ms']:.3f} ms, Predictor "
+        f"{busy['predictor']['device_busy_ms']:.3f} ms")
+    del artifact, predictor, kept
+    shutil.rmtree(out_dir)
+    return {"export_s": export_s, "artifact_bytes": nbytes, "load_s": load_s,
+            "graph_ops": graph_ops, "launches_per_request": expected,
+            "max_abs_diff": max(diffs), "refused": refused,
+            "request_ms_artifact": lat_a, "request_ms_predictor": lat_p,
+            "request_ms_median_artifact": med_a,
+            "request_ms_median_predictor": med_p,
+            "request_ms_with_asserts": lat_k,
+            "request_ms_median_with_asserts": med_k,
+            "metadata_asserts": n_asserts, "split": busy,
+            "batch": cfg.batch_size, "points": cfg.num_points,
+            "depth": cfg.depth}
+
+
+def _dispatch_cost(reps: int = 400, block: int = 50) -> dict:
+    """Host us a call of ``torch.ops.cl3d.neighborhood_max`` against its
+    wrapper ``neighborhood_max_cuda`` called directly, at the flagship's
+    first strided call, in blocks of ``block`` calls read in turns: the
+    cost of the op's dispatch, which every kernel call of an eval forward
+    pays once."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+    from closerlook3d_tpu_torch.ops.grouping import neighborhood_max_cuda
+    from closerlook3d_tpu_torch.utils.config import stage_plan
+
+    cfg = flagship_config()
+    bt = make_batch(SEED + 710)
+    dev = torch.device(DEVICE)
+    with torch.inference_mode():
+        g = compute_geometry(cfg, torch.from_numpy(bt["xyz"]).to(dev),
+                             torch.from_numpy(bt["mask"]).to(dev))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 711)
+        f = _features(gen, g["xyz_0"], stage_plan(cfg)["widths"][0],
+                      torch.bfloat16)
+        args = (f, g["sidx_1"], g["smask_1"])
+        op = torch.ops.cl3d.neighborhood_max.default
+        if not torch.equal(op(*args), neighborhood_max_cuda(*args)):
+            raise AssertionError("cl3d.neighborhood_max differs from its "
+                                 "wrapper")
+        us = {"op": [], "wrapper": []}
+        for i in range(2 * reps // block):
+            name = ("op", "wrapper", "wrapper", "op")[i % 4]
+            fn = op if name == "op" else neighborhood_max_cuda
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(block):
+                fn(*args)
+            us[name].append((time.perf_counter() - t0) * 1e6 / block)
+            torch.cuda.synchronize()
+    med = {k: float(np.median(v)) for k, v in us.items()}
+    calls = sum(launches_per("xyz", "forward").values())
+    out = {"op_us": med["op"], "wrapper_us": med["wrapper"],
+           "dispatch_us": med["op"] - med["wrapper"],
+           "calls_per_flagship_request": calls,
+           "dispatch_ms_per_flagship_request":
+               (med["op"] - med["wrapper"]) * calls / 1e3}
+    log("export:dispatch", f"{gpu_line()} | host us a call at the flagship's "
+        f"first strided max, median of {reps // block} blocks of {block} "
+        f"each, in turns: cl3d op {med['op']:.2f}, wrapper "
+        f"{med['wrapper']:.2f}: the op's dispatch {out['dispatch_us']:.2f} "
+        f"us a call, {out['dispatch_ms_per_flagship_request']:.4f} ms over "
+        f"the {calls} kernel calls of a flagship request")
+    return out
+
+
+def phase_export(wrappers) -> dict:
+    """``serving/export.py`` on the card, for every configuration of
+    ``EXPORT_NAMES`` (together they put every ``cl3d`` op into an
+    exported program): export the eval forward (no kernel launches),
+    save, load it back from disk, serve 3 requests (the second with
+    padded clouds) with exactly the launches of ``Predictor``'s eager
+    request on the same batch (``launches_per("xyz", "forward")``,
+    ``seg_launches``, or the eager count for the depth-1 configs) and
+    logits equal to its to the bit; refuse a request of half the points;
+    time requests of the artifact and of ``Predictor`` in turns. Then the
+    op's dispatch cost a call (``_dispatch_cost``)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, f"_export_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    try:
+        out = {name: _export_one(name, wrappers, root)
+               for name in EXPORT_NAMES}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["dispatch"] = _dispatch_cost()
+    out["seconds"] = time.perf_counter() - t0
+    log("export", f"{len(EXPORT_NAMES)} configurations exported, loaded "
+        f"and served in {out['seconds']:.1f} s")
+    return out
+
+
 # ---- main -------------------------------------------------------------------
 
 REPLACES = {
@@ -3804,6 +4084,7 @@ def main() -> int:
     record["device_sort"] = phase_device_sort(wrappers)
     record["s3dis_voting"] = phase_s3dis_voting(wrappers)
     record["engine"] = phase_engine(wrappers)
+    record["export"] = phase_export(wrappers)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}

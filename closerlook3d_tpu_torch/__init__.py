@@ -9,7 +9,9 @@ version (``ops/dispatch.py``). This package imports ``torch`` and never
 ``jax``, ``flax``, ``ml_collections`` or ``closerlook3d_tpu``.
 
 Ported so far: classification, part and scene segmentation with every
-operator family, served through ``serving.predictor.Predictor`` and
+operator family, served through ``serving.predictor.Predictor`` or an
+exported artifact (``serving/export.py``, ``cli/export.py``: each kernel
+family a ``cl3d`` op of ``ops/library.py``) and
 trained through ``train/`` (``make_optimizer``, ``create_train_state``,
 ``make_train_step``) and its engine (``train/loop.py::Trainer``, with
 checkpoints, auto-resume, validation and scalar logs); the evaluators

@@ -17,6 +17,10 @@
   group_features, masked_* reductions, grid_subsample, nearest_upsample,
   three_interpolate: plain PyTorch (no kernel in either package; the
   last two reach knn).
+
+Importing this package registers the ``cl3d`` ops (``library.py``): each
+forward family that an eval forward reaches, and ``grid_subsample``, as
+one ``torch.library`` op that ``torch.export`` captures.
 """
 
 from closerlook3d_tpu_torch.ops.aggregation import pospool_fused  # noqa: F401

@@ -9,7 +9,9 @@ no gradient, as in the JAX package's custom VJPs). On CUDA tensors a
 ``csrc/pospool_xyz.cu`` or ``csrc/pospool_sincos.cu`` forward and
 backward; on CPU tensors the plain PyTorch version, the JAX package's
 gather path (``models/aggregation.py`` ``_pospool``), runs under ordinary
-autograd.
+autograd. The forward of either embedding is the op ``cl3d::pospool``
+(``ops/library.py``): the ``autograd.Function`` calls it, and so does
+``pospool_fused`` wherever grad is off (eval, ``torch.export``).
 
 The sin/cos embedding keeps dp in f32 for its angles and rounds the
 embedding to the features' dtype, as the TPU kernel takes its angles from
@@ -24,7 +26,7 @@ import functools
 
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     REDUCTIONS, group_features, neighbor_offsets, reduction_grad,
@@ -289,9 +291,8 @@ class _PosPool(torch.autograd.Function):
                 radius: float, mode: str, reduction: str):
         ctx.save_for_backward(query_xyz, support_xyz, idx, mask)
         ctx.radius, ctx.mode, ctx.reduction = radius, mode, reduction
-        fwd = pospool_xyz_cuda if mode == "xyz" else pospool_sincos_cuda
-        return fwd(query_xyz, support_xyz, features, idx, mask, radius,
-                   reduction)
+        return _pospool_op(query_xyz, support_xyz, features, idx, mask,
+                           radius, mode, reduction)
 
     @staticmethod
     def backward(ctx, dy):
@@ -322,9 +323,33 @@ def pospool_fused(query_xyz, support_xyz, features, idx, mask,
     if features.shape[-1] % CHANNEL_MULTIPLE[mode] != 0:
         raise ValueError(f"{mode} PosPool needs channels % "
                          f"{CHANNEL_MULTIPLE[mode]} == 0")
+    if not torch.is_grad_enabled():
+        return _pospool_op(query_xyz, support_xyz, features, idx, mask,
+                           float(radius), mode, reduction)
     if use_kernel(features):
         return _PosPool.apply(query_xyz, support_xyz, features, idx, mask,
                               float(radius), mode, reduction)
     plain = pospool_xyz_plain if mode == "xyz" else pospool_sincos_plain
     return plain(query_xyz, support_xyz, features, idx, mask, radius,
                  reduction)
+
+
+def _pospool_impl(query_xyz, support_xyz, features, idx, mask, radius, mode,
+                  reduction):
+    if use_kernel(features):
+        fwd = pospool_xyz_cuda if mode == "xyz" else pospool_sincos_cuda
+    else:
+        fwd = pospool_xyz_plain if mode == "xyz" else pospool_sincos_plain
+    return fwd(query_xyz, support_xyz, features, idx, mask, radius,
+               reduction).contiguous()
+
+
+def _pospool_fake(query_xyz, support_xyz, features, idx, mask, radius, mode,
+                  reduction):
+    return features.new_empty((*idx.shape[:2], features.shape[-1]))
+
+
+_pospool_op = library.define(
+    "pospool(Tensor query_xyz, Tensor support_xyz, Tensor features, "
+    "Tensor idx, Tensor mask, float radius, str mode, str reduction) "
+    "-> Tensor", _pospool_impl, _pospool_fake)

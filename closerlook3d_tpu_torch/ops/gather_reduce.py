@@ -18,7 +18,9 @@ slot. ``neighborhood_sum(f, idx, mask)`` (K13) gives the masked sum of
 f[idx] in f's dtype. The ops are differentiable in their float inputs. On
 CUDA tensors a ``torch.autograd.Function`` runs the kernels of
 ``csrc/gather_reduce.cu``; on CPU tensors the plain gather version runs
-under ordinary autograd.
+under ordinary autograd. K7f, which an eval-mode forward reaches, is the
+op ``cl3d::gather_sub_minmax`` (``ops/library.py``); K6f and K13, reached
+only in train mode, are plain launches.
 
 Route: ``pwmlp_minmax_stats`` composes K13 over [g, gsq] and K7 against a
 zero query term where the batch holds at most 64 queries (B·Nq <= 64),
@@ -51,7 +53,7 @@ from __future__ import annotations
 
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     group_features, masked_max, masked_min, masked_sum, scatter_to_support)
@@ -372,7 +374,7 @@ class _GatherSubMinmax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, d, idx, mask):
-        hmax, hmin = gather_sub_minmax_cuda(g, d, idx, mask)
+        hmax, hmin = _gather_sub_minmax_op(g, d, idx, mask)
         ctx.save_for_backward(g, d, idx, mask, hmax, hmin)
         return hmax, hmin
 
@@ -444,7 +446,27 @@ def gather_sub_minmax(g, d, idx, mask):
     """(hmax, hmin), each [B, Nq, C] f32 and 0 where a neighborhood is
     empty: masked max and min of h = g[idx] - d, computed in f32. g
     [B,Ns,C] and d [B,Nq,C] in one dtype (bf16 or f32); idx [B,Nq,K]
-    int32; mask [B,Nq,K] bool. Differentiable in g and d."""
+    int32; mask [B,Nq,K] bool. Differentiable in g and d. The forward is
+    the op ``cl3d::gather_sub_minmax`` (``ops/library.py``), which the
+    ``autograd.Function`` calls and, where grad is off, this function."""
+    if not torch.is_grad_enabled():
+        return _gather_sub_minmax_op(g, d, idx, mask)
     if use_kernel(g):
         return _GatherSubMinmax.apply(g, d, idx, mask)
     return gather_sub_minmax_plain(g, d, idx, mask)
+
+
+def _gather_sub_minmax_impl(g, d, idx, mask):
+    fwd = gather_sub_minmax_cuda if use_kernel(g) else gather_sub_minmax_plain
+    return library.contiguous(*fwd(g, d, idx, mask))
+
+
+def _gather_sub_minmax_fake(g, d, idx, mask):
+    shape = (*idx.shape[:2], g.shape[-1])
+    return (g.new_empty(shape, dtype=torch.float32),
+            g.new_empty(shape, dtype=torch.float32))
+
+
+_gather_sub_minmax_op = library.define(
+    "gather_sub_minmax(Tensor g, Tensor d, Tensor idx, Tensor mask) "
+    "-> (Tensor, Tensor)", _gather_sub_minmax_impl, _gather_sub_minmax_fake)

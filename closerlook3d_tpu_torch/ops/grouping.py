@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.neighbors import MAX_K
 from closerlook3d_tpu_torch.ops.reverse_index import launch_backward_gather
@@ -212,7 +212,7 @@ class _NeighborhoodMax(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, features, idx, mask):
-        out = neighborhood_max_cuda(features, idx, mask)
+        out = _neighborhood_max_op(features, idx, mask)
         ctx.save_for_backward(features, idx, mask, out)
         return out
 
@@ -235,10 +235,31 @@ def neighborhood_max(features: torch.Tensor, idx: torch.Tensor,
     bool or None (all valid). A CUDA tensor launches the kernels at every
     support size (the JAX package's switch to its Pallas kernel at
     Ns >= 2048 was a TPU speed choice); a CPU tensor takes the plain
-    version.
+    version; either through the op ``cl3d::neighborhood_max``
+    (``ops/library.py``), which the ``autograd.Function`` calls and, where
+    grad is off, this function.
     """
+    if not torch.is_grad_enabled():
+        return _neighborhood_max_op(features, idx, mask)
     if use_kernel(features):
         if mask is None:
             mask = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
         return _NeighborhoodMax.apply(features, idx, mask)
     return neighborhood_max_plain(features, idx, mask)
+
+
+def _neighborhood_max_impl(features, idx, mask):
+    if use_kernel(features):
+        if mask is None:
+            mask = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+        return neighborhood_max_cuda(features, idx, mask)
+    return neighborhood_max_plain(features, idx, mask).contiguous()
+
+
+def _neighborhood_max_fake(features, idx, mask):
+    return features.new_empty((*idx.shape[:2], features.shape[-1]))
+
+
+_neighborhood_max_op = library.define(
+    "neighborhood_max(Tensor features, Tensor idx, Tensor? mask) -> Tensor",
+    _neighborhood_max_impl, _neighborhood_max_fake)

@@ -11,14 +11,16 @@ features (positions get no gradient, as in the JAX ``_moments_vjp``). The
 adaptive-weight operator with one linear FC on dp and no softmax
 factorizes through it (``models/aggregation.py``). On CUDA tensors a
 ``torch.autograd.Function`` runs the kernels of ``csrc/moments.cu``; on CPU
-tensors the plain gather version runs under ordinary autograd.
+tensors the plain gather version runs under ordinary autograd. The
+forward is the op ``cl3d::neighborhood_moments`` (``ops/library.py``),
+called by the ``autograd.Function`` and, where grad is off, directly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.aggregation import (
     check_neighborhood_call, launch_neighborhood_kernel)
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
@@ -118,8 +120,8 @@ class _Moments(torch.autograd.Function):
                 radius: float, reduction: str):
         ctx.save_for_backward(query_xyz, support_xyz, idx, mask)
         ctx.radius, ctx.reduction = radius, reduction
-        return neighborhood_moments_cuda(query_xyz, support_xyz, features,
-                                         idx, mask, radius, reduction)
+        return _moments_op(query_xyz, support_xyz, features, idx, mask,
+                           radius, reduction)
 
     @staticmethod
     def backward(ctx, dy):
@@ -141,8 +143,30 @@ def neighborhood_moments(query_xyz, support_xyz, features, idx, mask,
     if reduction not in ("avg", "sum"):
         raise ValueError(f"moments reduction must be avg|sum, got "
                          f"{reduction!r}")
+    if not torch.is_grad_enabled():
+        return _moments_op(query_xyz, support_xyz, features, idx, mask,
+                           float(radius), reduction)
     if use_kernel(features):
         return _Moments.apply(query_xyz, support_xyz, features, idx, mask,
                               float(radius), reduction)
     return neighborhood_moments_plain(query_xyz, support_xyz, features, idx,
                                       mask, radius, reduction)
+
+
+def _moments_impl(query_xyz, support_xyz, features, idx, mask, radius,
+                  reduction):
+    fwd = (neighborhood_moments_cuda if use_kernel(features)
+           else neighborhood_moments_plain)
+    return fwd(query_xyz, support_xyz, features, idx, mask, radius,
+               reduction).contiguous()
+
+
+def _moments_fake(query_xyz, support_xyz, features, idx, mask, radius,
+                  reduction):
+    return features.new_empty((*idx.shape[:2], 4 * features.shape[-1]))
+
+
+_moments_op = library.define(
+    "neighborhood_moments(Tensor query_xyz, Tensor support_xyz, "
+    "Tensor features, Tensor idx, Tensor mask, float radius, "
+    "str reduction) -> Tensor", _moments_impl, _moments_fake)

@@ -11,8 +11,10 @@ semantics, layouts and dtypes as ``closerlook3d_tpu/ops/neighbors.py``'s
 
 ``ball_query`` runs the CUDA kernel of ``csrc/ball_query.cu`` and ``knn``
 that of ``csrc/knn.cu`` on CUDA tensors, the plain PyTorch versions on
-CPU tensors. The ball query and the 1-NN from 1024 supports up share one
-exact pruned nearest-support search (``csrc/support_tiles.cuh``).
+CPU tensors, each through its op ``cl3d::ball_query`` or ``cl3d::knn``
+(``ops/library.py``). The ball query and the 1-NN from 1024 supports up
+share one exact pruned nearest-support search
+(``csrc/support_tiles.cuh``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 
 _BIG = 1e10  # exactly representable in f32 (2^10 * 9765625)
@@ -217,11 +219,32 @@ def ball_query(
       mask [B, Nq, K] bool: True where the slot is a real in-radius
            neighbor of a real query point.
     """
+    return _ball_query_op(query_xyz, support_xyz, float(radius),
+                          int(nsample), query_mask, support_mask, chunk_size)
+
+
+def _ball_query_impl(query_xyz, support_xyz, radius, nsample, query_mask,
+                     support_mask, chunk_size):
     if use_kernel(query_xyz):
         return ball_query_cuda(query_xyz, support_xyz, radius, nsample,
                                query_mask, support_mask)
-    return ball_query_plain(query_xyz, support_xyz, radius, nsample,
-                            query_mask, support_mask, chunk_size)
+    return library.contiguous(*ball_query_plain(
+        query_xyz, support_xyz, radius, nsample, query_mask, support_mask,
+        chunk_size))
+
+
+def _ball_query_fake(query_xyz, support_xyz, radius, nsample, query_mask,
+                     support_mask, chunk_size):
+    shape = (*query_xyz.shape[:2], nsample)
+    return (query_xyz.new_empty(shape, dtype=torch.int32),
+            query_xyz.new_empty(shape, dtype=torch.bool))
+
+
+_ball_query_op = library.define(
+    "ball_query(Tensor query_xyz, Tensor support_xyz, float radius, "
+    "int nsample, Tensor? query_mask, Tensor? support_mask, "
+    "int? chunk_size) -> (Tensor, Tensor)",
+    _ball_query_impl, _ball_query_fake)
 
 
 def knn_plain(query_xyz, support_xyz, k: int, support_mask=None,
@@ -339,8 +362,24 @@ def knn(
     repeat the nearest index at distance 1e10. ``chunk_size``: queries per
     chunk of the plain version, as ``ball_query``'s.
     """
+    return _knn_op(query_xyz, support_xyz, int(k), support_mask, chunk_size)
+
+
+def _knn_impl(query_xyz, support_xyz, k, support_mask, chunk_size):
     if use_kernel(query_xyz):
         if k == 1 and support_xyz.shape[1] >= KNN1_CHUNKED_MIN_SUPPORT:
             return knn1_cuda(query_xyz, support_xyz, 1, support_mask)
         return knn_cuda(query_xyz, support_xyz, k, support_mask)
-    return knn_plain(query_xyz, support_xyz, k, support_mask, chunk_size)
+    return library.contiguous(*knn_plain(query_xyz, support_xyz, k,
+                                         support_mask, chunk_size))
+
+
+def _knn_fake(query_xyz, support_xyz, k, support_mask, chunk_size):
+    shape = (*query_xyz.shape[:2], k)
+    return (query_xyz.new_empty(shape, dtype=torch.int32),
+            query_xyz.new_empty(shape, dtype=torch.float32))
+
+
+_knn_op = library.define(
+    "knn(Tensor query_xyz, Tensor support_xyz, int k, Tensor? support_mask, "
+    "int? chunk_size) -> (Tensor, Tensor)", _knn_impl, _knn_fake)

@@ -15,7 +15,9 @@ JAX package's custom VJP). The per-kernel-point weight matmul stays in
 the model (``models/aggregation.py``). On CUDA tensors a
 ``torch.autograd.Function`` runs the kernels of ``csrc/pseudo_grid.cu``
 forward and backward; on CPU tensors the plain PyTorch version runs
-under ordinary autograd.
+under ordinary autograd. The forward is the op ``cl3d::pseudo_grid``
+(``ops/library.py``), called by the ``autograd.Function`` and, where
+grad is off, directly.
 
 Numerics follow the TPU kernel (``_influence_rows``): u and the
 influences stay f32 and the output is rounded once to the features'
@@ -30,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.grouping import (
     group_features, group_xyz, scatter_to_support)
@@ -229,8 +231,8 @@ class _PseudoGrid(torch.autograd.Function):
                 radius: float, extent: float, mode: str):
         ctx.save_for_backward(query_xyz, support_xyz, idx, mask, kp)
         ctx.radius, ctx.extent, ctx.mode = radius, extent, mode
-        return pseudo_grid_cuda(query_xyz, support_xyz, features, idx, mask,
-                                kp, radius, extent, mode)
+        return _pseudo_grid_op(query_xyz, support_xyz, features, idx, mask,
+                               kp, radius, extent, mode)
 
     @staticmethod
     def backward(ctx, dy):
@@ -255,8 +257,30 @@ def pseudo_grid_fused(query_xyz, support_xyz, features, idx, mask, kp,
     """
     if mode not in INFLUENCE_MODES:
         raise ValueError(f"unknown KP_influence {mode!r}")
+    if not torch.is_grad_enabled():
+        return _pseudo_grid_op(query_xyz, support_xyz, features, idx, mask,
+                               kp, float(radius), float(extent), mode)
     if use_kernel(features):
         return _PseudoGrid.apply(query_xyz, support_xyz, features, idx, mask,
                                  kp, float(radius), float(extent), mode)
     return pseudo_grid_plain(query_xyz, support_xyz, features, idx, mask, kp,
                              radius, extent, mode)
+
+
+def _pseudo_grid_impl(query_xyz, support_xyz, features, idx, mask, kp,
+                      radius, extent, mode):
+    fwd = pseudo_grid_cuda if use_kernel(features) else pseudo_grid_plain
+    return fwd(query_xyz, support_xyz, features, idx, mask, kp, radius,
+               extent, mode).contiguous()
+
+
+def _pseudo_grid_fake(query_xyz, support_xyz, features, idx, mask, kp,
+                      radius, extent, mode):
+    return features.new_empty((*idx.shape[:2],
+                               kp.shape[0] * features.shape[-1]))
+
+
+_pseudo_grid_op = library.define(
+    "pseudo_grid(Tensor query_xyz, Tensor support_xyz, Tensor features, "
+    "Tensor idx, Tensor mask, Tensor kp, float radius, float extent, "
+    "str mode) -> Tensor", _pseudo_grid_impl, _pseudo_grid_fake)

@@ -6,7 +6,9 @@ Same semantics, layouts and dtypes as
 ``grid_subsample``. FPS runs the CUDA kernel (``csrc/fps.cu``) on CUDA
 tensors and the plain PyTorch version on CPU tensors. The grid
 subsampling has no kernel in either package: it is plain PyTorch on both
-devices, with the same arithmetic on both.
+devices, with the same arithmetic on both. Each is an op of
+``ops/library.py``: ``cl3d::furthest_point_sample``,
+``cl3d::grid_subsample``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from closerlook3d_tpu_torch.ops import kernels
+from closerlook3d_tpu_torch.ops import kernels, library
 from closerlook3d_tpu_torch.ops.dispatch import use_kernel
 from closerlook3d_tpu_torch.ops.spatial import morton_code
 
@@ -97,9 +99,24 @@ def furthest_point_sample(
     Returns:
       idx [B, npoint] int32, sample_mask [B, npoint] bool.
     """
+    return _fps_op(xyz, int(npoint), mask)
+
+
+def _fps_impl(xyz, npoint, mask):
     if use_kernel(xyz):
         return furthest_point_sample_cuda(xyz, npoint, mask)
     return furthest_point_sample_plain(xyz, npoint, mask)
+
+
+def _fps_fake(xyz, npoint, mask):
+    shape = (xyz.shape[0], npoint)
+    return (xyz.new_empty(shape, dtype=torch.int32),
+            xyz.new_empty(shape, dtype=torch.bool))
+
+
+_fps_op = library.define(
+    "furthest_point_sample(Tensor xyz, int npoint, Tensor? mask) "
+    "-> (Tensor, Tensor)", _fps_impl, _fps_fake)
 
 
 def grid_subsample(
@@ -108,6 +125,29 @@ def grid_subsample(
     max_out: int,
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Voxel-grid barycenter subsampling with a fixed output size, as the
+    op ``cl3d::grid_subsample`` (``grid_subsample_plain`` on every
+    device): its one host read of the deepest voxel stays inside the op,
+    where ``torch.export`` does not trace it.
+
+    Args:
+      xyz:  [B, N, 3] float32.
+      cell_size: voxel edge length.
+      max_out:   output point budget M.
+      mask: [B, N] bool.
+
+    Returns:
+      sub_xyz [B, M, 3] float32, sub_mask [B, M] bool.
+    """
+    return _grid_op(xyz, float(cell_size), int(max_out), mask)
+
+
+def _grid_fake(xyz, cell_size, max_out, mask):
+    return (xyz.new_empty((xyz.shape[0], max_out, 3), dtype=torch.float32),
+            xyz.new_empty((xyz.shape[0], max_out), dtype=torch.bool))
+
+
+def grid_subsample_plain(xyz, cell_size: float, max_out: int, mask=None):
     """Voxel-grid barycenter subsampling with a fixed output size.
 
     Each occupied voxel of side ``cell_size`` (cells counted from the
@@ -125,14 +165,7 @@ def grid_subsample(
     loop over ranks needs the deepest voxel's size on the host: one
     synchronization per call on the card.
 
-    Args:
-      xyz:  [B, N, 3] float32.
-      cell_size: voxel edge length.
-      max_out:   output point budget M.
-      mask: [B, N] bool.
-
-    Returns:
-      sub_xyz [B, M, 3] float32, sub_mask [B, M] bool.
+    Arguments and outputs as ``grid_subsample``'s.
     """
     b, n, _ = xyz.shape
     dev = xyz.device
@@ -174,3 +207,13 @@ def grid_subsample(
         sums = sums + dense[:, :max_out, r]
     counts = counts[:, :max_out]
     return sums / torch.clamp(counts, min=1.0)[..., None], counts > 0
+
+
+def _grid_impl(xyz, cell_size, max_out, mask):
+    return library.contiguous(*grid_subsample_plain(xyz, cell_size, max_out,
+                                                    mask))
+
+
+_grid_op = library.define(
+    "grid_subsample(Tensor xyz, float cell_size, int max_out, Tensor? mask) "
+    "-> (Tensor, Tensor)", _grid_impl, _grid_fake)

@@ -8,6 +8,8 @@ reads the YAML configs without PyYAML: ``read_yaml`` must equal
 YAML 1.1 scalars, and raise on what lies outside its subset;
 ``parse_overrides`` must equal the JAX package's on a table of tokens.
 Without a card, the entry points raise unless the CPU is asked for.
+cli.export's artifact of a checkpoint trained by cli.train serves the
+logits of the model cli.evaluate restores.
 """
 
 import glob
@@ -80,6 +82,59 @@ def test_entry_points_need_the_card_or_the_cpu_asked_for(tmp_path):
                    "--load_path", str(tmp_path / "run")] + OVERRIDES)
     # nothing was built or written before the refusal
     assert not os.path.exists(tmp_path / "run")
+
+
+def test_cli_export_serves_the_restored_model(tmp_path, capsys):
+    """cli.train on the CPU, then cli.export of its checkpoint: the loaded
+    artifact's logits equal to the bit those of the model that cli.evaluate
+    restores from the same checkpoint."""
+    from closerlook3d_tpu_torch.cli.export import main as export_main
+    from closerlook3d_tpu_torch.data.build import build_dataset
+    from closerlook3d_tpu_torch.data.loader import BatchIterator
+    from closerlook3d_tpu_torch.models.build import build_model_and_loss
+    from closerlook3d_tpu_torch.serving import load_forward
+    from closerlook3d_tpu_torch.train.checkpoints import CheckpointManager
+    from closerlook3d_tpu_torch.train.schedules import make_optimizer
+    from closerlook3d_tpu_torch.train.state import create_train_state
+    from closerlook3d_tpu_torch.train.step import eval_logits
+
+    log_dir = str(tmp_path / "run")
+    ckpt = os.path.join(log_dir, "ckpt")
+    out = str(tmp_path / "artifact")
+    train_main(["--log_dir", log_dir, "--device", "cpu"] + OVERRIDES)
+    export_main(["--load_path", ckpt, "--out", out, "--device", "cpu"]
+                + OVERRIDES)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    cfg = load_config(overrides=parse_overrides(OVERRIDES))
+    model, _ = build_model_and_loss(cfg)
+    state = create_train_state(model, make_optimizer(cfg, 1)[0], "cpu")
+    state, _, step = CheckpointManager(ckpt).restore(state)
+    assert line == f"exported checkpoint @ step {step} -> {out}"
+    predictor, meta = load_forward(out, device="cpu")
+    assert meta["platforms"] == ["cpu"]
+    assert (meta["batch_size"], meta["num_points"]) == (8, 64)
+    it = BatchIterator(build_dataset(cfg, "test"), cfg.batch_size,
+                       shuffle=False, feature_spec=cfg.input_features,
+                       drop_last=False, spatial_sort=True)
+    batch = next(iter(it))
+    got = predictor(batch["xyz"], batch["mask"], batch["features"])
+    np.testing.assert_array_equal(got.numpy(),
+                                  eval_logits(state, batch).numpy())
+
+
+def test_cli_export_needs_the_card_or_the_cpu_asked_for(tmp_path):
+    from closerlook3d_tpu_torch.cli.export import main as export_main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_main(["--load_path", str(tmp_path / "ckpt"), "--out",
+                     str(tmp_path / "artifact")] + OVERRIDES)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_main(["--load_path", str(tmp_path / "ckpt"), "--out",
+                     str(tmp_path / "artifact"), "--device", "cuda"]
+                    + OVERRIDES)
+    assert not os.path.exists(tmp_path / "artifact")
 
 
 # ---- parse_overrides and read_yaml against the JAX package and PyYAML -------

@@ -19,7 +19,9 @@ ties included; the gathers equal to their CPU twins to the bit), the masked neig
 and the point-wise MLP's route through it on either side of 64 queries, the pseudo-grid kernels at every influence mode with Kp
 beyond one register chunk, the k-NN kernel (k = 1 and above, k > Ns,
 ties, all-masked supports) and its routing, the grid subsampling on the
-card against the CPU, the autograd wiring, and the wrappers' refusals.
+card against the CPU, the autograd wiring, the wrappers' refusals, and
+the ``cl3d`` ops (their fake implementations against the kernels'
+outputs, one launch a call).
 The ball query is held to its plain version, to the bit, on Morton-sorted
 clouds at the ModelNet40 and S3DIS step sizes (FPS-ordered queries and
 supports, grid-subsampled queries padded at the origin), on grid clouds
@@ -1989,3 +1991,70 @@ def test_grid_subsample_on_the_card_equals_the_cpu():
         gx, gm = grid_subsample(s, cell, budget, smask)
         cx, cm = grid_subsample(s.cpu(), cell, budget, smask.cpu())
         assert torch.equal(gm.cpu(), cm) and torch.equal(gx.cpu(), cx)
+
+
+def _op_cases():
+    """(op, its arguments, the wrapper it launches or None, the wrapper's
+    arguments) at small shapes on the card, f32 and bf16."""
+    s, smask = _cloud(46, 3, 1200, masked_frac=0.2)
+    q = s[:, :300].contiguous()
+    qmask = smask[:, :300].contiguous()
+    idx, nmask = ball_query_cuda(q, s, 0.3, 16, qmask, smask)
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    f = torch.randn((3, 1200, 24), generator=gen, device="cuda")
+    d = torch.randn((3, 300, 24), generator=gen, device="cuda")
+    kp = torch.from_numpy(kernel_point_layout(15)).cuda()
+    cases = [
+        ("ball_query", (q, s, 0.3, 16, qmask, smask, None),
+         ball_query_cuda, (q, s, 0.3, 16, qmask, smask)),
+        ("furthest_point_sample", (s, 300, smask),
+         furthest_point_sample_cuda, (s, 300, smask)),
+        ("knn", (q, s, 1, smask, None), knn1_cuda, (q, s, 1, smask)),
+        ("knn", (q, s, 3, smask, None), knn_cuda, (q, s, 3, smask)),
+        ("grid_subsample", (s, 0.1, 400, smask), None, None),
+    ]
+    for dt in (torch.float32, torch.bfloat16):
+        fd, dd = f.to(dt), d.to(dt)
+        cases += [
+            ("pospool", (q, s, fd, idx, nmask, 0.3, "xyz", "avg"),
+             pospool_xyz_cuda, (q, s, fd, idx, nmask, 0.3, "avg")),
+            ("pospool", (q, s, fd, idx, nmask, 0.3, "sin_cos", "sum"),
+             pospool_sincos_cuda, (q, s, fd, idx, nmask, 0.3, "sum")),
+            ("neighborhood_max", (fd, idx, nmask), neighborhood_max_cuda,
+             (fd, idx, nmask)),
+            ("neighborhood_moments", (q, s, fd, idx, nmask, 0.3, "avg"),
+             neighborhood_moments_cuda, (q, s, fd, idx, nmask, 0.3, "avg")),
+            ("gather_sub_minmax", (fd, dd, idx, nmask),
+             gather_reduce.gather_sub_minmax_cuda, (fd, dd, idx, nmask)),
+            ("pseudo_grid", (q, s, fd, idx, nmask, kp, 0.3, 0.5, "linear"),
+             pseudo_grid_cuda, (q, s, fd, idx, nmask, kp, 0.3, 0.5,
+                                "linear")),
+        ]
+    return cases
+
+
+@pytest.mark.parametrize("case", range(17))
+def test_cl3d_ops_launch_their_kernels(case):
+    """Each ``cl3d`` op on CUDA tensors: its fake implementation describes
+    the kernel's outputs (``opcheck``'s schema and fake-tensor tests run
+    the op for real beside it), and a call launches the kernel once,
+    giving the wrapper's bits."""
+    name, args, wrapper, wargs = _op_cases()[case]
+    op = getattr(torch.ops.cl3d, name).default
+    torch.library.opcheck(op, args,
+                          test_utils=("test_schema", "test_faketensor"))
+    before = wrapper.launches if wrapper else None
+    got = op(*args)
+    torch.cuda.synchronize()
+    if wrapper is None:  # plain PyTorch on every device
+        want = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        got = [t.cpu() for t in got]
+    else:
+        assert wrapper.launches == before + 1
+        want = wrapper(*wargs)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.is_contiguous()
+        assert torch.equal(g, w)
