@@ -66,7 +66,7 @@ with every check raising on failure and no CPU fallback:
   host-sorted batch;
 * S3DIS voting evaluation at that config's full width: two test-area
   rooms of a million points written into the processed cache,
-  ``evaluate_s3dis_voting`` through ``Predictor`` with 12 votes (the
+  ``evaluate_s3dis_voting`` through ``Predictor`` with 6 votes (the
   config's 20 take 84 s), each sphere batch's launches counted, the
   projection to the
   full clouds one pruned 1-NN launch a room, held to ``knn_plain`` at
@@ -79,12 +79,22 @@ with every check raising on failure and no CPU fallback:
   restored state equals the saved one bit for bit; the evaluate CLI on
   the last checkpoint, equal to ``evaluate_classification``;
 * serving export: for the flagship, the four other ModelNet40 operator
-  configs (depth 1, 8 clouds), ShapeNetPart and S3DIS, exports the eval
-  forward with ``serving/export.py`` (no kernel launches), saves and
-  loads the artifact, serves 3 requests with exactly the launches and
-  the logits (to the bit) of ``Predictor``'s eager requests, checks that
-  a request of the wrong shape raises, and times the artifact against
-  ``Predictor`` in turns; and the ``cl3d`` op's dispatch cost a call;
+  configs (depth 1, 8 clouds, the pseudo-grid at half width), ShapeNetPart
+  and S3DIS, exports the eval forward with ``serving/export.py`` (no
+  kernel launches), saves and loads the artifact, serves 3 requests with
+  exactly the launches and the logits (to the bit) of ``Predictor``'s
+  eager requests, checks that a request of the wrong shape raises, and
+  times the artifact against ``Predictor`` in turns; and the ``cl3d``
+  op's dispatch cost a call;
+* data parallelism, 2 ranks sharing the card over gloo: the flagship
+  ModelNet40 config and the point-wise MLP one at full width, 1024
+  points, 16 clouds a rank, against one process stepping the 32-cloud
+  batch (an f32 step, 3 bf16 steps: losses, gradients, parameters,
+  running statistics; exact launches a rank and step; parameters
+  bit-equal across the ranks; step medians and collectives a step), and
+  two broken syncs as controls that the limits must fail; then the train
+  CLI under torchrun for an epoch, and one more torchrun launch that
+  resumes it and runs the evaluate CLI's main;
 * times kernels, requests and train steps with CUDA events, and splits
   a request and a train step into device busy and idle time with
   torch.profiler.
@@ -935,6 +945,8 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
     its twin run on the card, whose index_add_ adds with atomics, within
     the backward tolerance); the reverse index (its first launch's,
     launched alone) must equal its plain version at each call."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from closerlook3d_tpu_torch.ops import gather_reduce as gr
 
     errs = dict.fromkeys(("pwmlp_stats", "pwmlp_stats_bwd",
@@ -957,69 +969,85 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
         return worst
 
     f32 = torch.float32
-    for name, (q, s, idx, nmask, _), c, _ in pp:
-        _reverse_index_parity(name, idx, nmask, s.shape[1])
-        for dtype in (f32, torch.bfloat16):
-            tol = _pwmlp_bwd_tol(dtype)
-            for values, make in (("ties", _grid_features),
-                                 ("distinct", _features)):
-                g32 = make(gen, s, c, f32)
-                g, gsq = g32.to(dtype), (g32 * g32).to(dtype)
-                d = _features(gen, q, c, dtype)
-                cot = [_features(gen, q, c, f32) for _ in range(4)]
-                what = (f"{name} C={c} K={idx.shape[2]} {str(dtype)[6:]} "
-                        f"{values}")
-                outs = gr.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
-                ref, ref_grads = _grads(
-                    lambda a, b: gr.pwmlp_minmax_stats_plain(a, b, idx,
-                                                             nmask),
-                    (g, gsq), cot)
-                k = f"pwmlp_stats {what}"
-                note("pwmlp_stats", k + " max/min",
-                     list(zip(outs[:2], ref[:2])), None)
-                e_s = note("pwmlp_stats", k + " sums",
-                           list(zip(outs[2:], ref[2:])), PWMLP_SUM_TOL)
-                args = (g, idx, nmask, outs[0], outs[1], *cot)
-                got = gr.pwmlp_minmax_stats_bwd_cuda(*args)
-                # the same bits on a second run, and (grid values: ties)
-                # those of its twin on CPU copies, which adds in the
-                # kernel's (q, t) order
-                _same_bits(k + " bwd, two runs", got,
-                           gr.pwmlp_minmax_stats_bwd_cuda(*args))
-                if values == "ties":
-                    _same_bits(k + " bwd vs twin on the CPU", got,
-                               gr.pwmlp_minmax_stats_bwd_plain(
-                                   *(a.cpu() for a in args)))
-                e_t = note("pwmlp_stats_bwd", k + " bwd vs twin", zip(
-                    got, gr.pwmlp_minmax_stats_bwd_plain(
-                        g, idx, nmask, outs[0], outs[1], *cot)), tol)
-                e_a = note("pwmlp_stats_bwd", k + " bwd vs autograd",
-                           zip(got, ref_grads), tol)
-                hm = gr.gather_sub_minmax_cuda(g, d, idx, nmask)
-                ref, ref_grads = _grads(
-                    lambda a, b: gr.gather_sub_minmax_plain(a, b, idx, nmask),
-                    (g, d), cot[:2])
-                k = f"gather_sub_minmax {what}"
-                note("gather_sub_minmax", k, list(zip(hm, ref)), None)
-                args = (g, d, idx, nmask, *hm, *cot[:2])
-                got = gr.gather_sub_minmax_bwd_cuda(*args)
-                # the same bits on a second run and those of its twin on
-                # CPU copies, which adds in the kernel's (q, t) order
-                _same_bits(k + " bwd, two runs", got,
-                           gr.gather_sub_minmax_bwd_cuda(*args))
-                _same_bits(k + " bwd vs twin on the CPU", got,
-                           gr.gather_sub_minmax_bwd_plain(
-                               *(a.cpu() for a in args)))
-                e_t7 = note("gather_sub_minmax_bwd", k + " bwd vs twin", zip(
-                    got, gr.gather_sub_minmax_bwd_plain(*args)), tol)
-                e_a7 = note("gather_sub_minmax_bwd", k + " bwd vs autograd",
-                            zip(got, ref_grads), tol)
-                log(phase, f"{what}: pwmlp_stats max/min equal, sums max abs "
-                    f"err {e_s:.3g} (tol {PWMLP_SUM_TOL}), bwd vs twin "
-                    f"{e_t:.3g}, vs autograd {e_a:.3g}; gather_sub_minmax "
-                    f"max/min equal, bwd vs twin {e_t7:.3g}, vs autograd "
-                    f"{e_a7:.3g} (bwd tol {tol}); "
-                    f"{int(nmask.sum())} valid slots")
+    # the twins on CPU copies run in a host thread beside the checks on
+    # the card; each is held to its kernel's bits once the loop is done
+    pool = ThreadPoolExecutor(max_workers=1)
+    twins = []
+
+    def twin(what, got, fn, args):
+        twins.append((what, [t.cpu() for t in got],
+                      pool.submit(fn, *(a.cpu() for a in args))))
+
+    try:
+        for name, (q, s, idx, nmask, _), c, _ in pp:
+            _reverse_index_parity(name, idx, nmask, s.shape[1])
+            for dtype in (f32, torch.bfloat16):
+                tol = _pwmlp_bwd_tol(dtype)
+                for values, make in (("ties", _grid_features),
+                                     ("distinct", _features)):
+                    g32 = make(gen, s, c, f32)
+                    g, gsq = g32.to(dtype), (g32 * g32).to(dtype)
+                    d = _features(gen, q, c, dtype)
+                    cot = [_features(gen, q, c, f32) for _ in range(4)]
+                    what = (f"{name} C={c} K={idx.shape[2]} {str(dtype)[6:]} "
+                            f"{values}")
+                    outs = gr.pwmlp_minmax_stats_cuda(g, gsq, idx, nmask)
+                    ref, ref_grads = _grads(
+                        lambda a, b: gr.pwmlp_minmax_stats_plain(a, b, idx,
+                                                                 nmask),
+                        (g, gsq), cot)
+                    k = f"pwmlp_stats {what}"
+                    note("pwmlp_stats", k + " max/min",
+                         list(zip(outs[:2], ref[:2])), None)
+                    e_s = note("pwmlp_stats", k + " sums",
+                               list(zip(outs[2:], ref[2:])), PWMLP_SUM_TOL)
+                    args = (g, idx, nmask, outs[0], outs[1], *cot)
+                    got = gr.pwmlp_minmax_stats_bwd_cuda(*args)
+                    # the same bits on a second run, and (grid values: ties)
+                    # those of its twin on CPU copies, which adds in the
+                    # kernel's (q, t) order
+                    _same_bits(k + " bwd, two runs", got,
+                               gr.pwmlp_minmax_stats_bwd_cuda(*args))
+                    if values == "ties":
+                        twin(k + " bwd vs twin on the CPU", got,
+                             gr.pwmlp_minmax_stats_bwd_plain, args)
+                    e_t = note("pwmlp_stats_bwd", k + " bwd vs twin", zip(
+                        got, gr.pwmlp_minmax_stats_bwd_plain(
+                            g, idx, nmask, outs[0], outs[1], *cot)), tol)
+                    e_a = note("pwmlp_stats_bwd", k + " bwd vs autograd",
+                               zip(got, ref_grads), tol)
+                    hm = gr.gather_sub_minmax_cuda(g, d, idx, nmask)
+                    ref, ref_grads = _grads(
+                        lambda a, b: gr.gather_sub_minmax_plain(a, b, idx,
+                                                                nmask),
+                        (g, d), cot[:2])
+                    k = f"gather_sub_minmax {what}"
+                    note("gather_sub_minmax", k, list(zip(hm, ref)), None)
+                    args = (g, d, idx, nmask, *hm, *cot[:2])
+                    got = gr.gather_sub_minmax_bwd_cuda(*args)
+                    # the same bits on a second run and those of its twin on
+                    # CPU copies, which adds in the kernel's (q, t) order
+                    _same_bits(k + " bwd, two runs", got,
+                               gr.gather_sub_minmax_bwd_cuda(*args))
+                    twin(k + " bwd vs twin on the CPU", got,
+                         gr.gather_sub_minmax_bwd_plain, args)
+                    e_t7 = note("gather_sub_minmax_bwd", k + " bwd vs twin",
+                                zip(got, gr.gather_sub_minmax_bwd_plain(
+                                    *args)), tol)
+                    e_a7 = note("gather_sub_minmax_bwd",
+                                k + " bwd vs autograd", zip(got, ref_grads),
+                                tol)
+                    log(phase, f"{what}: pwmlp_stats max/min equal, sums max "
+                        f"abs err {e_s:.3g} (tol {PWMLP_SUM_TOL}), bwd vs "
+                        f"twin {e_t:.3g}, vs autograd {e_a:.3g}; "
+                        f"gather_sub_minmax "
+                        f"max/min equal, bwd vs twin {e_t7:.3g}, vs autograd "
+                        f"{e_a7:.3g} (bwd tol {tol}); "
+                        f"{int(nmask.sum())} valid slots")
+        for what, got, ref in twins:
+            _same_bits(what, got, ref.result())
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     return errs
 
 
@@ -3026,10 +3054,12 @@ def run_seg_training(name: str, wrappers) -> dict:
 # S3DIS room. The config's 20 votes (configs/s3dis/pospool_xyz_avg.yaml)
 # took 427 sphere batches, 64 s of voting and 84 s for the phase on one
 # H100 machine; the host's numpy sets the pace (6.6-9.9 sphere batches a
-# second between machines), so 12 votes keep the phase within a minute
+# second between machines); 12 votes took 41-57 s for the phase and 8
+# took 35.6-36.8 s; 6 (since the data-parallel phase came in) keep it
+# under half a minute
 VOTING_ROOMS = 2
 VOTING_ROOM_POINTS = 1_000_000
-VOTING_VOTES = 12
+VOTING_VOTES = 6
 # queries a room held to knn_plain on the card
 PROJECTION_CHECKS = 16384
 # colours by S3DIS class id (ceiling, floor, wall, ..., clutter)
@@ -3599,9 +3629,14 @@ def phase_engine(wrappers) -> dict:
 EXPORT_NAMES = ("flagship", "sincos", "adaptive", "pwmlp", "pgrid",
                 "shapenetpart", "s3dis")
 # the ModelNet40 operator configs export at depth 1 and 8 clouds (full
-# width and points), so that the phase stays near a minute
+# width and points; the pseudo-grid at half width, whose full-width
+# artifact took 565 MB), so that the phase stays under a minute
 EXPORT_OPERATOR_DEPTH = 1
 EXPORT_OPERATOR_BATCH = 8
+EXPORT_PGRID_WIDTH = 72
+# requests of each served function timed in turns; the flagship alone is
+# also profiled and timed with the program's metadata asserts
+EXPORT_TIMED = 3
 # the kernel each configuration is in the phase for (beside the ball
 # query, and FPS or the grid, the PosPool xyz and the max of every one)
 EXPORT_KERNELS = {"flagship": ("pospool_xyz", "fps"),
@@ -3613,8 +3648,8 @@ EXPORT_KERNELS = {"flagship": ("pospool_xyz", "fps"),
 def export_config(name: str):
     """The configuration of ``phase_export``'s ``name``: the flagship, a
     ModelNet40 operator config (``operator_config``) at depth 1 and 8
-    clouds, or a segmentation serving config as ``phase_seg_serving``
-    serves it."""
+    clouds (the pseudo-grid at ``EXPORT_PGRID_WIDTH``), or a segmentation
+    serving config as ``phase_seg_serving`` serves it."""
     if name == "flagship":
         return flagship_config()
     if name in SEG_NAMES:
@@ -3622,6 +3657,8 @@ def export_config(name: str):
     cfg = operator_config(name)
     cfg.depth = EXPORT_OPERATOR_DEPTH
     cfg.batch_size = EXPORT_OPERATOR_BATCH
+    if name == "pgrid":
+        cfg.width = EXPORT_PGRID_WIDTH
     return cfg
 
 
@@ -3737,28 +3774,37 @@ def _export_one(name: str, wrappers, root: str) -> dict:
         else:
             raise AssertionError(f"{phase}: {what} served a request of "
                                  f"{half} points")
-    # the program as saved, with torch.export's metadata asserts, which
-    # load_forward drops (serving/export.py::without_metadata_asserts)
-    kept = torch.export.load(os.path.join(out_dir, "forward.pt2")).module()
-    n_asserts = sum(1 for node in kept.graph.nodes
-                    if "_assert_tensor_metadata" in str(node.target))
+    fns = [predictor, artifact]
+    kept = None
+    n_asserts = 0
+    if name == "flagship":
+        # the program as saved, with torch.export's metadata asserts, which
+        # load_forward drops (serving/export.py::without_metadata_asserts)
+        kept = torch.export.load(os.path.join(out_dir, "forward.pt2")).module()
+        n_asserts = sum(1 for node in kept.graph.nodes
+                        if "_assert_tensor_metadata" in str(node.target))
 
-    def with_asserts(xyz, mask, features):
-        with torch.inference_mode():
-            return kept(*(torch.as_tensor(x, device=DEVICE)
-                          for x in (xyz, mask, features)))
+        def with_asserts(xyz, mask, features):
+            with torch.inference_mode():
+                return kept(*(torch.as_tensor(x, device=DEVICE)
+                              for x in (xyz, mask, features)))
 
-    if not torch.equal(with_asserts(*args), got):
-        raise AssertionError(f"{phase}: the program with its asserts "
-                             f"differs")
-    lat_p, lat_a, lat_k = _turns((predictor, artifact, with_asserts),
-                                 batches, 10)
-    med_p, med_a, med_k = (t[len(t) // 2] for t in (lat_p, lat_a, lat_k))
+        if not torch.equal(with_asserts(*args), got):
+            raise AssertionError(f"{phase}: the program with its asserts "
+                                 f"differs")
+        fns.append(with_asserts)
+    lats = _turns(fns, batches, EXPORT_TIMED)
+    lat_p, lat_a = lats[:2]
+    lat_k = lats[2] if kept is not None else []
+    med_p, med_a = (t[len(t) // 2] for t in (lat_p, lat_a))
+    med_k = lat_k[len(lat_k) // 2] if lat_k else None
     busy = {}
-    for label, fn, med in (("predictor", predictor, med_p),
-                           ("artifact", artifact, med_a)):
-        _, busy[label] = _profiled(
-            lambda fn=fn: fn(bt["xyz"], bt["mask"], bt["features"]), 3, med)
+    if name == "flagship":
+        for label, fn, med in (("predictor", predictor, med_p),
+                               ("artifact", artifact, med_a)):
+            _, busy[label] = _profiled(
+                lambda fn=fn: fn(bt["xyz"], bt["mask"], bt["features"]), 3,
+                med)
     n_launch = sum(expected.values())
     log(phase, f"{gpu_line()} | {cfg.batch_size} x {cfg.num_points} points, "
         f"width {cfg.width}, depth {cfg.depth}, {cfg.precision}: export "
@@ -3768,12 +3814,14 @@ def _export_one(name: str, wrappers, root: str) -> dict:
         f"as Predictor's: "
         + str({k: v for k, v in expected.items() if v})
         + f"; logits equal to Predictor's to the bit; a request of {half} "
-        f"points refused ({refused}); request median in turns over 10 "
-        f"each: artifact {med_a:.3f} ms, Predictor {med_p:.3f} ms, the "
-        f"program with its {n_asserts} metadata asserts {med_k:.3f} ms; "
-        f"device busy a request (profiler, 3 requests): artifact "
-        f"{busy['artifact']['device_busy_ms']:.3f} ms, Predictor "
-        f"{busy['predictor']['device_busy_ms']:.3f} ms")
+        f"points refused ({refused}); request median in turns over "
+        f"{EXPORT_TIMED} each: artifact {med_a:.3f} ms, Predictor "
+        f"{med_p:.3f} ms"
+        + (f", the program with its {n_asserts} metadata asserts "
+           f"{med_k:.3f} ms; device busy a request (profiler, 3 requests): "
+           f"artifact {busy['artifact']['device_busy_ms']:.3f} ms, "
+           f"Predictor {busy['predictor']['device_busy_ms']:.3f} ms"
+           if kept is not None else ""))
     del artifact, predictor, kept
     shutil.rmtree(out_dir)
     return {"export_s": export_s, "artifact_bytes": nbytes, "load_s": load_s,
@@ -3864,6 +3912,562 @@ def phase_export(wrappers) -> dict:
     out["seconds"] = time.perf_counter() - t0
     log("export", f"{len(EXPORT_NAMES)} configurations exported, loaded "
         f"and served in {out['seconds']:.1f} s")
+    return out
+
+
+# ---- data parallelism: ranks that share the card --------------------------
+
+DP_RANKS = 2
+DP_KINDS = ("xyz", "pwmlp")
+DP_BATCH = 16  # clouds a rank
+DP_POINTS = 1024
+DP_STEPS = 3  # bf16 steps held to one process
+DP_TIMED = 5  # bf16 steps timed after them
+DP_TIMEOUT = 300.0
+# the train CLI under torchrun: the flagship yaml cut to a small model
+# (width 48, depth 1) on small synthetic splits: the machinery, not the
+# model, is under test there
+DP_CLI_OVERRIDES = ["datasets=synthetic", "synthetic_train_size=64",
+                    "synthetic_val_size=40", "num_points=1024", "npoints=[]",
+                    "radius=0.1", "width=48", "depth=1", "batch_size=8",
+                    "epochs=1", "save_interval=1", "val_interval=1",
+                    "log_interval=1", "keep_checkpoints=3"]
+
+
+def dp_config(kind: str):
+    """``train_config(kind)`` at ``DP_POINTS`` points (stages 1024, 256,
+    64, 16, 4) and the flagship's radius, so that neighborhoods fill as
+    at that size; full width and depth; ``DP_BATCH`` clouds a rank."""
+    cfg = train_config(kind)
+    cfg.num_points = DP_POINTS
+    cfg.npoints = []
+    cfg.radius = 0.1
+    cfg.batch_size = DP_BATCH
+    cfg.warmup_epoch = 0
+    return cfg
+
+
+def _params_digest(model) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def _dp_steps(cfg, weights, batch, wrappers, keep_state: bool,
+              orders=(), timed=DP_TIMED) -> dict:
+    """This process's share of the global ``batch`` (all of it without a
+    process group), from ``weights``: one f32 step with dropout off
+    (loss, global gradients, state), the same from ``weights`` again on
+    the batch's clouds in each of ``orders`` ("f32_reordered"), then
+    ``DP_STEPS`` bf16 steps with the config's dropout (losses, launches,
+    parameter digests, collectives, state) and ``timed`` more, timed by
+    CUDA events."""
+    from closerlook3d_tpu_torch.models import build_classification
+    from closerlook3d_tpu_torch.parallel import collectives
+    from closerlook3d_tpu_torch.parallel.mesh import layout, shard_batch
+    from closerlook3d_tpu_torch.train import (
+        create_train_state, make_optimizer, make_train_step)
+
+    lay = layout(DEVICE)
+    ranks, rank = collectives.world()
+    n = batch["xyz"].shape[0] // ranks
+    local = shard_batch({k: v[rank * n:(rank + 1) * n]
+                         for k, v in batch.items()}, lay)
+    out = {"rank": rank, "ranks": ranks, "backend": lay.backend}
+
+    def fresh(precision, dropout):
+        c = copy.deepcopy(cfg)
+        c.precision = precision
+        c.dropout_rate = dropout
+        model, loss_fn = build_classification(c)
+        model.load_state_dict(weights)
+        tx, _ = make_optimizer(c, STEPS_PER_EPOCH)
+        return (create_train_state(model, tx, device=lay.device),
+                make_train_step(loss_fn, c.task))
+
+    state, step = fresh("f32", 0.0)
+    runs = []
+    for order in (None, *orders):
+        if order is not None:  # the weights again, a fresh optimizer
+            state.model.load_state_dict(weights)
+            state.optimizer = state.tx.init(state.model)
+            state.step = 0
+        state, m = step(state, local if order is None else shard_batch(
+            {k: v[order] for k, v in batch.items()}, lay), SEED)
+        run = {"loss": float(m["loss"]), "digest": _params_digest(
+            state.model)}
+        if keep_state:
+            run["grads"] = {k: p.grad.detach().float().cpu().clone()
+                            for k, p in state.model.named_parameters()}
+            run["state"] = {k: v.detach().cpu().clone()
+                            for k, v in state.model.state_dict().items()}
+        runs.append(run)
+    out["f32"], out["f32_reordered"] = runs[0], runs[1:]
+    del state, step
+    state, step = fresh("bf16", cfg.dropout_rate)
+    rec = {"losses": [], "accs": [], "launches": [], "digests": [],
+           "collectives": [], "collective_ms": [], "step_ms": []}
+    for i in range(DP_STEPS + timed):
+        reset_counts(wrappers)
+        collectives.reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        state, m = step(state, local, SEED)
+        end.record()
+        torch.cuda.synchronize()
+        rec["step_ms"].append(start.elapsed_time(end))
+        rec["collectives"].append(collectives.COUNTS["calls"])
+        rec["collective_ms"].append(collectives.COUNTS["seconds"] * 1e3)
+        if i < DP_STEPS:
+            rec["launches"].append(read_counts(wrappers))
+            rec["losses"].append(float(m["loss"]))
+            rec["accs"].append(float(m["acc"]))
+            rec["digests"].append(_params_digest(state.model))
+            if i == DP_STEPS - 1 and keep_state:
+                rec["state"] = {k: v.detach().float().cpu().clone()
+                                for k, v in state.model.state_dict().items()}
+    out["bf16"] = rec
+    return out
+
+
+def _dp_orders(n: int) -> list:
+    """Other orders of a batch of ``n`` clouds: its halves swapped, the
+    clouds reversed, and interleaved."""
+    idx = np.arange(n)
+    return [np.concatenate([idx[n // 2:], idx[:n // 2]]), idx[::-1],
+            np.concatenate([idx[0::2], idx[1::2]])]
+
+
+def _sums_per_rank(ctx, x):
+    """A planted fault: the sum over ranks left out (each rank keeps its
+    own statistics)."""
+    return x.clone()
+
+
+def _cotangents_per_rank(ctx, g):
+    """A planted fault: the statistics' cotangents not summed over ranks
+    (the step's gradients wrong yet finite)."""
+    return g.clone()
+
+
+# the controls of phase_data_parallel: broken syncs its limits must fail
+# (the in-graph sum of the BatchNorm statistics, K6f's sums included)
+DP_CONTROLS = {
+    "per_rank_statistics": {"forward": staticmethod(_sums_per_rank),
+                            "backward": staticmethod(_cotangents_per_rank)},
+    "per_rank_cotangents": {"backward": staticmethod(_cotangents_per_rank)}}
+
+
+def _dp_rank(rank: int, cases: list) -> dict:
+    """One rank of ``phase_data_parallel``'s step: every case's
+    ``_dp_steps`` (rank 0 returns its states and gradients), then, as
+    controls, each case's f32 step and bf16 steps again under each fault
+    of ``DP_CONTROLS`` ("controls")."""
+    del rank
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from closerlook3d_tpu_torch.parallel import collectives
+
+    wrappers = kernel_wrappers()
+    keep = collectives.world()[1] == 0
+    out, seconds = {"controls": {}}, {}
+    for kind, cfg, weights, batch in cases:
+        t0 = time.perf_counter()
+        out[kind] = _dp_steps(cfg, weights, batch, wrappers, keep)
+        seconds[kind] = time.perf_counter() - t0
+    sound = collectives._AllReduceSum
+    for name, faults in DP_CONTROLS.items():
+        t0 = time.perf_counter()
+        collectives._AllReduceSum = type("Faulty", (sound,), faults)
+        try:
+            out["controls"][name] = {
+                kind: _dp_steps(cfg, weights, batch, wrappers, keep,
+                                timed=0)
+                for kind, cfg, weights, batch in cases}
+        finally:
+            collectives._AllReduceSum = sound
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def _rel_l2(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def _state_gaps(prefix, got, ref) -> dict:
+    """Relative L2 of the parameters and of the running statistics (each
+    set concatenated), and the largest absolute difference."""
+    stats = [k for k in ref if k.endswith(("running_mean", "running_var"))]
+    params = [k for k in ref if k not in stats]
+    out = {f"{prefix}_abs_max": max(float((got[k].float() - v.float())
+                                          .abs().max())
+                                    for k, v in ref.items())}
+    for part, keys in (("params", params), ("stats", stats)):
+        out[f"{prefix}_{part}_rel_l2"] = _rel_l2(
+            torch.cat([got[k].float().reshape(-1) for k in keys]),
+            torch.cat([ref[k].float().reshape(-1) for k in keys]))
+    return out
+
+
+def _f32_gaps(got, ref) -> dict:
+    """The f32 step's gaps of ``got`` against ``ref``."""
+    grads = {k: _rel_l2(g, ref["grads"][k]) for k, g in got["grads"].items()}
+    worst = max(grads, key=grads.get)
+    return {"f32_loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "f32_grad_rel_l2_max": grads[worst], "f32_grad_worst": worst,
+            **_state_gaps("f32", got["state"], ref["state"])}
+
+
+def _dp_gaps(single, r0) -> dict:
+    """Rank 0's gaps to one process: the f32 step's and the bf16 steps'."""
+    gaps = _f32_gaps(r0["f32"], single["f32"])
+    gaps.update(_state_gaps("bf16", r0["bf16"]["state"],
+                            single["bf16"]["state"]))
+    gaps["bf16_loss_rel_max"] = float(np.max(np.abs(
+        np.array(r0["bf16"]["losses"]) / np.array(single["bf16"]["losses"])
+        - 1)))
+    return gaps
+
+
+def _dp_compare(kind, single, ranks, controls, expected) -> dict:
+    """Hold the ranks to one process on the whole batch, and each control
+    of ``DP_CONTROLS`` past the limits (see ``phase_data_parallel``); the
+    gaps, limits and control gaps, and ("bad") every gap past its limit
+    and every control key within it."""
+    what = f"data-parallel:{kind}"
+    r0 = ranks[0]
+    gaps = _dp_gaps(single, r0)
+    # the yardstick: one process against itself on the batch's clouds in
+    # other orders, the same step summed in other orders
+    spread = [_f32_gaps(r, single["f32"]) for r in single["f32_reordered"]]
+    own = {k: max(g[k] for g in spread) for k in DP_F32_FLOOR[kind]}
+    gaps.update({f"reordered_{k}": v for k, v in own.items()})
+    limits = {key: max(floor, 2 * own[key])
+              for key, floor in DP_F32_FLOOR[kind].items()}
+    limits.update(DP_BF16_LIMIT[kind])
+    bad = [f"{key} {gaps[key]:.3g} > {limit:.3g}"
+           for key, limit in limits.items() if gaps[key] > limit]
+    for r in ranks:
+        for i, counts in enumerate(r["bf16"]["launches"]):
+            check_counts(f"{what} rank {r['rank']} step {i}", counts,
+                         expected)
+        if r["bf16"]["digests"] != r0["bf16"]["digests"] or (
+                r["f32"]["digest"] != r0["f32"]["digest"]):
+            bad.append(f"rank {r['rank']}'s parameters differ from rank 0's")
+    for i, counts in enumerate(single["bf16"]["launches"]):
+        check_counts(f"{what} one process step {i}", counts, expected)
+    control_gaps = {}
+    for name, run in controls.items():
+        c = control_gaps[name] = _dp_gaps(single, run)
+        within = [f"{key} {c[key]:.3g} <= {limits[key]:.3g}"
+                  for key in limits if key not in DP_CONTROL_BLIND[name]
+                  and key not in DP_UNSEPARATED[kind]
+                  and c[key] <= limits[key]]
+        if within:
+            bad.append(f"control {name} passes: " + ", ".join(within))
+    log(what, "gaps to one process: " + ", ".join(
+        f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in gaps.items()))
+    log(what, "limits: " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in limits.items()))
+    for name, c in control_gaps.items():
+        log(what, f"control {name}: " + ", ".join(
+            f"{k} {c[k]:.3g}" for k in limits))
+    return {"gaps": gaps, "limits": limits, "controls": control_gaps,
+            "bad": [f"{what}: {b}" for b in bad]}
+
+
+# The f32 step (dropout off) is the exact check: each gap within its floor
+# or twice the largest gap of one process against itself on the clouds
+# in ``_dp_orders`` (the same step summed in other orders), whichever is
+# larger. The flagship's floors are phase_train_step_parity's. The point-
+# wise MLP's BatchNorm variance E[h^2] - mean^2 cancels, and where a
+# channel's variance is near 0 its clamp at 0 takes one side or the other
+# with the summation order: one process on its clouds reordered moves
+# its gradients by 0.1-5.5% (relative L2; the CPU rehearsal, all 23
+# orders of 4 clouds), as the JAX package's own 1- and 2-device steps
+# part (tests/test_torch_dp_parity.py). Its floors say so. Every limit
+# lies below the controls' gaps (DP_CONTROLS, read on an H100; PERF.md
+# §6): their f32 gradients part by 152-191%, their parameters by
+# 1.5e-4 to 1.3e-2.
+DP_F32_FLOOR = {
+    "xyz": {"f32_loss_rel": 1e-5, "f32_grad_rel_l2_max": 2e-2,
+            "f32_params_rel_l2": 1e-5, "f32_stats_rel_l2": 1e-4},
+    "pwmlp": {"f32_loss_rel": 1e-4, "f32_grad_rel_l2_max": 1e-1,
+              "f32_params_rel_l2": 1e-4, "f32_stats_rel_l2": 1e-4}}
+# In bf16 (dropout on, equal seeds) a difference of the f32 statistics
+# flips the rounding of some bf16 activations by an ulp (2^-8), and the
+# head's BatchNorm over 32 pooled rows amplifies it. The 3 steps' losses,
+# parameters and running statistics (relative L2 of each set) are held
+# to limits a config that lie between the sound runs' gaps and those of
+# the controls (DP_CONTROLS), both read on an H100 (PERF.md §6):
+# the flagship's loss 0.46% against 2.4% and 3.5%, parameters 0.066%
+# against 0.094% and 0.16%, statistics 0.56% against 0.89% and 4.7%; the
+# point-wise MLP's loss 2.1% against 4.6% and 5.2%. Its bf16 parameters
+# and statistics (4.8% and 4.2%) part from one process as far as under
+# a broken sync (4.6-5.3%, 4.3-5.0%): three bf16 steps of it are only
+# defined to that, so those two are bounds against a blow-up, not a
+# check of the sync (DP_UNSEPARATED), which its f32 step makes.
+DP_BF16_LIMIT = {
+    "xyz": {"bf16_loss_rel_max": 1e-2, "bf16_params_rel_l2": 8e-4,
+            "bf16_stats_rel_l2": 7e-3},
+    "pwmlp": {"bf16_loss_rel_max": 3e-2, "bf16_params_rel_l2": 1e-1,
+              "bf16_stats_rel_l2": 1e-1}}
+DP_UNSEPARATED = {"xyz": (),
+                  "pwmlp": ("bf16_params_rel_l2", "bf16_stats_rel_l2")}
+# what a control cannot move: the cotangents' fault leaves the first
+# step's forward (its loss, the running statistics it sets) as it was
+DP_CONTROL_BLIND = {"per_rank_statistics": (),
+                    "per_rank_cotangents": ("f32_loss_rel",
+                                            "f32_stats_rel_l2")}
+
+
+# The resume and the evaluation share one torchrun launch (a launch's
+# processes spend most of it starting up): each rank joins the group,
+# resumes with cli.train's main and evaluates with cli.evaluate's, each
+# given its command line, and leaves the group
+DP_RESUME_EVALUATE = """
+import json, sys
+from closerlook3d_tpu_torch.cli import evaluate, train
+from closerlook3d_tpu_torch.parallel import mesh
+argv = json.loads(sys.argv[1])
+mesh.maybe_initialize_distributed(argv["device"])
+train.main(argv["train"])
+evaluate.main(argv["evaluate"])
+mesh.destroy()
+"""
+
+
+def _torchrun(what: str, program: list, timeout: float) -> tuple:
+    """``program`` (``["-m", module, *args]``, or ``["--no-python",
+    executable, *args]``) under ``torch.distributed.run --standalone``
+    with ``DP_RANKS`` processes on this machine (a rendezvous on a free
+    localhost port); (JSON lines printed, host seconds). Raises on a
+    failure or past ``timeout``, killing the job."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(DP_RANKS), *program]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    log("data-parallel:cli", f"{time.strftime('%H:%M:%S')} torchrun {what}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{what} under torchrun: still running after "
+                             f"{timeout:.0f} s, killed:\n{out[-3000:]}")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} under torchrun: rc "
+                             f"{proc.returncode}:\n{out[-3000:]}")
+    return ([json.loads(ln) for ln in out.splitlines()
+             if ln.startswith("{")], seconds)
+
+
+def _dp_cli(root: str) -> dict:
+    """``cli.train`` under torchrun for 1 epoch, then one torchrun launch
+    (``DP_RESUME_EVALUATE``) of ``cli.train``'s main resuming to a second
+    and ``cli.evaluate``'s main; see ``phase_data_parallel``."""
+    what = "data-parallel:cli"
+    run = os.path.join(root, "run")
+    base = ["--cfg", os.path.join(REPO, ENGINE_CFG), "--log_dir", run]
+    first, s1 = _torchrun(
+        "-m closerlook3d_tpu_torch.cli.train",
+        ["-m", "closerlook3d_tpu_torch.cli.train", *base, *DP_CLI_OVERRIDES],
+        DP_TIMEOUT)
+    spe = 64 // (8 * DP_RANKS)
+    if sorted((r["rank"], r["world_size"], r["resumed_step"], r["step"])
+              for r in first) != [(r, DP_RANKS, None, spe)
+                                  for r in range(DP_RANKS)]:
+        raise AssertionError(f"{what}: first run {first}")
+    argv = {"device": DEVICE,
+            "train": base + DP_CLI_OVERRIDES + ["epochs=2"],
+            "evaluate": ["--cfg", os.path.join(REPO, ENGINE_CFG),
+                         "--log_dir", os.path.join(root, "eval"),
+                         "--load_path", os.path.join(run, "ckpt")]
+            + DP_CLI_OVERRIDES}
+    lines, s2 = _torchrun(
+        "cli.train's main (resume), then cli.evaluate's",
+        ["--no-python", sys.executable, "-c", DP_RESUME_EVALUATE,
+         json.dumps(argv)], DP_TIMEOUT)
+    again = [r for r in lines if "rank" in r]
+    results = [r for r in lines if "rank" not in r]
+    if sorted((r["rank"], r["resumed_step"], r["step"]) for r in again) != [
+            (r, spe, 2 * spe) for r in range(DP_RANKS)]:
+        raise AssertionError(f"{what}: resumed run {again}")
+    if len({r["best"] for r in again}) != 1:
+        raise AssertionError(f"{what}: ranks disagree on the best value "
+                             f"{again}")
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+    if ckpts != sorted([f"ckpt_{spe}.pt", f"ckpt_{2 * spe}.pt"]):
+        raise AssertionError(f"{what}: checkpoints {ckpts}")
+    with open(os.path.join(run, "scalars.jsonl")) as f:
+        rows = [json.loads(ln) for ln in f]
+    keys = [(r["tag"], r["step"]) for r in rows]
+    if len(keys) != len(set(keys)):
+        raise AssertionError(f"{what}: duplicate scalar rows: two writers")
+    val = {r["step"]: r["value"] for r in rows if r["tag"] == "val/acc"}
+    if len(results) != 1:
+        raise AssertionError(f"{what}: evaluate printed {results}")
+    # the evaluator and the trainer's validation reduce the same shards
+    if abs(results[0]["accuracy"] - val[2 * spe]) > 1e-9:
+        raise AssertionError(f"{what}: evaluate accuracy {results[0]} "
+                             f"against validation's {val}")
+    with open(os.path.join(run, "log.txt")) as f:
+        log_text = f.read()
+    backend = re.search(r"(\d+) process\(es\) of \d+ clouds a step on "
+                        r"(\S+) \((\w+)\)", log_text)
+    return {"train_s": s1, "resume_evaluate_s": s2,
+            "steps_per_epoch": spe, "val_acc": val,
+            "evaluate": results[0], "checkpoints": ckpts,
+            "layout": backend.groups() if backend else None}
+
+
+def _dp_step_checks(wrappers) -> dict:
+    """Part (a) of ``phase_data_parallel``: the ranks' steps against one
+    process's."""
+    from closerlook3d_tpu_torch.parallel.spawn import run_ranks
+
+    phase = "data-parallel"
+    cases, single = [], {}
+    t_single = time.perf_counter()
+    for kind in DP_KINDS:
+        cfg = dp_config(kind)
+        gcfg = copy.deepcopy(cfg)
+        gcfg.batch_size = DP_RANKS * DP_BATCH
+        batch = train_batch(gcfg, SEED + 800)
+        batch["mask"][3, DP_POINTS * 6 // 10:] = False  # padded clouds
+        batch["mask"][DP_BATCH + 1, DP_POINTS // 3:] = False
+        batch = {k: batch[k] for k in ("xyz", "mask", "features", "label")}
+        weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 80))
+        single[kind] = _dp_steps(cfg, weights, batch, wrappers, True,
+                                 _dp_orders(DP_RANKS * DP_BATCH))
+        cases.append((kind, cfg, weights, batch))
+    torch.cuda.synchronize()
+    t_spawn = time.perf_counter()
+    ranks = run_ranks(_dp_rank, DP_RANKS, (cases,), device=DEVICE,
+                      timeout=DP_TIMEOUT)
+    spawn_s = time.perf_counter() - t_spawn
+    out = {"ranks": DP_RANKS, "spawn_s": spawn_s,
+           "single_s": t_spawn - t_single,
+           "rank_seconds": [r["seconds"] for r in ranks]}
+    bad = []
+    for kind in DP_KINDS:
+        per = [r[kind] for r in ranks]
+        expected = single[kind]["bf16"]["launches"][0]
+        if expected != launches_per(kind, "train"):
+            raise AssertionError(f"{phase}:{kind}: one process launched "
+                                 f"{expected}")
+        checked = _dp_compare(
+            kind, single[kind], per,
+            {name: ranks[0]["controls"][name][kind] for name in DP_CONTROLS},
+            expected)
+        gaps = checked["gaps"]
+        bad += checked["bad"]
+        med = {name: float(np.median(run["bf16"]["step_ms"][DP_STEPS:]))
+               for name, run in (("ranks", per[0]), ("single", single[kind]))}
+        coll = per[0]["bf16"]["collectives"]
+        coll_ms = float(np.median(per[0]["bf16"]["collective_ms"][DP_STEPS:]))
+        out[kind] = {"gaps": gaps, "limits": checked["limits"],
+                     "controls": checked["controls"],
+                     "backend": per[0]["backend"],
+                     "step_ms_ranks": [r["bf16"]["step_ms"] for r in per],
+                     "step_ms_single": single[kind]["bf16"]["step_ms"],
+                     "median_ms_rank0": med["ranks"],
+                     "median_ms_single": med["single"],
+                     "collectives_per_step": coll,
+                     "collective_host_ms_median": coll_ms,
+                     "launches_per_step": {k: v for k, v in expected.items()
+                                           if v},
+                     "losses_single": single[kind]["bf16"]["losses"],
+                     "losses_ranks": per[0]["bf16"]["losses"]}
+        log(f"{phase}:{kind}", f"{gpu_line()} | {DP_RANKS} ranks "
+            f"({per[0]['backend']}, one card shared) x {DP_BATCH} clouds "
+            f"against one process x {DP_RANKS * DP_BATCH}, {DP_POINTS} "
+            f"points, width {cases[0][1].width}, depth {cases[0][1].depth}: "
+            f"f32 step loss rel gap {gaps['f32_loss_rel']:.3g}, gradient "
+            f"rel L2 max {gaps['f32_grad_rel_l2_max']:.3g} (one process "
+            f"reordered: {gaps['reordered_f32_grad_rel_l2_max']:.3g}), "
+            f"params rel L2 {gaps['f32_params_rel_l2']:.3g}; bf16 losses "
+            + " ".join(f"{v:.5f}" for v in per[0]["bf16"]["losses"])
+            + " against " + " ".join(f"{v:.5f}" for v in
+                                     single[kind]["bf16"]["losses"])
+            + f" (rel max {gaps['bf16_loss_rel_max']:.3g}; parameters rel "
+            f"L2 {gaps['bf16_params_rel_l2']:.3g}, running statistics "
+            f"{gaps['bf16_stats_rel_l2']:.3g}); parameters bit-equal "
+            f"across ranks; launches a step per rank equal to one "
+            f"process's ({sum(expected.values())}); bf16 step median by "
+            f"CUDA events over {DP_TIMED}: rank 0 {med['ranks']:.3f} ms, "
+            f"one process {med['single']:.3f} ms (ranks share one card, "
+            f"the CLI's launches beside: no measure of scaling); "
+            f"{coll[-1]} collectives a step, host {coll_ms:.3f} ms a step")
+    log(phase, f"one process {out['single_s']:.1f} s; the ranks spawned "
+        f"and stepped in {spawn_s:.1f} s (rank 0: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in ranks[0]["seconds"].items()) + ")")
+    if bad:  # every config's and control's gaps are logged above
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_data_parallel(wrappers) -> dict:
+    """Data parallelism on the card, ``DP_RANKS`` ranks sharing it (gloo:
+    NCCL takes one card a rank; with a card a rank the layout picks
+    NCCL).
+
+    (a) The step: for the flagship ModelNet40 config and the point-wise
+    MLP one (``dp_config``: full width and depth, 1024 points, 16 clouds
+    a rank), the ranks (``parallel/spawn.py``) and this process, on the
+    whole 32-cloud batch, from the same seeded weights: one f32 step with
+    dropout off (loss, every gradient, parameters and running statistics
+    within ``DP_F32_FLOOR`` or twice the gaps of one process on the
+    clouds reordered), then ``DP_STEPS`` bf16 steps with dropout
+    on and equal seeds (within ``DP_BF16_LIMIT``), each
+    rank's launches equal to the one process's a step (the point-wise
+    MLP's route is the global batch's), parameters bit-equal across the
+    ranks after every step; then ``DP_TIMED`` bf16 steps timed by CUDA
+    events on each side, and the collectives a step with their host time.
+    Then the controls: the ranks' f32 and bf16 steps again under each
+    broken sync of ``DP_CONTROLS``, whose gaps must pass the limits
+    (but those ``DP_CONTROL_BLIND`` and ``DP_UNSEPARATED`` name).
+
+    (b) The CLI: ``cli.train`` under torchrun for 1 epoch, then one
+    torchrun launch that resumes it with ``cli.train``'s main and runs
+    ``cli.evaluate``'s (``_dp_cli``), in a thread beside (a): its
+    launches are mostly process start-up, and (a)'s step times are read
+    with them running beside."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, f"_dp_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # the CLI's launches, mostly process start-up, run beside (a)
+            cli_future = pool.submit(_dp_cli, root)
+            out = _dp_step_checks(wrappers)
+            out["cli"] = cli_future.result()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cli = out["cli"]
+    out["seconds"] = time.perf_counter() - t0
+    log("data-parallel:cli", f"torchrun x {DP_RANKS} ({cli['layout']}): "
+        f"cli.train "
+        f"1 epoch ({cli['steps_per_epoch']} steps) {cli['train_s']:.1f} s, "
+        f"resumed by both ranks at step {cli['steps_per_epoch']} to "
+        f"{2 * cli['steps_per_epoch']}, "
+        f"checkpoints {cli['checkpoints']} by one writer, then cli.evaluate "
+        f"accuracy {cli['evaluate']['accuracy']:.4f} equal to the "
+        f"validation's, in {cli['resume_evaluate_s']:.1f} s; phase "
+        f"{out['seconds']:.1f} s, the CLI beside the ranks (spawned and "
+        f"stepped in {out['spawn_s']:.1f} s)")
     return out
 
 
@@ -4034,12 +4638,21 @@ def bq_row(record) -> dict:
 def main() -> int:
     t_start = time.perf_counter()
     record = {"device": phase_device()}
-    record["build"] = phase_build()
-    wrappers = kernel_wrappers()
-    record["k13_timing"] = phase_k13_timing()
-    record["bq_timing"] = phase_bq_timing()
-    record["device_timing"] = phase_device_timing()
+    seconds = record["phase_seconds"] = {}
 
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    record["build"] = timed("build", phase_build)
+    wrappers = kernel_wrappers()
+    record["k13_timing"] = timed("k13_timing", phase_k13_timing)
+    record["bq_timing"] = timed("bq_timing", phase_bq_timing)
+    record["device_timing"] = timed("device_timing", phase_device_timing)
+
+    t0 = time.perf_counter()
     cfg = flagship_config()
     record["parity"] = phase_kernel_parity(cfg)
     weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED))
@@ -4048,9 +4661,11 @@ def main() -> int:
     record["forward_parity"] = phase_forward_parity(
         cfg, weights, serving["batches"][1])
     record["timing"] = phase_timing(cfg, serving)
+    seconds["serving"] = time.perf_counter() - t0
 
     record["train"] = {}
     for kind in TRAIN_KINDS:
+        t0 = time.perf_counter()
         tcfg = train_config(kind)
         run = {"parity": phase_train_kernel_parity(tcfg, kind),
                "step_parity": phase_train_step_parity(tcfg, wrappers, kind)}
@@ -4076,15 +4691,21 @@ def main() -> int:
         run["launches"] = {k: sum(r[k] for r in runs) for k in wrappers}
         record["train"][kind] = run
         del training
-    record["seg"] = {name: run_segmentation(
-                         name, wrappers, record["device_timing"][f"knn:{name}"])
+        seconds[f"train:{kind}"] = time.perf_counter() - t0
+    record["seg"] = {name: timed(f"seg:{name}", run_segmentation, name,
+                                 wrappers,
+                                 record["device_timing"][f"knn:{name}"])
                      for name in SEG_NAMES}
-    record["seg_train"] = {name: run_seg_training(name, wrappers)
+    record["seg_train"] = {name: timed(f"seg_train:{name}",
+                                       run_seg_training, name, wrappers)
                            for name in SEG_TRAIN_NAMES}
-    record["device_sort"] = phase_device_sort(wrappers)
-    record["s3dis_voting"] = phase_s3dis_voting(wrappers)
-    record["engine"] = phase_engine(wrappers)
-    record["export"] = phase_export(wrappers)
+    record["device_sort"] = timed("device_sort", phase_device_sort, wrappers)
+    record["s3dis_voting"] = timed("s3dis_voting", phase_s3dis_voting,
+                                   wrappers)
+    record["engine"] = timed("engine", phase_engine, wrappers)
+    record["export"] = timed("export", phase_export, wrappers)
+    record["data_parallel"] = timed("data_parallel", phase_data_parallel,
+                                    wrappers)
     record["seconds"] = time.perf_counter() - t_start
 
     kernels_line = {"kernels": []}
@@ -4132,7 +4753,8 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)
-    log("done", f"all phases passed in {record['seconds']:.1f} s")
+    log("done", f"all phases passed in {record['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(gpu_line(), flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,11 @@ trained through ``train/`` (``make_optimizer``, ``create_train_state``,
 ``make_train_step``) and its engine (``train/loop.py::Trainer``, with
 checkpoints, auto-resume, validation and scalar logs); the evaluators
 (``train/evaluate.py``), the dataset readers and factory (``data/``), the
-device Morton sort (``ops/spatial.py``) and the command-line entry points
-(``cli/train.py``, with ``--check_data``, and ``cli/evaluate.py``).
+device Morton sort (``ops/spatial.py``), the command-line entry points
+(``cli/train.py``, with ``--check_data``, and ``cli/evaluate.py``) and
+data parallelism over ``torch.distributed`` (``parallel/``: one process a
+rank under torchrun, the step of N ranks that of one process on their N
+batches together).
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,9 @@ a checkpoint and prints the task's metrics as one JSON line, last.
 S3DIS scenes go through sphere voting, part segmentation through the
 whole-shape part mIoU, classification through the accuracy, each with
 ``train/evaluate.py``'s evaluator over the eval-mode logits of the
-restored model (``train/step.py::eval_logits``).
+restored model (``train/step.py::eval_logits``). Under torchrun each
+rank evaluates its shard (its batches, or its S3DIS rooms), the metrics
+are reduced over the ranks, and rank 0 prints them.
 """
 
 from __future__ import annotations
@@ -15,9 +17,12 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch.distributed as dist
+
 from closerlook3d_tpu_torch.data.build import build_dataset
 from closerlook3d_tpu_torch.data.loader import BatchIterator, feature_dim
 from closerlook3d_tpu_torch.models.build import build_model_and_loss
+from closerlook3d_tpu_torch.parallel import mesh
 from closerlook3d_tpu_torch.train.checkpoints import CheckpointManager
 from closerlook3d_tpu_torch.train.evaluate import (
     evaluate_classification, evaluate_partseg, evaluate_s3dis_voting)
@@ -40,7 +45,20 @@ def main(argv=None):
     p.add_argument("overrides", nargs="*")
     args = p.parse_args(argv)
 
-    device = require_device(args.device)
+    # leave the group at the end only where this run joined it (see
+    # cli/train.py)
+    joined = (not dist.is_initialized()
+              and mesh.maybe_initialize_distributed(args.device))
+    try:
+        return _evaluate(args)
+    finally:
+        if joined:
+            mesh.destroy()
+
+
+def _evaluate(args):
+    lay = mesh.layout(require_device(args.device))
+    device = lay.device
     cfg = load_config(args.cfg, parse_overrides(args.overrides))
     logger = setup_logger(args.log_dir)
     dataset = build_dataset(cfg, "test")
@@ -49,7 +67,9 @@ def main(argv=None):
     optimizer, _ = make_optimizer(cfg, 1)
     it = BatchIterator(dataset, cfg.batch_size, shuffle=False,
                        feature_spec=cfg.input_features, drop_last=False,
-                       spatial_sort=cfg.spatial_sort == "host")
+                       spatial_sort=cfg.spatial_sort == "host",
+                       process_index=lay.rank,
+                       process_count=lay.world_size)
     state = create_train_state(model, optimizer, device)
     state, _, step = CheckpointManager(args.load_path).restore(state)
     if state is None:
@@ -65,7 +85,8 @@ def main(argv=None):
         results = evaluate_classification(cfg, state, eval_logits, it)
 
     logger.info("results: %s", json.dumps(results))
-    print(json.dumps(results), flush=True)
+    if lay.rank == 0:
+        print(json.dumps(results), flush=True)
     return results
 
 

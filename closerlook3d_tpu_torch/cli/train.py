@@ -8,12 +8,21 @@ overrides typed as YAML types them. The config is read without PyYAML
     python -m closerlook3d_tpu_torch.cli.train --cfg ... --device cpu
     python -m closerlook3d_tpu_torch.cli.train --cfg ... --check_data
 
-It trains on the card unless ``--device`` names another device.
+It trains on the card unless ``--device`` names another device, and
+ends by printing, on every process, one JSON line: its rank, the world
+size, the step it resumed from (null on a fresh run), its last step and
+the best validation value. Under torchrun each process is one
+data-parallel rank (``parallel/mesh.py``: NCCL where every rank has a
+card, gloo where ranks share one or on the CPU with ``--device cpu``),
+``batch_size`` clouds a rank and step:
+
+    torchrun --nproc_per_node 2 -m closerlook3d_tpu_torch.cli.train --cfg ...
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 from closerlook3d_tpu_torch.utils.config import load_config, parse_overrides
 
@@ -39,10 +48,27 @@ def main(argv=None):
         print(rep.render())
         raise SystemExit(1 if rep.has_errors else 0)
 
+    import torch.distributed as dist
+
+    from closerlook3d_tpu_torch.parallel import mesh
     from closerlook3d_tpu_torch.train.loop import Trainer
-    trainer = Trainer(cfg, args.log_dir, load_path=args.load_path,
-                      device=args.device)
-    return trainer.fit()
+    # leave the group at the end only where this run joined it: a caller
+    # already in one keeps it (to train, then evaluate, in one launch)
+    joined = (not dist.is_initialized()
+              and mesh.maybe_initialize_distributed(args.device))
+    try:
+        lay = mesh.layout(args.device)
+        trainer = Trainer(cfg, args.log_dir, load_path=args.load_path,
+                          device=lay.device)
+        best = trainer.fit()
+        print(json.dumps({"rank": lay.rank, "world_size": lay.world_size,
+                          "resumed_step": trainer.resumed_step,
+                          "step": trainer.state.step, "best": best}),
+              flush=True)
+        return best
+    finally:
+        if joined:
+            mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ Numpy only, as in the JAX package: ``BatchIterator`` stacks the samples of
 a len/__getitem__ dataset into fixed-shape batches; the train step moves
 them to the card. ``host_pipeline(cfg)`` gives its host-side options as
 the JAX package's ``Trainer`` sets them, and ``PrefetchIterator`` builds
-the next batches in a thread while the card runs a step. Single process:
-the JAX package's per-process sharding (data parallelism) is not ported
-yet.
+the next batches in a thread while the card runs a step. With
+``process_count`` > 1 each process takes its shard of one shuffled
+order, as the JAX package's ``BatchIterator`` does.
 """
 
 from __future__ import annotations
@@ -60,11 +60,19 @@ class BatchIterator:
     padding. ``spatial_sort`` Morton-sorts each batch on the host
     (``cfg.spatial_sort == "host"``); ``transform`` (batch dict -> batch
     dict, host side) runs last, as the geometry precompute does.
+
+    Sharding over processes (DistributedSampler semantics): every process
+    draws the same order, wraps it (``np.resize``) to ``process_count``
+    times ceil(n / ``process_count``) samples and takes every
+    ``process_count``-th from ``process_index``, so that every process
+    yields the same number of batches (the step's collectives stay in
+    lockstep). ``batch_size`` is the per-process batch.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool,
                  feature_spec: str, seed: int = 0, drop_last: bool = True,
-                 spatial_sort: bool = False, transform=None):
+                 spatial_sort: bool = False, transform=None,
+                 process_index: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -73,10 +81,15 @@ class BatchIterator:
         self.drop_last = drop_last
         self.spatial_sort = spatial_sort
         self.transform = transform
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
+    def _local_count(self) -> int:
+        return -(-len(self.dataset) // self.process_count)
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._local_count()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -89,6 +102,10 @@ class BatchIterator:
         if self.shuffle:
             rng = np.random.default_rng(self.seed * 65537 + self.epoch)
             rng.shuffle(order)
+        if self.process_count > 1:
+            order = np.resize(order,
+                              self._local_count() * self.process_count)
+            order = order[self.process_index::self.process_count]
         n = len(order)
         bs = self.batch_size
         stop = (n // bs) * bs if self.drop_last else n

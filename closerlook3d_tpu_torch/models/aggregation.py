@@ -50,6 +50,8 @@ from closerlook3d_tpu_torch.ops.grouping import (
 from closerlook3d_tpu_torch.ops.moments import neighborhood_moments
 from closerlook3d_tpu_torch.ops.pseudo_grid import (
     INFLUENCE_MODES, pseudo_grid_fused)
+from closerlook3d_tpu_torch.parallel.collectives import (
+    all_reduce_sum, distributed, world)
 
 
 @functools.lru_cache(maxsize=None)
@@ -313,7 +315,9 @@ class LocalAggregation(nn.Module):
         f32, and G, D and G² stay f32 until one cast, as JAX's
         ``preferred_element_type=f32`` products do. Train mode reduces G
         with the min/max + statistics kernel and forms the masked BN's
-        mean and variance from its sums; eval mode takes the min/max of
+        mean and variance from its sums (in a process group of more than
+        one process, from their sums over ranks: one all-reduce of
+        [sum h, sum h^2, valid slots]); eval mode takes the min/max of
         h with the gather-subtract kernel. BN then ReLU commute with the
         max: relu(s * max h + b) for s >= 0, relu(s * min h + b) for s < 0.
         """
@@ -350,13 +354,22 @@ class LocalAggregation(nn.Module):
             d = torch.zeros((*q.shape[:2], g.shape[-1]), dtype=torch.float32,
                             device=g.device)
         if self.training:
-            gmax, gmin, s1, s2 = pwmlp_minmax_stats(g.to(dt), (g * g).to(dt),
-                                                    idx, mask)
+            # the route of the global batch (every rank's queries)
+            gmax, gmin, s1, s2 = pwmlp_minmax_stats(
+                g.to(dt), (g * g).to(dt), idx, mask,
+                queries=world()[0] * idx.shape[0] * idx.shape[1])
             hmax, hmin = gmax - d, gmin - d
             cnt = mask.sum(dim=-1, keepdim=True).float()
-            total = torch.clamp(cnt.sum(), min=1.0)
-            mean = (s1 - cnt * d).sum(dim=(0, 1)) / total
-            ex2 = (s2 - 2.0 * d * s1 + cnt * d * d).sum(dim=(0, 1)) / total
+            sh = (s1 - cnt * d).sum(dim=(0, 1))
+            sh2 = (s2 - 2.0 * d * s1 + cnt * d * d).sum(dim=(0, 1))
+            n = cnt.sum()
+            if distributed():  # the global batch's sums, K6f's per rank
+                sums = all_reduce_sum(torch.cat([sh, sh2, n.reshape(1)]))
+                co = sh.shape[0]
+                sh, sh2, n = sums[:co], sums[co:-1], sums[-1]
+            total = torch.clamp(n, min=1.0)
+            mean = sh / total
+            ex2 = sh2 / total
             var = torch.clamp(ex2 - mean ** 2, min=0.0)
             eff_s, eff_b = bn.stats_affine(mean, var)
         else:

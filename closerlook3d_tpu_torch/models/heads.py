@@ -21,6 +21,7 @@ from torch import nn
 from closerlook3d_tpu_torch.models.backbone import StageOutput
 from closerlook3d_tpu_torch.models.nn_utils import ConvBN, compute_dtype
 from closerlook3d_tpu_torch.ops.interpolate import nearest_upsample
+from closerlook3d_tpu_torch.parallel.collectives import rows_of_rank, world
 from closerlook3d_tpu_torch.utils.config import stage_plan
 
 
@@ -37,14 +38,24 @@ def dropout(x: torch.Tensor, rate: float,
     """Flax ``nn.Dropout`` in train mode: keep each value with probability
     1 - rate and scale it by 1 / (1 - rate). The keep mask is drawn from
     ``generator`` (on x's device), never from the global RNG; rate 0
-    returns x unchanged."""
+    returns x unchanged.
+
+    In a process group of W processes, where x holds rank r's B rows of a
+    global batch of W B, the mask is drawn over the global shape [W B,
+    ...] from the generator, which every rank seeds alike, and rank r
+    keeps rows [r B, (r + 1) B): the mask of a single process stepping
+    the concatenated batch, as the JAX step draws one mask over its
+    global array."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit "
                          "torch.Generator")
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    ranks, _ = world()
+    n = x.shape[0]
+    draw = torch.rand((ranks * n, *x.shape[1:]), generator=generator,
+                      device=x.device)[rows_of_rank(n)]
     return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 

@@ -5,6 +5,13 @@
 All are computed in f32 whatever the logits' dtype. The multi-shape loss
 masks the logits outside each sample's category slice to -1e9 before the
 softmax, so it has fixed shapes and no per-category branch.
+
+In a process group of more than one process each rank's loss is its
+share of the global batch's: the local sum over its rows divided by the
+global denominator (the clouds, or the valid points, of every rank,
+summed without gradient by ``parallel/collectives.py::reduce_sum``).
+The shares sum to the global loss, and the gradients of the shares,
+summed over ranks, to its gradient.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from closerlook3d_tpu_torch.parallel.collectives import distributed, reduce_sum
 
 _NEG = -1e9
 
@@ -27,7 +36,10 @@ def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     onehot = F.one_hot(labels.long(), nclass).float()
     if smoothing > 0.0:
         onehot = onehot * (1.0 - smoothing) + smoothing / nclass
-    return -(onehot * logp).sum(dim=-1).mean()
+    ce = -(onehot * logp).sum(dim=-1)
+    if distributed():
+        return ce.sum() / reduce_sum(ce.new_full((), ce.shape[0]))
+    return ce.mean()
 
 
 def _one_hot(labels: torch.Tensor, n: int) -> torch.Tensor:
@@ -56,8 +68,12 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if smoothing > 0.0:
         onehot = onehot * (1.0 - smoothing) + smoothing / nclass
     ce = -(onehot * logp).sum(dim=-1)  # [B, N]
-    w = valid.float()
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return _masked_mean(ce, valid.float())
+
+
+def _masked_mean(ce: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum(ce w) / max(sum w, 1), the denominator over every rank."""
+    return (ce * w).sum() / torch.clamp(reduce_sum(w.sum()), min=1.0)
 
 
 def category_part_table(num_parts: Sequence[int]) -> np.ndarray:
@@ -112,5 +128,4 @@ def multi_shape_cross_entropy(logits: torch.Tensor,
         onehot = (onehot * (1.0 - smoothing) + smoothing * in_slice.float()
                   / torch.clamp(count[:, :, None], min=1.0))
     ce = -(onehot * logp).sum(dim=-1)  # [B, N]
-    w = mask.float()
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return _masked_mean(ce, mask.float())

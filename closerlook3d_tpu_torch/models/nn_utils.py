@@ -12,6 +12,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from closerlook3d_tpu_torch.parallel.collectives import (
+    all_reduce_sum, distributed)
+
 
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` over the last axis (flax 0.12 numerics).
@@ -28,6 +31,12 @@ class BatchNorm(nn.Module):
     max(E[x^2] - E[x]^2, 0), and updates the running statistics with that
     *biased* variance: ra = momentum * ra + (1 - momentum) * stat.
     (``torch.nn.BatchNorm1d`` keeps the unbiased variance instead.)
+
+    In a process group of more than one process the statistics are those
+    of the global batch, as under the JAX package's data sharding: one
+    differentiable all-reduce of [sum x, sum x^2, rows] a layer
+    (``parallel/collectives.py::all_reduce_sum``), after which the
+    running statistics are equal on every rank.
     """
 
     def __init__(self, features: int, momentum: float = 0.9,
@@ -44,9 +53,17 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             rows = tuple(range(x.ndim - 1))
-            mean = x32.mean(dim=rows)
-            var = torch.clamp((x32 * x32).mean(dim=rows) - mean * mean,
-                              min=0.0)
+            if distributed():
+                c = x.shape[-1]
+                sums = all_reduce_sum(torch.cat([
+                    x32.sum(dim=rows), (x32 * x32).sum(dim=rows),
+                    x32.new_full((1,), x32.numel() // c)]))
+                mean = sums[:c] / sums[2 * c]
+                ex2 = sums[c:2 * c] / sums[2 * c]
+            else:
+                mean = x32.mean(dim=rows)
+                ex2 = (x32 * x32).mean(dim=rows)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -77,7 +94,10 @@ class MaskedBatchNorm(BatchNorm):
         ignored, and may be None, in eval mode).
 
     Train mode is ``self.training``; only it updates the running
-    statistics, with flax's momentum convention. eff_scale = scale *
+    statistics, with flax's momentum convention. In a process group of
+    more than one process, ``forward``'s statistics are the global
+    batch's: one all-reduce of [sum m x, sum m] for the mean, one of
+    sum m (x - mean)^2 for the variance. eff_scale = scale *
     rsqrt(var + eps) and eff_bias = bias - mean * eff_scale are computed in
     f32 and cast to ``dtype``.
     """
@@ -102,9 +122,18 @@ class MaskedBatchNorm(BatchNorm):
             m = mask[..., None].float()
             x32 = x.float()
             rows = tuple(range(x.ndim - 1))
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (x32 * m).sum(dim=rows) / cnt
-            var = (m * (x32 - mean) ** 2).sum(dim=rows) / cnt
+            if distributed():
+                c = x.shape[-1]
+                sums = all_reduce_sum(torch.cat([
+                    (x32 * m).sum(dim=rows), m.sum().reshape(1)]))
+                cnt = torch.clamp(sums[c], min=1.0)
+                mean = sums[:c] / cnt
+                var = all_reduce_sum(
+                    (m * (x32 - mean) ** 2).sum(dim=rows)) / cnt
+            else:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (x32 * m).sum(dim=rows) / cnt
+                var = (m * (x32 - mean) ** 2).sum(dim=rows) / cnt
         eff_scale, eff_bias = self.stats_affine(mean, var)
         return x * eff_scale + eff_bias
 

@@ -32,7 +32,10 @@ it falls short of 128 exactly up to 64; from 65 to 127 queries it pads
 to 128 and K6 runs. The route is kept for the reference's numerics at
 those shapes, not for speed: on it s1 and s2 come out of K13 in g's
 dtype (rounded to bf16 in a bf16 model), where K6 sums in f64 and
-rounds to f32.
+rounds to f32. Under data parallelism the caller passes the global
+batch's query count (every rank's clouds), as the JAX package's sharded
+step sees its shapes, so that every rank takes the route of one process
+stepping the whole batch.
 
 Sums: s1 and s2 accumulate in f64 and round once to f32, in the kernel
 and the plain version alike, so that the two agree to the bit but for
@@ -419,7 +422,7 @@ def neighborhood_sum(f, idx, mask):
     return neighborhood_sum_plain(f, idx, mask)
 
 
-def pwmlp_minmax_stats(g, gsq, idx, mask):
+def pwmlp_minmax_stats(g, gsq, idx, mask, queries=None):
     """(gmax, gmin, s1, s2), each [B, Nq, C] f32 and 0 where a
     neighborhood is empty: masked max, min and sum of g[idx] and masked sum
     of gsq[idx]. g, gsq [B,Ns,C] in one dtype (bf16 or f32; gsq is g² in
@@ -427,12 +430,13 @@ def pwmlp_minmax_stats(g, gsq, idx, mask):
     reaches g through the caller's ``g * g``); idx [B,Nq,K] int32; mask
     [B,Nq,K] bool. Differentiable in g and gsq.
 
-    Where B·Nq <= ``K13_ROUTE_MAX_QUERIES`` the sums come from
+    Where ``queries`` (default B·Nq; under data parallelism the global
+    batch's) is at most ``K13_ROUTE_MAX_QUERIES`` the sums come from
     ``neighborhood_sum`` over [g, gsq] in g's dtype and the extrema from
     ``gather_sub_minmax`` against zeros, as the JAX package composes them
     there (see the module's note); elsewhere K6 gives all four."""
     b, nq, _ = idx.shape
-    if b * nq <= K13_ROUTE_MAX_QUERIES:
+    if (b * nq if queries is None else queries) <= K13_ROUTE_MAX_QUERIES:
         c = g.shape[2]
         s = neighborhood_sum(torch.cat([g, gsq], dim=-1), idx, mask)
         hmax, hmin = gather_sub_minmax(g, g.new_zeros((b, nq, c)), idx, mask)

@@ -9,6 +9,10 @@ mid-save never leaves a file that ``latest_step`` picks; keep-last-k
 deletes the oldest files after that. ``restore`` maps the tensors to the
 device of the state it fills, so a checkpoint written on the card
 restores on the CPU.
+
+In a process group of more than one process the ranks hold equal states
+and share the directory: rank 0 alone writes and prunes, every rank waits
+at a barrier after the save, and every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import List, Optional
 
 import torch
 
+from closerlook3d_tpu_torch.parallel.collectives import barrier, world
 from closerlook3d_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -46,6 +51,11 @@ class CheckpointManager:
                if not isinstance(v, numbers.Number)}
         if bad:
             raise TypeError(f"checkpoint extra must be numeric: {bad}")
+        if world()[1] == 0:
+            self._write(step, state, extra)
+        barrier()
+
+    def _write(self, step: int, state: TrainState, extra: dict) -> None:
         path = self._path(step)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:

@@ -15,8 +15,12 @@ parameters (``project_to_full``): the pruned 1-NN kernel on the card
 CPU. Ties go to the lowest sub-point index; the JAX package's kd-tree
 breaks them as it happens to.
 
-Single process (``parallel/collectives.py``): the reductions across
-processes are not ported.
+Across processes (``parallel/collectives.py``): classification sums its
+counts, part segmentation concatenates its shape IoUs and sums its
+confusions, each rank having evaluated its shard of the batches; S3DIS
+voting gives the rooms out round-robin, votes and projects only its own
+rooms, keeps its rounds in lockstep with every rank's, and sums the
+confusions.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from closerlook3d_tpu_torch.data.spatial_host import morton_sort_batch
 from closerlook3d_tpu_torch.ops.neighbors import knn, query_chunk
 from closerlook3d_tpu_torch.ops.spatial import apply_permutation, morton_sort
 from closerlook3d_tpu_torch.parallel.collectives import (
-    all_processes_concat, all_processes_min, all_processes_sum)
+    all_processes_concat, all_processes_min, all_processes_sum, world)
 from closerlook3d_tpu_torch.train.metrics import (
     iou_from_confusion, miou_from_shape_ious, partnet_miou,
     shapenetpart_shape_iou)
@@ -145,21 +149,34 @@ def evaluate_s3dis_voting(cfg, dataset, state, eval_logits_fn,
     tensor on any device or an array; the projection to the full clouds
     runs on the device of the state's model (``model_device``). Returns
     mIoU, OA and per-class IoU on the full clouds, the sub-cloud mIoU and
-    OA, and the number of sphere batches."""
+    OA, and the number of sphere batches (summed over processes).
+
+    Across processes, rank r owns rooms r, r + P, ...: the potentials of
+    the others are pinned to +inf, so that ``pick_center`` never draws
+    there. Every rank runs the same number of rounds, until the smallest
+    potential of every rank's rooms reaches ``num_votes`` (a rank whose
+    rooms are covered votes on; a rank with no room sends +inf), and
+    projects and counts its own rooms alone."""
     device = model_device(state)
     nroom = len(dataset.xyz)
+    ranks, rank = world()
+    owned = list(range(rank, nroom, ranks))
     scores = [np.zeros((len(x), dataset.num_classes), np.float32)
               for x in dataset.xyz]
     counts = [np.zeros(len(x), np.float32) for x in dataset.xyz]
     # fresh potentials for a deterministic covering
     pots = [np.random.default_rng(7 + i).random(len(x)).astype(np.float32)
             * 1e-3 for i, x in enumerate(dataset.xyz)]
+    for r in range(nroom):
+        if r not in owned:
+            pots[r][:] = np.inf
     dataset.potentials = pots
 
     bs = cfg.batch_size
     vote_round = 0
     while True:
-        local_min = min(p.min() for p in pots)
+        local_min = (min(pots[r].min() for r in owned) if owned
+                     else float("inf"))
         if all_processes_min(local_min) >= cfg.num_votes:
             break
         samples = []
@@ -191,7 +208,7 @@ def evaluate_s3dis_voting(cfg, dataset, state, eval_logits_fn,
 
     conf = np.zeros((dataset.num_classes, dataset.num_classes), np.float64)
     sub_conf = np.zeros_like(conf)
-    for r in range(nroom):
+    for r in owned:
         seen = counts[r] > 0
         sub_pred = scores[r].argmax(1)
         lab = dataset.labels[r]

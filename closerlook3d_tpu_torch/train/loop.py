@@ -3,7 +3,8 @@ validation, checkpoints, logging.
 
 ``Trainer(cfg, workdir, load_path=None, device="cuda")`` builds the
 datasets, the batch iterators (prefetched when ``num_workers > 0``), the
-model, the optimizer and the train state on ``device``, then resumes
+model, the optimizer and the train state on ``device`` (in a process
+group, the rank's device of its layout), then resumes
 from ``workdir/ckpt`` if it holds a checkpoint (else warm-starts from
 ``load_path``). ``fit()`` runs ``train_one_epoch`` and, every
 ``val_interval`` epochs, ``validate``; it saves to ``workdir/ckpt``
@@ -12,8 +13,16 @@ best validation model (mIoU, else accuracy) in ``workdir/ckpt_best``.
 The host reads the step's metrics every ``log_interval`` steps and at
 the end of an epoch, and nowhere else, so the other steps queue on the
 card without waiting; a non-finite loss at such a reading raises
-``FloatingPointError``. Single process: ``data_parallel`` other than -1
-or 1 raises (ROADMAP A5).
+``FloatingPointError``.
+
+Data parallelism: in a process group (``parallel/mesh.py``, joined
+before the ``Trainer`` is built, as the CLIs do) every rank trains its
+shard of each epoch's order (``BatchIterator``'s ``process_index``),
+``cfg.batch_size`` clouds a step, and the step is the global batch's
+(``train/step.py``). ``data_parallel`` must be -1 or the world size and
+``model_parallel`` 1 (``make_mesh``). Validation sums over ranks; rank 0
+alone writes scalars and checkpoints. The loss read at a logging step is
+the global one, so a non-finite loss stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from closerlook3d_tpu_torch.models.build import (
     build_model_and_loss, part_counts)
 from closerlook3d_tpu_torch.models.losses import category_part_table
 from closerlook3d_tpu_torch.parallel.collectives import all_processes_sum
+from closerlook3d_tpu_torch.parallel.mesh import layout, make_mesh, shard_batch
 from closerlook3d_tpu_torch.train.checkpoints import CheckpointManager
 from closerlook3d_tpu_torch.train.metrics import (
     AverageMeter, confusion_matrix, iou_from_confusion)
@@ -54,12 +64,9 @@ def device_batch(batch):
 class Trainer:
     def __init__(self, cfg, workdir: str, load_path: Optional[str] = None,
                  device="cuda"):
-        self.device = require_device(device)
-        if cfg.data_parallel not in (-1, 1) or cfg.model_parallel != 1:
-            raise NotImplementedError(
-                f"data_parallel={cfg.data_parallel}, model_parallel="
-                f"{cfg.model_parallel}: the port trains in one process on "
-                f"one device (data parallelism: ROADMAP A5)")
+        self.layout = make_mesh(cfg.data_parallel, cfg.model_parallel,
+                                layout(require_device(device)))
+        self.device = self.layout.device
         self.cfg = cfg
         self.workdir = workdir
         self.logger = setup_logger(workdir)
@@ -69,7 +76,9 @@ class Trainer:
         self.train_set = build_dataset(cfg, "train")
         self.val_set = build_dataset(cfg, "test")
         cfg.input_features_dim = feature_dim(cfg.input_features)
-        pipeline = host_pipeline(cfg)
+        pipeline = dict(host_pipeline(cfg),
+                        process_index=self.layout.rank,
+                        process_count=self.layout.world_size)
         self.train_iter = BatchIterator(
             self.train_set, cfg.batch_size, shuffle=True,
             feature_spec=cfg.input_features, seed=cfg.rng_seed, **pipeline)
@@ -87,8 +96,10 @@ class Trainer:
             cfg, steps_per_epoch)
         self.state = create_train_state(model, self.optimizer, self.device)
         self.logger.info(
-            "model built: %s / %s — %.2fM params", cfg.task,
-            cfg.local_aggregation_type, param_count(self.state) / 1e6)
+            "model built: %s / %s — %.2fM params; %d process(es) of %d "
+            "clouds a step on %s (%s)", cfg.task, cfg.local_aggregation_type,
+            param_count(self.state) / 1e6, self.layout.world_size,
+            cfg.batch_size, self.device, self.layout.backend or "no group")
 
         num_parts = (part_counts(cfg) if cfg.task == "part_segmentation"
                      else None)
@@ -102,6 +113,7 @@ class Trainer:
         self.ckpt_best = CheckpointManager(f"{workdir}/ckpt_best", keep=1)
         self.start_epoch = cfg.start_epoch
         restored, extra, step = self.ckpt.restore(self.state)
+        self.resumed_step = step  # None on a fresh run
         if restored is not None:
             self.start_epoch = (int(extra["epoch"]) + 1 if extra
                                 else cfg.start_epoch)
@@ -119,7 +131,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def _run_step(self, batch):
         self.state, metrics = self.train_step(
-            self.state, device_batch(batch), self.seed)
+            self.state, shard_batch(device_batch(batch), self.layout),
+            self.seed)
         return metrics
 
     def train_one_epoch(self, epoch: int):
@@ -171,7 +184,8 @@ class Trainer:
         table = (category_part_table(part_counts(cfg))
                  if cfg.task == "part_segmentation" else None)
         for batch in self.val_iter:
-            logits, metrics = self.eval_step(self.state, device_batch(batch))
+            logits, metrics = self.eval_step(
+                self.state, shard_batch(device_batch(batch), self.layout))
             keep = ~batch["batch_pad"]
             loss_m.update(float(metrics["loss"]), int(keep.sum()))
             lg = logits.float().cpu().numpy()

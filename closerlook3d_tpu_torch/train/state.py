@@ -15,6 +15,7 @@ from typing import Union
 import torch
 from torch import nn
 
+from closerlook3d_tpu_torch.parallel.collectives import broadcast_module_
 from closerlook3d_tpu_torch.train.schedules import SGD, AdamW
 
 
@@ -47,8 +48,11 @@ def create_train_state(model: nn.Module, tx: Union[SGD, AdamW],
     """Move ``model`` of any task (weights as built: the task's builder,
     e.g. ``build_classification``, seeds them with ``cfg.rng_seed``, where
     the JAX package draws them here) to ``device`` and bind the optimizer
-    to its parameters."""
+    to its parameters. In a process group of more than one process, rank
+    0's parameters and buffers are then broadcast, so that every rank
+    starts equal."""
     model = model.to(require_device(device))
+    broadcast_module_(model)
     return TrainState(model=model, tx=tx, optimizer=tx.init(model))
 
 

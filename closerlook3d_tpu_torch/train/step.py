@@ -7,6 +7,19 @@ Dropout draws from a ``torch.Generator`` seeded from (seed, state.step),
 as the JAX step folds the step into its dropout key. Batches are numpy
 dicts (``data/loader.py::BatchIterator``) or tensors; ``geom_*`` keys
 carry a precomputed ``compute_geometry`` dict, as in the JAX step.
+
+Data parallelism: in a process group of more than one process each rank
+steps its own rows of the global batch and the step is the JAX package's
+step on the global batch. BatchNorm statistics and loss denominators are
+taken over every rank (``models/nn_utils.py``, ``models/losses.py``), so
+each rank's loss is its share of the global loss; after ``backward`` the
+gradients are summed over ranks in one all-reduce
+(``parallel/collectives.py::reduce_gradients``), so that the clip and the
+update see the global gradient and every rank applies the same update.
+Dropout draws the global batch's mask from the (seed, step) generator,
+which every rank seeds alike, and keeps its own rows
+(``models/heads.py::dropout``). The metrics are the global batch's, and
+so is the eval step's loss.
 """
 
 from __future__ import annotations
@@ -17,6 +30,8 @@ import numpy as np
 import torch
 
 from closerlook3d_tpu_torch.models.losses import category_slice_mask
+from closerlook3d_tpu_torch.parallel.collectives import (
+    distributed, reduce_gradients, reduce_sum)
 from closerlook3d_tpu_torch.train.state import TrainState
 
 
@@ -37,6 +52,22 @@ def apply_task_loss(task: str, loss_fn: Callable, logits, batch):
     raise ValueError(f"unknown task: {task}")
 
 
+def _hits(task: str, logits, batch, num_parts):
+    """(hits, weights): 1.0 where the argmax is right, per cloud
+    (classification; weights None) or per valid point (weights the mask;
+    part segmentation masks the logits outside each sample's category
+    slice first)."""
+    if task == "classification":
+        return (torch.argmax(logits, dim=-1) == batch["label"]).float(), None
+    if task not in ("scene_segmentation", "part_segmentation"):
+        raise ValueError(f"unknown task: {task}")
+    if task == "part_segmentation" and num_parts:
+        sl = category_slice_mask(batch["category"], tuple(num_parts))
+        logits = logits.masked_fill(~sl[:, None, :], float("-inf"))
+    m = batch["mask"].float()
+    return (torch.argmax(logits, dim=-1) == batch["labels"]).float() * m, m
+
+
 def task_metrics(task: str, logits, batch,
                  num_parts: Optional[Sequence[int]] = None
                  ) -> Dict[str, torch.Tensor]:
@@ -44,18 +75,22 @@ def task_metrics(task: str, logits, batch,
     points of a segmentation batch. With ``num_parts``, part segmentation
     masks the logits outside each sample's category slice before the
     argmax (the multi-shape loss leaves them untrained)."""
-    if task == "classification":
-        pred = torch.argmax(logits, dim=-1)
-        return {"acc": (pred == batch["label"]).float().mean()}
-    if task not in ("scene_segmentation", "part_segmentation"):
-        raise ValueError(f"unknown task: {task}")
-    if task == "part_segmentation" and num_parts:
-        sl = category_slice_mask(batch["category"], tuple(num_parts))
-        logits = logits.masked_fill(~sl[:, None, :], float("-inf"))
-    pred = torch.argmax(logits, dim=-1)
-    m = batch["mask"].float()
-    correct = (pred == batch["labels"]).float() * m
-    return {"acc": correct.sum() / torch.clamp(m.sum(), min=1.0)}
+    hits, m = _hits(task, logits, batch, num_parts)
+    if m is None:
+        return {"acc": hits.mean()}
+    return {"acc": hits.sum() / torch.clamp(m.sum(), min=1.0)}
+
+
+def global_metrics(task: str, loss, logits, batch,
+                   num_parts: Optional[Sequence[int]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """``task_metrics`` and the loss of the global batch, from this rank's
+    loss share and rows: one all-reduce of [loss, hits, count]."""
+    hits, m = _hits(task, logits, batch, num_parts)
+    count = hits.new_full((), hits.numel()) if m is None else m.sum()
+    sums = reduce_sum(torch.stack([loss.detach().float(), hits.sum(),
+                                   count]))
+    return {"loss": sums[0], "acc": sums[1] / torch.clamp(sums[2], min=1.0)}
 
 
 def dropout_generator(seed: int, step: int, device) -> torch.Generator:
@@ -78,6 +113,13 @@ def _device_of(state: TrainState) -> torch.device:
     return next(state.model.parameters()).device
 
 
+def _metrics(task, loss, logits, batch, num_parts):
+    if distributed():
+        return global_metrics(task, loss, logits, batch, num_parts)
+    return {"loss": loss.detach(),
+            **task_metrics(task, logits, batch, num_parts)}
+
+
 def make_train_step(loss_fn: Callable, task: str,
                     num_parts: Optional[Sequence[int]] = None):
     """The model is the state's; metrics are {"loss", "acc"} from the
@@ -93,10 +135,10 @@ def make_train_step(loss_fn: Callable, task: str,
                           dropout_generator(seed, state.step, device))
         loss = apply_task_loss(task, loss_fn, logits, batch)
         loss.backward()
+        reduce_gradients(model.parameters())
         state.apply_gradients()
         with torch.no_grad():
-            metrics = {"loss": loss.detach(),
-                       **task_metrics(task, logits, batch, num_parts)}
+            metrics = _metrics(task, loss, logits, batch, num_parts)
         return state, metrics
 
     return train_step
@@ -119,7 +161,6 @@ def make_eval_step(loss_fn: Callable, task: str,
         logits = eval_logits(state, batch)
         with torch.inference_mode():
             loss = apply_task_loss(task, loss_fn, logits, batch)
-            return logits, {"loss": loss,
-                            **task_metrics(task, logits, batch, num_parts)}
+            return logits, _metrics(task, loss, logits, batch, num_parts)
 
     return eval_step

@@ -419,8 +419,16 @@ def test_nan_loss_aborts_training(tmp_path):
 
 
 def test_trainer_refuses_data_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """One process is one data-parallel rank: data_parallel must be -1 or
+    the world size (1 here), and nothing is sharded over a model axis."""
+    with pytest.raises(ValueError, match="data_parallel=2 with 1 "
+                       "process"):
         Trainer(tiny_cfg(data_parallel=2), str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="model_parallel=2"):
+        Trainer(tiny_cfg(model_parallel=2), str(tmp_path), device="cpu")
+    t = Trainer(tiny_cfg(data_parallel=1, epochs=1), str(tmp_path),
+                device="cpu")
+    assert (t.layout.world_size, t.layout.backend) == (1, None)
 
 
 # ---- AdamW vs optax.adamw --------------------------------------------------
