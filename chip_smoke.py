@@ -51,6 +51,19 @@ with every check raising on failure and no CPU fallback:
   gradient within 2% relative L2); trains 15 bf16 steps on one batch
   (the loss must fall) with exact per-step launch counts, then an eval
   step; times the step;
+* every other config under ``configs/``, each read from its file by the
+  port's ``load_config``: PartNet's five (its xyz config at the file's 32
+  x 10000 points, depth 3, with ``Predictor`` requests and f32 logits
+  against the CPU on two clouds; the other four at 8 clouds; a stand-in
+  part table of 17 categories, since PartNet's own counts come from its
+  h5 files), S3DIS's sin/cos, adaptive-weight, point-wise MLP and
+  pseudo-grid configs (8 x 15000 points) and ShapeNetPart's xyz, sin/cos,
+  adaptive-weight and pseudo-grid configs (8 clouds of 2048): f32
+  per-point logits and geometry through the kernels against the plain
+  versions on the card, one f32 train step within 2% per gradient of the
+  plain one, 6 bf16 steps (finite losses, every parameter moved) and an
+  eval step, each with exact launches of every kernel; the step's median,
+  device busy and peak memory;
 * the ball query by device time at the 9 calls of the ModelNet40 xyz
   train step, of the S3DIS train step and of a flagship request (right
   after the build), beside its bound (bytes, or 8 operations per
@@ -821,11 +834,67 @@ def _note_close(errs, key, what, got, ref, tol):
     return err
 
 
+def agg_exact(kind, q, s, f, idx, nmask, r, red):
+    """A PosPool or adaptive-weight forward as its kernel computes it, in
+    f64: the weights (dp, or the sin/cos embedding of f32 dp) rounded to
+    the features' dtype, the products and sums exact. The kernel's f32
+    sums, rounded once, approximate it; in bf16 the plain version's
+    rounding of every product and sum drifts further from it."""
+    from closerlook3d_tpu_torch.ops.aggregation import _sincos_emb
+    from closerlook3d_tpu_torch.ops.grouping import (
+        REDUCTIONS, group_features, neighbor_offsets)
+
+    g = group_features(f.double(), idx)
+    c = f.shape[-1]
+    if kind == "sincos":
+        terms = [g * _sincos_emb(q, s, idx, r, c, f.dtype).double()]
+    else:
+        dp = neighbor_offsets(q, s, idx, r, f.dtype).double()
+        terms = ([g * dp.repeat_interleave(c // 3, dim=-1)] if kind == "xyz"
+                 else [g] + [g * dp[..., d:d + 1] for d in range(3)])
+    return torch.cat([REDUCTIONS[red](t, nmask) for t in terms], dim=-1)
+
+
+def _agg_fwd_close(errs, key, what, got, ref, tol, exact):
+    """``_note_close`` for a bf16 aggregation forward, where the plain
+    version's rounding of every product can stray beyond ``tol``: an
+    element outside it passes only where the kernel lies no farther than
+    the plain version from ``exact()`` (``agg_exact``; both are as near
+    where it falls on the midpoint of two bf16 values). Returns (max abs
+    err against the plain version, a note on the elements so judged)."""
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    g, p = got.float(), ref.float()
+    gap = (g - p).abs()
+    out = ~(gap <= tol["atol"] + tol["rtol"] * p.abs())
+    n = int(out.sum())
+    note = ""
+    if n:
+        e = exact()
+        kerr = (got.double() - e).abs()[out]
+        perr = (ref.double() - e).abs()[out]
+        if not bool((kerr <= perr).all()):
+            raise AssertionError(
+                f"{what}: {n} elements beyond {tol} of the plain version, "
+                f"the kernel farther from the exact value at some "
+                f"(kernel's errors {kerr.tolist()[:8]}, plain's "
+                f"{perr.tolist()[:8]})")
+        note = (f"; {n} of {got.numel()} elements beyond tol, the kernel "
+                f"no farther from the exact value at each (kernel max "
+                f"{float(kerr.max()):.3g}, plain max {float(perr.max()):.3g})")
+    err = float(gap.max())
+    errs[key] = max(errs.get(key, 0.0), err)
+    return err, note
+
+
 def _agg_parity(kind, pp, gen, phase) -> dict:
     """A PosPool or adaptive-weight config's aggregation kernels forward
     and backward vs their plain versions and twins (and vs autograd of
-    the plain forward) at the calls ``pp``, f32 and bf16, avg and sum;
-    {kernel: max abs err, "max_dp": largest |dp|}."""
+    the plain forward) at the calls ``pp``, f32 and bf16, avg and sum
+    (the bf16 forward as ``_agg_fwd_close`` judges it); {kernel: max abs
+    err, "max_dp": largest |dp|}."""
     (fwd_name, bwd_name), _ = AGG_KERNELS[kind]
     fwd, plain, bwd, twin, widen = agg_ops(kind)
     errs = {fwd_name: 0.0, bwd_name: 0.0}
@@ -841,9 +910,15 @@ def _agg_parity(kind, pp, gen, phase) -> dict:
                         f"{str(dtype)[6:]} {red}")
                 tol_f = _pospool_fwd_tol(dtype, red, kind)
                 tol_b = _bwd_tol(dtype, red, kind)
-                e_f = _note_close(errs, fwd_name, what,
-                                  fwd(q, s, f, idx, nmask, r, red),
-                                  plain(q, s, f, idx, nmask, r, red), tol_f)
+                got = fwd(q, s, f, idx, nmask, r, red)
+                ref = plain(q, s, f, idx, nmask, r, red)
+                if dtype == torch.float32:
+                    e_f = _note_close(errs, fwd_name, what, got, ref, tol_f)
+                    judged = ""
+                else:
+                    e_f, judged = _agg_fwd_close(
+                        errs, fwd_name, what, got, ref, tol_f,
+                        lambda: agg_exact(kind, q, s, f, idx, nmask, r, red))
                 got = bwd(q, s, idx, nmask, dy, r, red)
                 e_t = _note_close(errs, bwd_name, what + " bwd vs twin", got,
                                   twin(q, s, idx, nmask, dy, r, red), tol_b)
@@ -851,8 +926,9 @@ def _agg_parity(kind, pp, gen, phase) -> dict:
                               f, dy)
                 e_a, rel = _vs_autograd(what, got, ref, dtype, red, kind)
                 log(phase, f"{what}: max |dp| {dpm:.3f}; max abs err fwd "
-                    f"{e_f:.3g} (tol {tol_f}), bwd vs twin {e_t:.3g} (tol "
-                    f"{tol_b}), vs autograd {e_a:.3g} (L2 {rel:.2g}; "
+                    f"{e_f:.3g} (tol {tol_f}{judged}), bwd vs twin "
+                    f"{e_t:.3g} (tol {tol_b}), vs autograd {e_a:.3g} (L2 "
+                    f"{rel:.2g}; "
                     + ("tol as vs twin" if dtype == torch.float32
                        else "L2 bound 0.02") + ")")
     # the sin/cos embedding's top frequency turns |dp| ~ 1 into ~100 rad
@@ -991,9 +1067,10 @@ def _pwmlp_parity(pp, gen, phase) -> dict:
         return worst
 
     f32 = torch.float32
-    # the twins on CPU copies run in a host thread beside the checks on
-    # the card; each is held to its kernel's bits once the loop is done
-    pool = ThreadPoolExecutor(max_workers=1)
+    # the twins on CPU copies run in host threads beside the checks on the
+    # card, four at a time (one alone leaves the host's cores partly
+    # idle); each is held to its kernel's bits once the loop is done
+    pool = ThreadPoolExecutor(max_workers=4)
     twins = []
 
     def twin(what, got, fn, args):
@@ -1354,17 +1431,20 @@ def phase_eval_grad_parity(tcfg, wrappers, kind: str) -> dict:
             "grad_rel_l2_median": median, "launches": kcounts}
 
 
-def _train_steps(step, state, batch, per_step, wrappers, what) -> dict:
-    """TRAIN_STEPS steps on one batch, each with exactly the launches of
+def _train_steps(step, state, batch, per_step, wrappers, what,
+                 steps: int = TRAIN_STEPS) -> dict:
+    """``steps`` steps on one batch, each with exactly the launches of
     ``per_step``, timed by CUDA events and the host clock; the loss and
-    every gradient must stay finite and the loss must fall (the mean of
-    the last three steps under that of the first three). {"losses",
-    "accs", "step_ms", "host_ms", "launches" (summed), "peak_gib"}."""
+    every gradient must stay finite, and over TRAIN_STEPS steps the loss
+    must fall (the mean of the last three steps under that of the first
+    three; six steps at a file's learning rate need not lower it over
+    hundreds of part logits). {"losses", "accs", "step_ms", "host_ms",
+    "launches" (summed), "peak_gib"}."""
     totals = dict.fromkeys(wrappers, 0)
     losses, accs, step_ms, host_ms = [], [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         reset_counts(wrappers)
@@ -1386,9 +1466,10 @@ def _train_steps(step, state, batch, per_step, wrappers, what) -> dict:
         if not (np.isfinite(losses[-1]) and torch.isfinite(gnorm).all()):
             raise AssertionError(f"{what} step {i}: loss {losses[-1]} or a "
                                  f"gradient is not finite")
-    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+    if (steps >= TRAIN_STEPS
+            and not np.mean(losses[-3:]) < np.mean(losses[:3])):
         raise AssertionError(f"{what}: the loss did not fall over "
-                             f"{TRAIN_STEPS} steps: {losses}")
+                             f"{steps} steps: {losses}")
     return {"losses": losses, "accs": accs, "step_ms": step_ms,
             "host_ms": host_ms, "launches": totals,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1487,10 +1568,13 @@ def _device_time(fn, inputs, reps: int, per_op=None):
     call runs it (its events over ``reps``, rounded, at least 1), summed
     over them, and the number of ops a call. The mean, not the sum over
     ``reps``, because a profile can miss some of a window's events; raises
-    if an op ran more often than that. Unlike ``_time`` it leaves out the
-    host's launch path and the gaps between launches. A dict given as
-    ``per_op`` receives each op's ms a call by name."""
-    from torch.profiler import ProfilerActivity, profile
+    if an op ran more often than that. Each window opens with a warm-up
+    step, one call traced and discarded: the first device events after
+    tracing starts can go missing (a whole call's leading ops, on the
+    H100). Unlike ``_time`` it leaves out the host's launch path and the
+    gaps between launches. A dict given as ``per_op`` receives each op's
+    ms a call by name."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for a in inputs:  # warm-up
         fn(*a)
@@ -1498,10 +1582,16 @@ def _device_time(fn, inputs, reps: int, per_op=None):
     spans = {}
     for _ in range(3):  # a window whose device events all went missing
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn(*inputs[0])
+            torch.cuda.synchronize()
+            prof.step()
             for i in range(reps):
                 fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
+            prof.step()
         for e in prof.events():
             if _is_device_op(e):
                 spans.setdefault(e.name, []).append(
@@ -1900,9 +1990,10 @@ def _max_cases(tcfg, pps, gen):
 
 
 def _step_timing(cfg, training, phase) -> dict:
-    """A training run's bf16 step: the median by CUDA events over steps
-    4-15 (after warm-up), the host clock's, and a torch.profiler split of
-    3 more steps (device busy, idle share, top kernels)."""
+    """A training run's bf16 step: the median by CUDA events over its
+    steps after the first three (warm-up), the host clock's, and a
+    torch.profiler split of 3 more steps (device busy, idle share, top
+    kernels)."""
     step_ms = sorted(training["step_ms"][3:])
     host_ms = sorted(training["host_ms"][3:])
     med, hmed = step_ms[len(step_ms) // 2], host_ms[len(host_ms) // 2]
@@ -2108,19 +2199,34 @@ def seg_batch(cfg, seed: int, padded=(), all_masked=(), duplicated=(),
     return morton_sort_batch(out) if sort else out
 
 
+def config_kind(cfg) -> str:
+    """The config's aggregation, as ``AGG_KERNELS`` names it."""
+    agg = cfg.local_aggregation_type
+    if agg == "pospool":
+        return "xyz" if cfg.pospool.position_embedding == "xyz" else "sincos"
+    return {"adaptive_weight": "adaptive", "pointwisemlp": "pwmlp",
+            "pseudo_grid": "pgrid"}[agg]
+
+
 def seg_launches(cfg) -> dict:
     """Exact launches of every kernel in one segmentation request: the
-    encoder's (9 ball queries, FPS between stages unless the config
-    samples by grid, 14 PosPool, 4 maxima) and the decoder's 1-NN per
+    encoder's (a ball query per stage and per stage transition, FPS
+    between stages unless the config samples by grid, the eval forward's
+    aggregation kernels at every call of ``agg_calls_per_stage``, a
+    shortcut maximum per stage transition) and the decoder's 1-NN per
     stage, on the route of the JAX package's chunked 1-NN for supports of
     >= 1024 points, else on that of its k-NN."""
     from closerlook3d_tpu_torch.ops.neighbors import KNN1_CHUNKED_MIN_SUPPORT
     from closerlook3d_tpu_torch.utils.config import stage_plan
 
     npoints = stage_plan(cfg)["npoints"]
+    transitions = len(npoints) - 1
     counts = dict.fromkeys(kernel_wrappers(), 0)
-    counts.update(ball_query=9, pospool_xyz=14, neighborhood_max=4,
-                  fps=4 if cfg.sampling == "fps" else 0)
+    counts.update(ball_query=1 + 2 * transitions,
+                  neighborhood_max=transitions,
+                  fps=transitions if cfg.sampling == "fps" else 0)
+    for name in agg_kernels(config_kind(cfg), "forward"):
+        counts[name] += sum(agg_calls_per_stage(cfg))
     for ns in npoints[1:]:
         counts["knn1" if ns >= KNN1_CHUNKED_MIN_SUPPORT else "knn"] += 1
     return counts
@@ -2431,38 +2537,67 @@ def run_segmentation(name: str, wrappers, device: list) -> dict:
 
 # ---- segmentation training --------------------------------------------------
 
-SEG_TRAIN_NAMES = ("shapenetpart_pwmlp", "s3dis")
-# ShapeNetPart's config trains 32 clouds a step; split over four
-# data-parallel ranks, each rank's step holds 8
+# The segmentation configs of configs/, each read from its file by
+# ``file_config``, in the order they run: the two that train for
+# TRAIN_STEPS, then PartNet's five (the only depth-3 models and
+# 10000-point clouds of configs/), then S3DIS's and ShapeNetPart's others
+CONFIG_RUNS = (
+    "shapenetpart/pointwisemlp_dp_fi_df_fc1_max", "s3dis/pospool_xyz_avg",
+    "partnet/pospool_xyz_avg", "partnet/pospool_sincos_avg",
+    "partnet/adaptive_weight_dp_fc1_avg",
+    "partnet/pointwisemlp_dp_fi_df_fc1_max", "partnet/pseudo_grid",
+    "s3dis/pospool_sincos_avg", "s3dis/adaptive_weight_dp_fc1_avg",
+    "s3dis/pointwisemlp_dp_fi_df_fc1_max", "s3dis/pseudo_grid",
+    "shapenetpart/pospool_xyz_avg", "shapenetpart/pospool_sincos_avg",
+    "shapenetpart/adaptive_weight_dp_fc1_avg", "shapenetpart/pseudo_grid")
+# the runs of TRAIN_STEPS steps, whose loss must fall, by the names the
+# timing tools give them; the others take CONFIG_STEPS
+SEG_TRAIN_FILES = {
+    "shapenetpart_pwmlp": "shapenetpart/pointwisemlp_dp_fi_df_fc1_max",
+    "s3dis": "s3dis/pospool_xyz_avg"}
+SEG_TRAIN_NAMES = tuple(SEG_TRAIN_FILES)
+# bf16 steps of the other runs (the step's median over the last three)
+CONFIG_STEPS = 6
+# ShapeNetPart's and PartNet's configs train 32 clouds a step; split over
+# four data-parallel ranks, each rank's step holds 8. Every run but
+# ``PARTNET_FULL`` trains 8 clouds a step (S3DIS's files have 8), and every
+# run's parity checks take 8: the f32 step through the plain versions,
+# whose autograd through the plain gathers holds a [B, N, K, C] tensor a
+# term
 SEG_TRAIN_BATCH = 8
+# the one run at its file's full batch, 32 x 10000 points
+PARTNET_FULL = "partnet/pospool_xyz_avg"
+# PartNet's per-category part counts come from its h5 files (the largest
+# label of each category, plus one: data/partnet.py), which are not in the
+# repository. A stand-in, not PartNet's own counts: 17 categories, as many
+# as PartNet's fine-grained (level-3) segmentation benchmark has, of 4 to
+# 51 parts, 268 part logits a point. No kernel's shape depends on them:
+# they size the head's last layer and the loss's category slices
+PARTNET_STANDIN_PARTS = (15, 9, 39, 11, 7, 4, 5, 10, 12, 10, 41, 6, 7, 24,
+                         51, 11, 6)
 # steps per epoch for the LR schedule: any count does, with warmup off
 # the cosine moves the LR by < 1e-4 of itself over 15 steps
 SEG_STEPS_PER_EPOCH = 2000
 NSUM_KERNELS = ("neighborhood_sum", "neighborhood_sum_bwd")
 
 
-def seg_train_config(name: str):
-    """``configs/shapenetpart/pointwisemlp_dp_fi_df_fc1_max.yaml`` with
-    ``batch_size`` 8 (name "shapenetpart_pwmlp") or
-    ``configs/s3dis/pospool_xyz_avg.yaml`` as the file stands ("s3dis"),
-    set in code; a CPU test holds each to its file."""
-    if name == "s3dis":
-        return seg_config("s3dis")
-    if name != "shapenetpart_pwmlp":
-        raise ValueError(name)
-    cfg = seg_config("shapenetpart")
-    cfg.local_aggregation_type = "pointwisemlp"
-    cfg.pointwisemlp.feature_type = "dp_fi_df"
-    cfg.pointwisemlp.num_mlps = 1
-    cfg.pointwisemlp.reduction = "max"
-    cfg.batch_size = SEG_TRAIN_BATCH
+def file_config(name: str):
+    """``configs/<name>.yaml`` read by the port's ``load_config``, with
+    the cuts of a config run: ``SEG_TRAIN_BATCH`` clouds a step but for
+    ``PARTNET_FULL``, and PartNet's stand-in part counts."""
+    from closerlook3d_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs", name + ".yaml"))
+    if name != PARTNET_FULL:
+        cfg.batch_size = min(cfg.batch_size, SEG_TRAIN_BATCH)
+    if cfg.datasets == "partnet":
+        cfg.num_parts = list(PARTNET_STANDIN_PARTS)
     return cfg
 
 
-def seg_train_kind(name: str) -> str:
-    """The aggregation of a segmentation training run, as ``AGG_KERNELS``
-    names it."""
-    return "pwmlp" if name == "shapenetpart_pwmlp" else "xyz"
+def seg_train_config(name: str):
+    """The config of a ``SEG_TRAIN_NAMES`` run, read from its file."""
+    return file_config(SEG_TRAIN_FILES[name])
 
 
 def agg_calls_per_stage(cfg) -> list:
@@ -2475,31 +2610,31 @@ def agg_calls_per_stage(cfg) -> list:
 
 def seg_train_launches(cfg, kind: str, mode: str) -> dict:
     """Exact launches of every kernel in one train step (``mode`` "train")
-    or eval step ("forward") of a segmentation config: the geometry of
-    ``seg_launches``, the 4 shortcut maxima (and their backward), and per
-    aggregation call PosPool xyz, or for the point-wise MLP in train mode
-    K6 where the batch's queries B·Nq exceed 64 and K13 + K7 up to 64
-    (the route of ``ops/gather_reduce.py::pwmlp_minmax_stats``), in eval
-    mode K7."""
+    or eval step ("forward") of a segmentation config of aggregation
+    ``kind``: the geometry of ``seg_launches``, a shortcut maximum per
+    stage transition (and its backward), and per aggregation call the
+    train step's kernels of ``AGG_KERNELS`` (for the point-wise MLP K6
+    where the batch's queries B·Nq exceed 64 and K13 + K7 up to 64, the
+    route of ``ops/gather_reduce.py::pwmlp_minmax_stats``), or the eval
+    forward's."""
     from closerlook3d_tpu_torch.ops.gather_reduce import (
         K13_ROUTE_MAX_QUERIES)
     from closerlook3d_tpu_torch.utils.config import stage_plan
 
-    train = mode == "train"
-    counts = dict(seg_launches(cfg), pospool_xyz=0)
-    if train:
-        counts["neighborhood_max_bwd"] = 4
+    counts = seg_launches(cfg)
+    if mode == "forward":
+        return counts
+    for name in agg_kernels(kind, "forward"):
+        counts[name] = 0
+    counts["neighborhood_max_bwd"] = counts["neighborhood_max"]
     for ncalls, nq in zip(agg_calls_per_stage(cfg),
                           stage_plan(cfg)["npoints"]):
-        if kind == "xyz":
-            names = ["pospool_xyz"] + (["pospool_xyz_bwd"] if train else [])
-        elif not train:
-            names = ["gather_sub_minmax"]
-        elif cfg.batch_size * nq <= K13_ROUTE_MAX_QUERIES:
+        if (kind == "pwmlp"
+                and cfg.batch_size * nq <= K13_ROUTE_MAX_QUERIES):
             names = ["neighborhood_sum", "neighborhood_sum_bwd",
                      "gather_sub_minmax", "gather_sub_minmax_bwd"]
         else:
-            names = ["pwmlp_stats", "pwmlp_stats_bwd"]
+            names = agg_kernels(kind, "train")
         for n in names:
             counts[n] += ncalls
     return counts
@@ -2660,13 +2795,14 @@ def phase_seg_train_parity(cfg, name: str) -> dict:
     """The train step's kernels vs their plain versions at every call
     shape of the config, f32 and bf16, on a padded, an all-masked and a
     duplicated cloud: ball query, FPS and the upsample k-NN; the
-    aggregation kernels forward and backward (PosPool xyz, or the point-
-    wise MLP's K6 and K7 at every call and K13 at the calls on its route);
-    the shortcut max forward and backward. {kernel: max abs err}."""
+    aggregation kernels of ``AGG_KERNELS`` forward and backward (for the
+    point-wise MLP K6 and K7 at every call and K13 at the calls on its
+    route); the shortcut max forward and backward. {kernel: max abs
+    err}."""
     from closerlook3d_tpu_torch.models.backbone import compute_geometry
     from closerlook3d_tpu_torch.ops.neighbors import knn_plain
 
-    kind = seg_train_kind(name)
+    kind = config_kind(cfg)
     dev = torch.device(DEVICE)
     nb = cfg.batch_size
     b = seg_batch(cfg, SEED + 1100, padded=(nb - 4,), all_masked=(nb - 3,),
@@ -2688,8 +2824,12 @@ def phase_seg_train_parity(cfg, name: str) -> dict:
             f"({fn.__name__}): idx and d2 equal")
     if kind == "pwmlp":
         errs.update(_pwmlp_parity(pp, gen, phase))
-        errs.update(_nsum_parity(pp, gen, phase))
-        errs["route_bn_gap"] = _route_bn_gap(pp, gen, phase)
+        # where the step takes the K13 route (B·Nq <= 64 at a call)
+        if seg_train_launches(cfg, kind, "train")["neighborhood_sum"]:
+            errs.update(_nsum_parity(pp, gen, phase))
+            errs["route_bn_gap"] = _route_bn_gap(pp, gen, phase)
+    elif kind == "pgrid":
+        errs.update(_pgrid_parity(cfg, pp, gen, phase))
     else:
         errs.update(_agg_parity(kind, pp, gen, phase))
     errs.update(_max_parity(cfg, pp, gen, phase))
@@ -2707,7 +2847,7 @@ def phase_seg_train_step_parity(cfg, name: str, wrappers) -> dict:
     from closerlook3d_tpu_torch.train import (
         create_train_state, make_optimizer, make_train_step)
 
-    kind = seg_train_kind(name)
+    kind = config_kind(cfg)
     cfg = copy.deepcopy(cfg)
     cfg.precision = "f32"
     cfg.dropout_rate = 0.0
@@ -2742,9 +2882,16 @@ def phase_seg_train_step_parity(cfg, name: str, wrappers) -> dict:
     n = len(gaps)
     median = sorted(gaps.values())[n // 2]
     worst = sorted(gaps.items(), key=lambda kv: -kv[1])[:5]
-    log(phase, f"f32 step (geometry in the step) kernels vs plain: loss "
-        f"{kloss:.6f} vs {ploss:.6f}; all {n} parameters have a nonzero "
-        f"gradient; relative L2 gradient gap median {median:.3g}, worst "
+    # reordering the point-wise MLP's BatchNorm sums moves its gradient by
+    # up to ~5% (its variance E[h^2] - mean^2 cancels); K6 and its plain
+    # version both sum in f64 and round once
+    spread = ("; reordering its BatchNorm sums would move it by up to ~5%, "
+              "but both routes sum them in f64 and round once"
+              if kind == "pwmlp" else "")
+    log(phase, f"f32 step (geometry in the step, {cfg.batch_size} clouds) "
+        f"kernels vs plain: loss {kloss:.6f} vs {ploss:.6f}; all {n} "
+        f"parameters have a nonzero gradient; relative L2 gradient gap "
+        f"(limit 2%{spread}) median {median:.3g}, worst "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst)
         + f"; updated params and running stats agree; launches "
         + str({k: v for k, v in kcounts.items() if v}))
@@ -2752,16 +2899,18 @@ def phase_seg_train_step_parity(cfg, name: str, wrappers) -> dict:
             "grad_rel_l2_median": median, "params": n, "launches": kcounts}
 
 
-def phase_seg_training(cfg, name: str, wrappers) -> dict:
-    """TRAIN_STEPS bf16 steps of the config on one batch, warmup off at
-    the config's base LR, with exact launches per step; the loss must
-    fall. Then an eval step, with its launches."""
+def phase_seg_training(cfg, name: str, wrappers,
+                       steps: int = TRAIN_STEPS) -> dict:
+    """``steps`` bf16 steps of the config on one batch, warmup off at the
+    config's base LR, with exact launches per step, every parameter moved
+    and, over TRAIN_STEPS steps, a falling loss. Then an eval step, with
+    its launches."""
     from closerlook3d_tpu_torch.models import build_model_and_loss
     from closerlook3d_tpu_torch.models.build import part_counts
     from closerlook3d_tpu_torch.train import (
         create_train_state, make_eval_step, make_optimizer, make_train_step)
 
-    kind = seg_train_kind(name)
+    kind = config_kind(cfg)
     cfg = copy.deepcopy(cfg)
     cfg.warmup_epoch = 0
     model, loss_fn = build_model_and_loss(cfg)
@@ -2772,10 +2921,18 @@ def phase_seg_training(cfg, name: str, wrappers) -> dict:
     step = make_train_step(loss_fn, cfg.task, num_parts)
     batch = seg_train_batch(cfg, SEED + 1300, padded=(1,))
     per_step = seg_train_launches(cfg, kind, "train")
-    run = _train_steps(step, state, batch, per_step, wrappers, name)
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+    run = _train_steps(step, state, batch, per_step, wrappers, name, steps)
+    still = [n for n, p in state.model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"{name}: {len(still)} parameters did not move "
+                             f"over {steps} steps, first {still[:4]}")
+    del before
     losses, accs, peak = run["losses"], run["accs"], run["peak_gib"]
     phase = f"seg-training:{name}"
-    log(phase, f"{TRAIN_STEPS} bf16 steps, batch {cfg.batch_size} x "
+    log(phase, f"{steps} bf16 steps, batch {cfg.batch_size} x "
         f"{cfg.num_points} points, lr {lr(0):g}: loss "
         + " ".join(f"{v:.4f}" for v in losses)
         + f"; acc {accs[0]:.3f} -> {accs[-1]:.3f}; launches per step "
@@ -2904,12 +3061,6 @@ def _nsum_timing(cfg, phase) -> dict:
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
     return out
-
-
-def phase_seg_train_timing(cfg, name: str, training) -> dict:
-    """The bf16 train step's median by CUDA events over steps 4-15 and
-    its profiled device split."""
-    return _step_timing(cfg, training, f"seg-train-timing:{name}")
 
 
 def phase_k13_timing() -> dict:
@@ -3053,20 +3204,114 @@ def phase_bq_timing() -> dict:
     return out
 
 
-def run_seg_training(name: str, wrappers) -> dict:
-    """Every segmentation training phase of one config."""
-    cfg = seg_train_config(name)
-    run = {"parity": phase_seg_train_parity(cfg, name),
-           "step_parity": phase_seg_train_step_parity(cfg, name, wrappers)}
-    training = phase_seg_training(cfg, name, wrappers)
+# ---- every segmentation config of configs/ ---------------------------------
+
+def phase_config_logits(cfg, name: str, weights, wrappers) -> dict:
+    """f32 per-point logits of one request through the kernels against
+    the same request through the plain versions, both on the card (a
+    padded and a duplicated cloud), with the f32 request's exact launches
+    and none on the plain route; and the request's geometry (sampling,
+    neighborhoods and upsample indices) equal on both routes."""
+    from closerlook3d_tpu_torch.models.backbone import compute_geometry
+    from closerlook3d_tpu_torch.serving import Predictor
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.precision = "f32"
+    nb = cfg32.batch_size
+    b = seg_batch(cfg32, SEED + 1400, padded=(1,), duplicated=(nb - 1,))
+    predictor = Predictor(cfg32, weights, device=DEVICE)
+    phase = f"config-logits:{name}"
+    out, counts, geometry = {}, {}, {}
+    for route in ("kernel", "plain"):
+        with (plain_route() if route == "plain"
+              else contextlib.nullcontext()):
+            reset_counts(wrappers)
+            out[route] = predictor(b["xyz"], b["mask"], b["features"])
+            torch.cuda.synchronize()
+            counts[route] = read_counts(wrappers)
+            with torch.no_grad():
+                geometry[route] = compute_geometry(
+                    cfg32, torch.from_numpy(b["xyz"]).to(DEVICE),
+                    torch.from_numpy(b["mask"]).to(DEVICE), need_up=True)
+    expected = seg_launches(cfg32)
+    check_counts(f"{phase} request", counts["kernel"], expected)
+    check_counts(f"{phase} plain route", counts["plain"],
+                 dict.fromkeys(wrappers, 0))
+    for k, t in geometry["plain"].items():
+        if not torch.equal(geometry["kernel"][k], t):
+            raise AssertionError(f"{phase} geometry {k}: kernels and plain "
+                                 f"versions differ")
+    lk, lp = out["kernel"], out["plain"]
+    width = predictor.model.head.fc.out_features
+    if tuple(lk.shape) != (nb, cfg32.num_points, width):
+        raise AssertionError(f"{phase}: logits {tuple(lk.shape)}")
+    # f32 throughout (TF32 off): the kernels and the plain versions sum
+    # the neighborhoods in different orders
+    torch.testing.assert_close(lk, lp, rtol=1e-3, atol=1e-4)
+    err = float((lk - lp).abs().max())
+    log(phase, f"f32 per-point logits {tuple(lk.shape)}, kernels vs plain "
+        f"versions on the card: max abs err {err:.3g} (|logits| max "
+        f"{float(lp.abs().max()):.3g}; rtol 1e-3, atol 1e-4); geometry "
+        f"({len(geometry['plain'])} tensors) equal; request launches "
+        + str({k: v for k, v in expected.items() if v}))
+    return {"max_abs_err": err, "clouds": nb,
+            "geometry_tensors": len(geometry["plain"]),
+            "launches": expected}
+
+
+def run_config(name: str, wrappers) -> dict:
+    """One config of ``CONFIG_RUNS`` on the card: f32 logits through the
+    kernels against the plain versions (``phase_config_logits``); for
+    ``PARTNET_FULL`` also bf16 requests through ``Predictor`` with exact
+    launches, timed, and f32 logits against the CPU on two clouds; at
+    ``SEG_TRAIN_BATCH`` clouds, every kernel of the train step against its
+    plain version at every call shape, f32 and bf16, forward and backward
+    (``phase_seg_train_parity``), and one f32 train step through the
+    kernels against one through the plain versions (each gradient within
+    2% relative L2); TRAIN_STEPS bf16 steps for the ``SEG_TRAIN_FILES``
+    runs, else ``CONFIG_STEPS``, with exact launches, finite losses and
+    every parameter moved, and an eval step; the step's median, device
+    busy and peak memory."""
+    cfg = file_config(name)
+    kind = config_kind(cfg)
+    run = {"kind": kind, "batch_size": cfg.batch_size,
+           "num_points": cfg.num_points, "depth": cfg.depth}
+    weights = seeded_weights(cfg, torch.Generator().manual_seed(SEED + 40))
+    run["logits"] = phase_config_logits(cfg, name, weights, wrappers)
+    main_path = []
+    if name == PARTNET_FULL:
+        serving = phase_seg_serving(cfg, name, weights, wrappers)
+        run["serving"] = {k: v for k, v in serving.items()
+                          if k not in ("predictor", "batches")}
+        main_path.append(serving["launches"])
+        # the CPU's plain forward at 10000 points and depth 3: two clouds
+        run["forward_parity"] = phase_seg_forward_parity(
+            cfg, name, weights, serving["batches"][1], clouds=2)
+        del serving
+    pcfg = copy.deepcopy(cfg)
+    pcfg.batch_size = min(cfg.batch_size, SEG_TRAIN_BATCH)
+    run["parity"] = phase_seg_train_parity(pcfg, name)
+    run["step_parity"] = phase_seg_train_step_parity(pcfg, name, wrappers)
+    run["parity_clouds"] = pcfg.batch_size
+    steps = (TRAIN_STEPS if name in SEG_TRAIN_FILES.values()
+             else CONFIG_STEPS)
+    training = phase_seg_training(cfg, name, wrappers, steps)
     run["training"] = {k: v for k, v in training.items()
                        if k not in ("state", "step", "batch")}
-    run["timing"] = phase_seg_train_timing(cfg, name, training)
-    # launches on the run's main path: the bf16 train steps and the eval
-    # step
-    run["launches"] = {k: training["launches"][k]
-                       + training["eval_launches"][k] for k in wrappers}
+    phase = f"config:{name}"
+    run["timing"] = _step_timing(cfg, training, phase)
+    main_path += [training["launches"], training["eval_launches"]]
+    run["launches"] = {k: sum(r[k] for r in main_path) for k in wrappers}
     run["launches_per_step"] = training["launches_per_step"]
+    run["eval_launches"] = training["eval_launches"]
+    del training
+    torch.cuda.empty_cache()
+    t = run["timing"]
+    log(phase, f"{kind}, {cfg.batch_size} x {cfg.num_points} points, depth "
+        f"{cfg.depth}: step median {t['step_ms_median']:.3f} ms, device "
+        f"busy {t['split']['device_busy_ms']:.3f} ms/step, peak "
+        f"{run['training']['peak_gib']:.2f} GiB; launches a step "
+        + str({k: v for k, v in run["launches_per_step"].items() if v}))
     return run
 
 
@@ -4812,13 +5057,13 @@ REPLACES = {
 
 def home_kind(kernel: str) -> str:
     """The run that gives a kernel's launches and times: the segmentation
-    serving runs for the k-NN, the ShapeNetPart point-wise MLP training
-    run for K13 (its only caller's route), else the training config whose
-    aggregation it is, else the xyz config."""
+    serving runs for the k-NN, ``phase_k13_timing`` for K13 (which only
+    the segmentation point-wise MLP's train step reaches), else the
+    training config whose aggregation it is, else the xyz config."""
     if kernel == "knn":
         return "seg"
     if kernel in NSUM_KERNELS:
-        return "seg_train"
+        return "nsum"
     return next((k for k in AGG_KERNELS
                  if kernel in agg_kernels(k, "train")
                  + agg_kernels(k, "eval_grad")), "xyz")
@@ -4872,12 +5117,11 @@ def knn_row(record) -> dict:
 
 def nsum_row(record, name: str) -> dict:
     """The kernels line's row of K13 forward (``neighborhood_sum``) or
-    backward: launches and errors from the ShapeNetPart point-wise MLP
-    training run, times from ``phase_k13_timing``."""
-    run = record["seg_train"]["shapenetpart_pwmlp"]
+    backward: times from ``phase_k13_timing``, launches and errors from
+    the config runs (``with_config_runs``)."""
+    run = record["configs"][SEG_TRAIN_FILES["shapenetpart_pwmlp"]]
     t = record["k13_timing"][name]
-    return {"launches": run["launches"][name],
-            "max_abs_err": run["parity"][name],
+    return {"launches": 0, "max_abs_err": 0.0,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
@@ -4891,7 +5135,8 @@ def nsum_row(record, name: str) -> dict:
                             "count matrix (its transpose backward), the "
                             "TPU kernel's formulation; building the "
                             "matrix is left out of the time",
-            "config": "seg_train:shapenetpart_pwmlp (per step)",
+            "config": "config:shapenetpart/pointwisemlp_dp_fi_df_fc1_max "
+                      "(per step)",
             "launches_per_step": run["launches_per_step"][name]}
 
 
@@ -4910,6 +5155,24 @@ def bq_row(record) -> dict:
             "bound_note": "bytes once, or 8 f32 operations per in-radius "
                           "(query, valid support) pair; all_pairs_ms: 8 "
                           "per (valid query, valid support) pair"}
+
+
+def with_config_runs(row, record) -> dict:
+    """The row with the launches of the config runs' main paths (bf16
+    steps, eval step, ``PARTNET_FULL``'s requests) added to its count and
+    kept beside it, by config, and its max abs err over the config runs'
+    parity checks too."""
+    name = row["name"]
+    keys = ("knn1", "knn") if name == "knn" else (name,)
+    runs = record["configs"]
+    by_config = {c: sum(run["launches"][k] for k in keys)
+                 for c, run in runs.items()}
+    row["launches"] += sum(by_config.values())
+    row["config_runs_launches"] = by_config
+    row["max_abs_err"] = max([row["max_abs_err"]]
+                             + [run["parity"][name] for run in runs.values()
+                                if name in run["parity"]])
+    return row
 
 
 def main() -> int:
@@ -4973,9 +5236,9 @@ def main() -> int:
                                  wrappers,
                                  record["device_timing"][f"knn:{name}"])
                      for name in SEG_NAMES}
-    record["seg_train"] = {name: timed(f"seg_train:{name}",
-                                       run_seg_training, name, wrappers)
-                           for name in SEG_TRAIN_NAMES}
+    record["configs"] = {name: timed(f"config:{name}", run_config, name,
+                                     wrappers)
+                         for name in CONFIG_RUNS}
     record["device_sort"] = timed("device_sort", phase_device_sort, wrappers)
     record["native"] = timed("native", phase_native)
     record["s3dis_voting"] = timed("s3dis_voting", phase_s3dis_voting,
@@ -4991,14 +5254,13 @@ def main() -> int:
     for name, (src, rep, also) in REPLACES.items():
         kind = home_kind(name)
         if kind == "seg":
-            kernels_line["kernels"].append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": rep, "also_replaces": also, **knn_row(record)})
-            continue
-        if kind == "seg_train":
-            kernels_line["kernels"].append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": rep, **nsum_row(record, name)})
+            row = {"name": name, "route": "cuda", "source": src,
+                   "replaces": rep, "also_replaces": also, **knn_row(record)}
+        elif kind == "nsum":
+            row = {"name": name, "route": "cuda", "source": src,
+                   "replaces": rep, **nsum_row(record, name)}
+        if kind in ("seg", "nsum"):
+            kernels_line["kernels"].append(with_config_runs(row, record))
             continue
         run = record["train"][kind]
         t = run["timing"]["per_kernel"][name]
@@ -5028,7 +5290,7 @@ def main() -> int:
             row["also_replaces"] = also
         if name == "ball_query":
             row.update(bq_row(record))
-        kernels_line["kernels"].append(row)
+        kernels_line["kernels"].append(with_config_runs(row, record))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1, default=str)

@@ -31,7 +31,7 @@ from closerlook3d_tpu_torch.train.state import (
     create_train_state, require_device)
 from closerlook3d_tpu_torch.train.step import eval_logits
 from closerlook3d_tpu_torch.utils.config import load_config, parse_overrides
-from closerlook3d_tpu_torch.utils.logger import setup_logger
+from closerlook3d_tpu_torch.utils.logger import print_json_line, setup_logger
 
 
 def main(argv=None):
@@ -86,7 +86,7 @@ def _evaluate(args):
 
     logger.info("results: %s", json.dumps(results))
     if lay.rank == 0:
-        print(json.dumps(results), flush=True)
+        print_json_line(results)
     return results
 
 

@@ -22,9 +22,9 @@ card, gloo where ranks share one or on the CPU with ``--device cpu``),
 from __future__ import annotations
 
 import argparse
-import json
 
 from closerlook3d_tpu_torch.utils.config import load_config, parse_overrides
+from closerlook3d_tpu_torch.utils.logger import print_json_line
 
 
 def main(argv=None):
@@ -61,10 +61,9 @@ def main(argv=None):
         trainer = Trainer(cfg, args.log_dir, load_path=args.load_path,
                           device=lay.device)
         best = trainer.fit()
-        print(json.dumps({"rank": lay.rank, "world_size": lay.world_size,
-                          "resumed_step": trainer.resumed_step,
-                          "step": trainer.state.step, "best": best}),
-              flush=True)
+        print_json_line({"rank": lay.rank, "world_size": lay.world_size,
+                         "resumed_step": trainer.resumed_step,
+                         "step": trainer.state.step, "best": best})
         return best
     finally:
         if joined:

@@ -6,6 +6,7 @@ initialized, else 0. Same format as the JAX package's logger.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
@@ -52,3 +53,13 @@ def setup_logger(log_dir: Optional[str] = None,
             fh.setFormatter(fmt)
             logger.addHandler(fh)
     return logger
+
+
+def print_json_line(obj, stream=None) -> None:
+    """Print ``obj`` as one JSON line in a single write, flushed. ``print``
+    writes the text and its newline in two writes where the stream is
+    unbuffered (``PYTHONUNBUFFERED``), and a peer rank sharing the stream
+    under torchrun can write its own line between them."""
+    stream = sys.stdout if stream is None else stream
+    stream.write(json.dumps(obj) + "\n")
+    stream.flush()

@@ -741,6 +741,31 @@ def test_sincos_and_moments_kernels_match_plain(op, dtype, reduction, nq,
     assert (out[-1] == 0).all() and (got[-1] == 0).all()  # masked cloud
 
 
+@pytest.mark.parametrize("reduction", ["avg", "sum"])
+@pytest.mark.parametrize("op", ["xyz", "adaptive"])
+def test_bf16_aggregation_within_a_rounding_of_its_arithmetic(op, reduction):
+    """The bf16 PosPool xyz and moments forwards at the shape of PartNet's
+    stage-2 strided call (8 clouds of 625 queries onto 2500 supports,
+    K = 31, C = 288) against their own arithmetic in f64
+    (``chip_smoke.agg_exact``: dp rounded to bf16, products and sums
+    exact): within half a bf16 ulp of the result and the f32 sums' error.
+    The plain version rounds every product and sum to bf16 and strays
+    further."""
+    import chip_smoke
+
+    fwd = chip_smoke.agg_ops(op)[0]
+    s, smask = _cloud(30, 8, 2500, masked_frac=0.1)
+    q, qmask = s[:, :625].contiguous(), smask[:, :625].contiguous()
+    idx, nmask = ball_query_cuda(q, s, 0.3, 31, qmask, smask)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    f = torch.randn((8, 2500, 288), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got = fwd(q, s, f, idx, nmask, 0.3, reduction)
+    exact = chip_smoke.agg_exact(op, q, s, f, idx, nmask, 0.3, reduction)
+    assert got.dtype == torch.bfloat16 and got.shape == exact.shape
+    torch.testing.assert_close(got.double(), exact, rtol=2 ** -8, atol=1e-4)
+
+
 def test_sincos_kernel_at_large_angles():
     """Neighbors out to |dp| = 1 (100 rad in the top frequency): the
     kernel's sincosf of f32 angles against torch.sin / torch.cos."""

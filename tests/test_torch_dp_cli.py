@@ -8,8 +8,14 @@ writes the checkpoints and the scalars, both ranks resume from the same
 step and end at the same one with the same best value, and the evaluator
 prints the accuracy over both ranks' shards once. Each launch is bounded
 by its own time limit; past it the test fails and the job is killed.
+
+The ranks share one output pipe. Each CLI writes its JSON line in one
+write: ``print`` writes the text and its newline in two where Python's
+output is unbuffered (``PYTHONUNBUFFERED``), and rank 0's log line once
+landed between rank 1's JSON and its newline.
 """
 
+import io
 import json
 import os
 import subprocess
@@ -73,3 +79,50 @@ def test_torchrun_train_resume_evaluate(tmp_path):
     assert len(results) == 1  # rank 0 prints
     assert 0.0 <= results[0]["accuracy"] <= 1.0
     assert results[0]["num_votes"] == 1
+
+
+class _Writes(io.StringIO):
+    """A text stream that records each write."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def write(self, text):
+        self.calls.append(text)
+        return super().write(text)
+
+
+def test_json_line_is_one_write():
+    from closerlook3d_tpu_torch.utils.logger import print_json_line
+
+    out = _Writes()
+    print_json_line({"accuracy": 0.5, "num_votes": 1}, out)
+    assert out.calls == ['{"accuracy": 0.5, "num_votes": 1}\n']
+
+
+def test_train_cli_writes_its_json_line_whole(monkeypatch, tmp_path):
+    """``cli.train``'s last line, with the Trainer replaced by a stub, goes
+    out in one write."""
+    from closerlook3d_tpu_torch.cli import train
+    from closerlook3d_tpu_torch.train import loop
+
+    class _Trainer:
+        resumed_step = None
+
+        def __init__(self, cfg, workdir, load_path=None, device=None):
+            self.state = type("State", (), {"step": 8})()
+
+        def fit(self):
+            return 0.25
+
+    monkeypatch.setattr(loop, "Trainer", _Trainer)
+    out = _Writes()
+    monkeypatch.setattr(sys, "stdout", out)
+    assert train.main(["--device", "cpu", "--log_dir",
+                       str(tmp_path)]) == 0.25
+    lines = [c for c in out.calls if c.startswith("{")]
+    assert [json.loads(c) for c in lines] == [
+        {"rank": 0, "world_size": 1, "resumed_step": None, "step": 8,
+         "best": 0.25}]
+    assert all(c.endswith("\n") for c in lines)

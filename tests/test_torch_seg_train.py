@@ -448,7 +448,7 @@ def test_chip_smoke_seg_train_configs_are_the_yamls(name, path):
         want["batch_size"] = chip_smoke.SEG_TRAIN_BATCH
     assert chip_smoke.seg_train_config(name).to_dict() == want
     cfg = chip_smoke.seg_train_config(name)
-    kind = chip_smoke.seg_train_kind(name)
+    kind = chip_smoke.config_kind(cfg)
     per_step = chip_smoke.seg_train_launches(cfg, kind, "train")
     if kind == "pwmlp":  # stage 4 (8 x 8 queries) takes K13 + K7
         assert {k: per_step[k] for k in (

@@ -200,7 +200,7 @@ def _cases(step: str, kernel: str, gen) -> list:
     else:  # the aggregation calls of a segmentation step (the point-wise
         # MLP's K6 calls: those not on the K13 route)
         tcfg = chip_smoke.seg_train_config(step)
-        kind = chip_smoke.seg_train_kind(step)
+        kind = chip_smoke.config_kind(tcfg)
         for r in range(3):
             b = chip_smoke.seg_batch(tcfg, chip_smoke.SEED + 1400 + r)
             with torch.no_grad():
