@@ -1,0 +1,9 @@
+"""Device ops (kernels, memcpys, memsets) per request in the trace."""
+
+
+def read(ctx):
+    if ctx.device_ops == 0:  # no device ran: nothing to read
+        return None
+    if ctx.kind != "serve" or not ctx.units:
+        return None
+    return ctx.device_ops / ctx.units
